@@ -1,0 +1,379 @@
+"""Start-up proof of deepof_tpu_torch on one CUDA GPU (built for an H100).
+
+    python3 chip_smoke.py
+
+1. Device: prints the card's name and power limit (nvidia-smi).
+2. Kernels: builds csrc/*.cu with nvcc (one process per source, started
+   together) and holds each CUDA kernel against its plain PyTorch version on
+   the card, at the serving path's shapes and at ragged ones, printing
+   max|diff| beside the stated tolerance.
+3. Main path: a seeded synthetic 1-hour, 25 fps recording of two deepof_14
+   animals (T = 90,000) through the port's entry points: fused preprocess,
+   mm scaling + arena centring, the merged feature frame, device scaling and
+   scanned_windowed_forward into a seeded VQ-VAE (recurrent + CensNet,
+   latent 8, 10 components, window 25, block 4096). Checks the shapes,
+   finiteness and soft-count sums, that both kernels launched during the
+   run, and that the card agrees with the plain versions on the CPU over a
+   2,000-frame prefix.
+4. Prints a stage line, a kernels line, and last
+   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Any failed check exits non-zero; without a CUDA device it exits 2 before
+printing any result. Imports nothing of JAX or of deepof_tpu.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+T_FRAMES = 90_000
+FPS = 25.0
+WINDOW = 25
+BLOCK = 4096
+LATENT = 8
+N_COMPONENTS = 10
+ANIMALS = ["B", "W"]
+PREFIX = 2_000
+MM_RATIO = 380.0 / 420.0
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 (no tensor core) FLOP/s.
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+
+# Tolerances, card kernel vs the plain version on the card.
+# Windows: the same float ops in the same order -> 1e-6 absolute.
+# GRU: the H-term recurrent dot sums in another order (sequential FMAs vs a
+# blocked matmul), carried over 25 steps -> 2e-5 absolute.
+WINDOW_TOL = 1e-6
+GRU_TOL = 2e-5
+# Whole path, card vs CPU plain versions (float32 both): reductions over T
+# (outlier thresholds, scaler statistics) and matmuls sum in other orders,
+# ~1e-7 relative per op; through the encoder that grows to ~1e-5 of the
+# output's scale. Bar: 1e-4 relative to the largest |value| on the CPU.
+PATH_RTOL = 1e-4
+
+
+def _synthesize(t: int, nodes, seed: int = 0):
+    """Smooth random-walk multi-animal trajectories in pixel space
+    (the JAX package's bench.py:30-39 workload generator)."""
+    rng = np.random.default_rng(seed)
+    n = len(nodes)
+    base = rng.normal(size=(t, 2)).cumsum(axis=0) * 0.5 + 300.0
+    offsets = rng.normal(scale=15.0, size=(1, n, 2))
+    jitter = rng.normal(scale=1.0, size=(t, n, 2))
+    pos = base[:, None, :] + offsets + jitter
+    lik = np.clip(rng.beta(20, 1, size=(t, n)), 0, 1)
+    return pos.astype(np.float32), lik.astype(np.float32)
+
+
+def _fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def _log(msg: str) -> None:
+    print(f"chip_smoke: {msg}", flush=True)
+
+
+def _cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _check_kernels(torch):
+    """Phase 2: each kernel against its plain version on the card."""
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_plain
+    from deepof_tpu_torch.ops.window_kernels import (
+        window_gather_standardize,
+        window_gather_standardize_plain,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    n_feat = 3 * 28 + 32
+    win_err = 0.0
+    for rows, f, window, affine in [
+        (BLOCK + WINDOW - 1, n_feat, WINDOW, False),  # serving block, mu=0, sd=1
+        (BLOCK + WINDOW - 1, n_feat, WINDOW, True),
+        (1001, 117, WINDOW, True),                    # odd T, F not a multiple of 32
+        (40, 3, 8, True),
+    ]:
+        x = torch.randn(rows, f, generator=g).to(dev)
+        mu = torch.randn(f, generator=g).to(dev) if affine else torch.zeros(f, device=dev)
+        sd = (torch.rand(f, generator=g) + 0.5).to(dev) if affine else torch.ones(f, device=dev)
+        err = (window_gather_standardize(x, mu, sd, window)
+               - window_gather_standardize_plain(x, mu, sd, window)).abs().max().item()
+        _log(f"window_gather T={rows} F={f} window={window} affine={affine}: max|diff| {err:.3e} (tol {WINDOW_TOL:.0e})")
+        if not err <= WINDOW_TOL:
+            _fail(f"window_gather disagrees with its plain version: {err}")
+        win_err = max(win_err, err)
+
+    gru_err = 0.0
+    cases = [
+        (4096 * 32, 16, 2),  # serving: edge streams, BiGRU(2d)
+        (4096 * 28, 8, 2),   # serving: node streams, BiGRU(d)
+        (3001, 128, 2),
+        (3001, 128, 1),
+        (777, 12, 1),
+    ]
+    for b, h, d in cases:
+        t = WINDOW
+        reverse = (False, True) if d == 2 else (True,)
+        xg = torch.randn(b, t, d, 3 * h, generator=g).to(dev)
+        lengths = torch.randint(0, t + 1, (b,), generator=g)
+        lengths[0], lengths[1] = 0, t
+        mask = (torch.arange(t)[None] < lengths[:, None]).to(dev)
+        wh = (torch.randn(d, h, 3 * h, generator=g) / h ** 0.5).to(dev)
+        bhn = torch.randn(d, h, generator=g).to(dev)
+        out, fin = gru_scan(xg, mask, wh, bhn, reverse)
+        p_out, p_fin = gru_scan_plain(xg, mask, wh, bhn, reverse)
+        err = max((out - p_out).abs().max().item(), (fin - p_fin).abs().max().item())
+        _log(f"gru_scan B={b} T={t} D={d} H={h} reverse={reverse}: max|diff| {err:.3e} (tol {GRU_TOL:.0e})")
+        if not err <= GRU_TOL:
+            _fail(f"gru_scan disagrees with its plain version: {err}")
+        gru_err = max(gru_err, err)
+    torch.cuda.synchronize()
+    return win_err, gru_err
+
+
+def _time_kernels(torch):
+    """Kernel, plain-version and yardstick times at the serving shapes."""
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_plain
+    from deepof_tpu_torch.ops.window_kernels import (
+        window_gather_standardize,
+        window_gather_standardize_plain,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1)
+    f = 3 * 28 + 32
+    rows = BLOCK + WINDOW - 1
+    x = torch.randn(rows, f, generator=g).to(dev)
+    mu, sd = torch.zeros(f, device=dev), torch.ones(f, device=dev)
+    inv = 1.0 / sd
+    win = {
+        "shape": f"feats ({rows}, {f}) -> ({BLOCK}, {WINDOW}, {f}) float32",
+        "ms": _cuda_ms(torch, lambda: window_gather_standardize(x, mu, sd, WINDOW)),
+        "plain_ms": _cuda_ms(torch, lambda: window_gather_standardize_plain(x, mu, sd, WINDOW)),
+        # Yardstick only: unfold + the affine, one materialised result.
+        "library_ms": _cuda_ms(
+            torch, lambda: ((x.unfold(0, WINDOW, 1).transpose(1, 2) - mu) * inv).contiguous()
+        ),
+    }
+    win_bytes = 4 * (rows * f + 2 * f + BLOCK * WINDOW * f)
+    win["bound_ms"] = win_bytes / PEAK_BYTES * 1e3
+    win["bound_by"] = "bytes"
+
+    b, t, d, h = 4096 * 32, WINDOW, 2, 16
+    xg = torch.randn(b, t, d, 3 * h, generator=g).to(dev)
+    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    wh = (torch.randn(d, h, 3 * h, generator=g) / h ** 0.5).to(dev)
+    bhn = torch.randn(d, h, generator=g).to(dev)
+    gru_bytes = 4 * (xg.numel() + wh.numel() + bhn.numel() + b * t * d * h + b * d * h) + mask.numel()
+    gru_flops = b * t * d * (2 * 3 * h * h + 12 * h)
+    cudnn = torch.nn.GRU(2 * h, h, batch_first=True, bidirectional=True).to(dev)
+    x_in = torch.randn(b, t, 2 * h, generator=g).to(dev)
+    with torch.inference_mode():
+        gru = {
+            "shape": f"xg ({b}, {t}, {d}, {3 * h}) float32, H={h}, both directions",
+            "ms": _cuda_ms(torch, lambda: gru_scan(xg, mask, wh, bhn, (False, True))),
+            "plain_ms": _cuda_ms(torch, lambda: gru_scan_plain(xg, mask, wh, bhn, (False, True)), reps=3, warmup=1),
+            # Yardstick only: cuDNN's bidirectional GRU on the same streams
+            # (it also does the input projection, and knows no mask).
+            "library_ms": _cuda_ms(torch, lambda: cudnn(x_in)),
+        }
+    by_bytes, by_ops = gru_bytes / PEAK_BYTES * 1e3, gru_flops / PEAK_FP32 * 1e3
+    gru["bound_ms"] = max(by_bytes, by_ops)
+    gru["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    return win, gru
+
+
+def _serving_setup(torch):
+    from deepof_tpu_torch.core.graph import build_body_graph, connect_mouse
+    from deepof_tpu_torch.data import merged_feature_layout
+    from deepof_tpu_torch.models import build_model
+    from deepof_tpu_torch.ops.scaling import scale_plan
+    from deepof_tpu_torch.train.inference import ModelBundle
+
+    bodyparts = sorted(f"{a}_{bp}" for a in ANIMALS for bp in connect_mouse().nodes)
+    graph = build_body_graph(bodyparts, ANIMALS)
+    nodes = list(graph.nodes)
+    slices = []
+    for aid in ANIMALS:
+        cols = [i for i, bp in enumerate(nodes) if bp.startswith(f"{aid}_")]
+        slices.append((min(cols), max(cols) + 1))
+    columns, pairs, bridges, owner = merged_feature_layout(graph, ANIMALS, include_angles=False)
+    node_cols = [(bp, "x") for bp in nodes] + [(bp, "y") for bp in nodes] + nodes
+    layout = {
+        "node": [columns.index(c) for c in node_cols],
+        "edge": [columns.index(c) for c in sorted(graph.edge_names)],
+        "angle": None,
+    }
+    n, e = graph.n_nodes, graph.n_edges
+    model = build_model(
+        "VQVAE", (WINDOW, n, 3), (WINDOW, e, 1), graph.adjacency,
+        latent_dim=LATENT, n_components=N_COMPONENTS,
+        generator=torch.Generator().manual_seed(0), device="cuda",
+    )
+    spec = {"model": "VQVAE", "input_shape": [WINDOW, n, 3], "edge_feature_shape": [WINDOW, e, 1]}
+    return {
+        "nodes": nodes, "slices": tuple(slices), "columns": columns, "pairs": pairs,
+        "bridges": bridges, "owner": owner, "layout": layout,
+        "plan": scale_plan(columns, ANIMALS), "bundle": ModelBundle(model, spec),
+    }
+
+
+def _run_path(torch, setup, pos, lik, device, stages=None):
+    """The serving path through the port's entry points. Returns
+    (scaled frame, embeddings, soft counts); fills ``stages`` with seconds
+    per stage."""
+    from deepof_tpu_torch.data import _merged_features_program, _preprocess_positions
+    from deepof_tpu_torch.ops.scaling import scale_merged_frame
+    from deepof_tpu_torch.ops.smoothing import savgol_edges_host
+    from deepof_tpu_torch.train.inference import ModelBundle, scanned_windowed_forward
+
+    stages = {} if stages is None else stages
+    bundle = setup["bundle"]
+    if device == "cpu":
+        bundle = ModelBundle(copy.deepcopy(bundle.model).to("cpu"), bundle.rebuild_spec)
+
+    def mark(name, t0):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    t = pos.shape[0]
+    t0 = time.perf_counter()
+    edges = savgol_edges_host(pos.reshape(t, -1), 15, 14)
+    clean, presence = _preprocess_positions(
+        pos, lik, edges, True, 15, 14, True, 0.75, 3.0, 3, setup["slices"], device=device
+    )
+    t0 = mark("preprocess", t0)
+    mm = clean * MM_RATIO
+    center = np.array([300.0, 300.0], np.float32) * MM_RATIO
+    frame = _merged_features_program(
+        mm, presence.to(torch.float32), center, setup["owner"], setup["pairs"],
+        setup["bridges"], FPS, False, device=device,
+    )
+    t0 = mark("features", t0)
+    scaled = scale_merged_frame(frame, setup["plan"])
+    t0 = mark("scaling", t0)
+    emb, sc = scanned_windowed_forward(
+        bundle, scaled, setup["layout"], WINDOW, "VQVAE", block=BLOCK, device=device
+    )
+    mark("embed", t0)
+    return scaled, emb, sc
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from deepof_tpu_torch.ops import cuda_build
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan
+    from deepof_tpu_torch.ops.window_kernels import window_gather_standardize
+
+    t_start = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    _log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    # Phase 2: build and check the kernels.
+    t0 = time.perf_counter()
+    logs = cuda_build.build()
+    build_s = time.perf_counter() - t0
+    _log(f"built {sorted(logs)} in {build_s:.1f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                _log(f"  {name}: {line.strip()}")
+    win_err, gru_err = _check_kernels(torch)
+    win_t, gru_t = _time_kernels(torch)
+
+    # Phase 3: the serving path.
+    setup = _serving_setup(torch)
+    pos, lik = _synthesize(T_FRAMES, setup["nodes"])
+
+    # Card vs the plain versions on the CPU over a prefix (also the warm-up).
+    card_out = _run_path(torch, setup, pos[:PREFIX], lik[:PREFIX], "cuda")
+    cpu_out = _run_path(torch, setup, pos[:PREFIX], lik[:PREFIX], "cpu")
+    prefix_err = 0.0
+    for name, got, want in zip(("scaled frame", "embeddings", "soft counts"), card_out, cpu_out):
+        got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+        want = want.numpy() if isinstance(want, torch.Tensor) else want
+        err = float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+        _log(f"prefix of {PREFIX} frames, {name}, card vs CPU plain: max|diff| / max(1, max|cpu|) {err:.3e} (tol {PATH_RTOL:.0e})")
+        if not err <= PATH_RTOL:
+            _fail(f"card and CPU disagree on the prefix {name}: {err}")
+        prefix_err = max(prefix_err, err)
+
+    torch.cuda.reset_peak_memory_stats()
+    window_gather_standardize.launches = 0
+    gru_scan.launches = 0
+    stages = {}
+    t0 = time.perf_counter()
+    _, emb, sc = _run_path(torch, setup, pos, lik, "cuda", stages)
+    total_s = time.perf_counter() - t0
+    launches = {"window_gather": window_gather_standardize.launches, "gru_scan": gru_scan.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    n_windows = T_FRAMES - WINDOW + 1
+    if emb.shape != (n_windows, LATENT) or sc.shape != (n_windows, N_COMPONENTS):
+        _fail(f"shapes {emb.shape}, {sc.shape}")
+    if not (np.isfinite(emb).all() and np.isfinite(sc).all()):
+        _fail("non-finite embeddings or soft counts")
+    sum_err = float(np.abs(sc.sum(axis=1) - 1.0).max())
+    if not sum_err <= 1e-4:
+        _fail(f"soft counts do not sum to 1 (max |sum - 1| {sum_err})")
+    for name, count in launches.items():
+        if count <= 0:
+            _fail(f"kernel {name} was not launched on the main path")
+    _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
+
+    print(card, flush=True)
+    print(json.dumps({
+        "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s,
+        "frames": T_FRAMES, "peak_mem_gib": peak_gib, "build_s": build_s,
+        "prefix_max_rel_err": prefix_err, "card": card,
+        "wall_s": time.perf_counter() - t_start,
+    }), flush=True)
+    kernels = [
+        {"name": "window_gather_standardize", "route": "cuda",
+         "source": "deepof_tpu_torch/csrc/window_gather.cu",
+         "replaces": "deepof_tpu/ops/pallas_kernels.py:111",
+         "launches": launches["window_gather"], "max_abs_err": win_err, **win_t},
+        {"name": "gru_scan", "route": "cuda",
+         "source": "deepof_tpu_torch/csrc/gru_scan.cu",
+         "replaces": "deepof_tpu/ops/pallas_gru.py:100",
+         "launches": launches["gru_scan"], "max_abs_err": gru_err, **gru_t},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,137 @@
+"""Recurrent building blocks (port of deepof_tpu/models/blocks.py).
+
+Per-node streams are folded into the batch axis by the callers, so each GRU
+sees one large batch. The recurrence runs in ``ops.gru_kernels.gru_scan``:
+the CUDA kernel for tensors on the card, the plain loop on the CPU. GRU
+weights keep the flax GRUCell form the kernel consumes: ``wi`` (F, 3H) and
+``bi`` (3H,) for the input projection [r|z|n], ``wh`` (H, 3H) and ``bhn``
+(H,) for the recurrent side.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deepof_tpu_torch.ops.gru_kernels import gru_scan
+
+
+def lecun_normal(shape, fan_in: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+    return torch.randn(shape, generator=generator) * (1.0 / max(fan_in, 1)) ** 0.5
+
+
+def orthogonal(rows: int, cols: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+    q, r = torch.linalg.qr(torch.randn(max(rows, cols), min(rows, cols), generator=generator))
+    q = q * torch.sign(torch.diagonal(r))
+    return q if rows >= cols else q.T
+
+
+class Dense(nn.Module):
+    """Affine layer with a seeded LeCun-normal weight (out, in) and zero bias."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(lecun_normal((out_features, in_features), in_features, generator))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+def frame_validity_mask(x: torch.Tensor) -> torch.Tensor:
+    """(..., T, F) -> (..., T): True where the frame has any nonzero feature."""
+    return (x != 0.0).any(dim=-1)
+
+
+class MaskedGRU(nn.Module):
+    """Unidirectional GRU with masked carry: invalid steps keep the hidden
+    state and output zeros (packing with trailing padding)."""
+
+    def __init__(self, in_features: int, hidden_size: int, reverse: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        h = hidden_size
+        self.hidden_size = h
+        self.reverse = reverse
+        self.wi = nn.Parameter(lecun_normal((in_features, 3 * h), in_features, generator))
+        self.bi = nn.Parameter(torch.zeros(3 * h))
+        self.wh = nn.Parameter(torch.cat([orthogonal(h, h, generator) for _ in range(3)], dim=1))
+        self.bhn = nn.Parameter(torch.zeros(h))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        """x (B, T, F), mask (B, T) -> (outputs (B, T, H), final (B, H))."""
+        b, t, f = x.shape
+        xg = torch.addmm(self.bi, x.reshape(b * t, f), self.wi).reshape(b, t, 1, -1)
+        return gru_scan(xg, mask, self.wh[None].contiguous(), self.bhn[None].contiguous(), (self.reverse,))
+
+
+class BiGRU(nn.Module):
+    """Bidirectional masked GRU, concat merge. Both directions' input
+    projections are one GEMM and both recurrences one kernel launch."""
+
+    def __init__(self, in_features: int, hidden_size: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fwd = MaskedGRU(in_features, hidden_size, False, generator)
+        self.bwd = MaskedGRU(in_features, hidden_size, True, generator)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        """Returns (outputs (B, T, 2H), final (B, 2H))."""
+        b, t, f = x.shape
+        wi = torch.cat([self.fwd.wi, self.bwd.wi], dim=1)
+        bi = torch.cat([self.fwd.bi, self.bwd.bi])
+        xg = torch.addmm(bi, x.reshape(b * t, f), wi).reshape(b, t, 2, -1)
+        wh = torch.stack([self.fwd.wh, self.bwd.wh])
+        bhn = torch.stack([self.fwd.bhn, self.bwd.bhn])
+        return gru_scan(xg, mask, wh, bhn, (False, True))
+
+
+class RecurrentBlock(nn.Module):
+    """Conv1D(k=5) -> ReLU -> BiGRU(2d) -> LN -> BiGRU(d) final state -> LN
+    [-> Dense(2*latent) when d != latent], d = min(64, latent).
+
+    One temporal summary vector (B, 2*latent) per stream.
+    """
+
+    def __init__(self, in_features: int, latent_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        d = min(64, latent_dim)
+        self.latent_dim = latent_dim
+        self.conv_weight = nn.Parameter(lecun_normal((2 * d, in_features, 5), 5 * in_features, generator))
+        self.gru1 = BiGRU(2 * d, 2 * d, generator)
+        # flax LayerNorm epsilon (blocks.py:141,143), not PyTorch's 1e-5.
+        self.norm1 = nn.LayerNorm(4 * d, eps=1e-3)
+        self.gru2 = BiGRU(4 * d, d, generator)
+        self.norm2 = nn.LayerNorm(2 * d, eps=1e-3)
+        self.proj = Dense(2 * d, 2 * latent_dim, generator) if d != latent_dim else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, T, F) -> (B, 2*latent)."""
+        y = F.relu(F.conv1d(x.transpose(1, 2), self.conv_weight, padding=2)).transpose(1, 2)
+        # The packed length counts steps whose post-ReLU conv channels are
+        # not all zero, and packing keeps a PREFIX of that length wherever
+        # the zeros fell (blocks.py:130-139). A length can be 0.
+        lengths = (y > 0).any(dim=-1).sum(dim=1)
+        mask = torch.arange(y.shape[1], device=y.device)[None, :] < lengths[:, None]
+        y, _ = self.gru1(y.contiguous(), mask)
+        y = self.norm1(y)
+        _, final = self.gru2(y, mask)
+        final = self.norm2(final)
+        return final if self.proj is None else self.proj(final)
+
+
+def rms_stabilize(x: torch.Tensor) -> torch.Tensor:
+    """Per-sample RMS normalisation and clamp around encoder outputs."""
+    rms = torch.sqrt((x * x).mean(dim=-1, keepdim=True))
+    x = (x / rms.clamp(min=1.0)).clamp(-1e4, 1e4)
+    return torch.nan_to_num(x, nan=0.0, posinf=1e4, neginf=-1e4)
+
+
+def tf_style_group_reshape(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, G, F) -> (B, G, T, F) stream split used by the encoders."""
+    return x.transpose(1, 2)

@@ -1,0 +1,58 @@
+"""The recurrent sequence encoder, optionally fused with a CensNet graph
+conv over the body graph (port of deepof_tpu/models/encoders.py:43
+``RecurrentEncoder``). The TCN and transformer encoders and the angle
+stream wait for a later slice (ROADMAP queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from deepof_tpu_torch.models.blocks import Dense, RecurrentBlock, tf_style_group_reshape
+from deepof_tpu_torch.models.gnn import CensNetConv
+
+
+class RecurrentEncoder(nn.Module):
+    """Conv1D -> stacked BiGRU per node / edge stream -> CensNet -> Dense.
+
+    Call: x (B, T, N, F_node), a (B, T, E, F_edge) -> (B, latent_dim).
+    Without the GNN the node features are flattened into one stream.
+    """
+
+    def __init__(self, input_shape, edge_feature_shape, latent_dim: int,
+                 adjacency: Optional[np.ndarray] = None, use_gnn: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _, n, f_node = input_shape
+        _, e, f_edge = edge_feature_shape
+        self.use_gnn = use_gnn
+        if use_gnn:
+            self.node_block = RecurrentBlock(f_node, latent_dim, generator)
+            self.edge_block = RecurrentBlock(f_edge, latent_dim, generator)
+            self.censnet = CensNetConv(
+                2 * latent_dim, 2 * latent_dim, latent_dim, latent_dim,
+                adjacency, generator,
+            )
+            enc_dim = (n + e) * latent_dim
+        else:
+            self.block = RecurrentBlock(n * f_node, latent_dim, generator)
+            enc_dim = 2 * latent_dim
+        self.dense = Dense(enc_dim, latent_dim, generator)
+
+    def forward(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        b, t, n, f_node = x.shape
+        if self.use_gnn:
+            e, f_edge = a.shape[2:]
+            xg = tf_style_group_reshape(x).reshape(b * n, t, f_node)
+            ag = tf_style_group_reshape(a).reshape(b * e, t, f_edge)
+            node_emb = self.node_block(xg).reshape(b, n, -1)
+            edge_emb = self.edge_block(ag).reshape(b, e, -1)
+            node_g, edge_g = self.censnet(node_emb, edge_emb)
+            enc = torch.cat([node_g.reshape(b, -1), edge_g.reshape(b, -1)], dim=-1)
+        else:
+            enc = self.block(x.reshape(b, t, n * f_node))
+        return self.dense(enc)

@@ -1,0 +1,76 @@
+"""Serving-path model: the VQ-VAE encoder and codebook head
+(port of deepof_tpu/models/zoo.py:65 ``VQVAE``, eval form).
+
+The decoder is not on the serving path and comes with the training slice;
+VaDE and Contrastive come with the rest of the zoo (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from deepof_tpu_torch.device import resolve_device
+from deepof_tpu_torch.models.encoders import RecurrentEncoder
+from deepof_tpu_torch.models.heads import VectorQuantizer
+
+
+class VQVAE(nn.Module):
+    """Vector-quantised autoencoder over pose windows, encoder and head."""
+
+    def __init__(self, input_shape, edge_feature_shape, adjacency: np.ndarray,
+                 latent_dim: int, n_components: int, encoder_type: str = "recurrent",
+                 use_gnn: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if encoder_type != "recurrent":
+            raise NotImplementedError(
+                f"encoder_type={encoder_type!r}: the TCN and transformer encoders "
+                "come with ROADMAP queue 1 item 8"
+            )
+        self.encoder = RecurrentEncoder(
+            input_shape, edge_feature_shape, latent_dim, adjacency, use_gnn, generator
+        )
+        self.vq_layer = VectorQuantizer(n_components, latent_dim, generator)
+
+    def forward(self, x: torch.Tensor, a: torch.Tensor) -> dict:
+        """x (B, T, N, F), a (B, T, E, 1) -> encoder output, quantised code
+        and soft counts, from one encoder pass."""
+        enc = self.encoder(x, a)
+        quantized, soft_counts = self.vq_layer(enc)
+        return {"encoder_output": enc, "quantized": quantized, "soft_counts": soft_counts}
+
+    def encode(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x, a)
+
+    def group(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        return self.vq_layer(self.encoder(x, a))[1]
+
+
+def build_model(
+    model: str,
+    input_shape,
+    edge_feature_shape,
+    adjacency,
+    latent_dim: int,
+    n_components: int = 10,
+    encoder_type: str = "recurrent",
+    use_gnn: bool = True,
+    generator: Optional[torch.Generator] = None,
+    device="cuda",
+) -> VQVAE:
+    """Factory for the serving models, in eval mode on ``device``. Weights are
+    drawn on the CPU from ``generator`` (so one seed gives the same model on
+    every device) and then moved."""
+    if model not in ("VQVAE", "vqvae"):
+        raise NotImplementedError(
+            f"model {model!r}: VaDE and Contrastive come with ROADMAP queue 1 item 8"
+        )
+    dev = resolve_device(device)
+    net = VQVAE(
+        tuple(input_shape), tuple(edge_feature_shape), np.asarray(adjacency),
+        latent_dim, n_components, encoder_type, use_gnn, generator,
+    )
+    return net.to(dev).eval()
