@@ -4,9 +4,16 @@
 
 1. Device: prints the card's name and power limit (nvidia-smi).
 2. Kernels: builds csrc/*.cu with nvcc (one process per source, started
-   together) and holds each CUDA kernel against its plain PyTorch version on
-   the card, at the serving path's shapes and at ragged ones, printing
-   max|diff| beside the stated tolerance.
+   together), prints each kernel's registers and spills, and holds each
+   CUDA kernel against its plain PyTorch version on the card, at the
+   serving path's shapes and at ragged ones, printing max|diff| beside the
+   stated tolerance. The fused GRU layer is checked at both serving shapes
+   (the second with its LayerNorm and final carries only, whose finals must
+   equal those of the same launch with outputs), at latent 4's widths, and
+   on its L1 route: a misaligned x, a ragged B, H = 128 and long T; with
+   its launch plan (weight route, streams per CTA, shared memory, CTAs per
+   SM). Then it is timed, every step valid, at the two serving shapes and
+   at H = 128 against its bound, its plain version and cuDNN.
 3. Main path: a seeded synthetic 1-hour, 25 fps recording of two deepof_14
    animals (T = 90,000) through the port's entry points: fused preprocess,
    mm scaling + arena centring, the merged feature frame, device scaling and
@@ -46,10 +53,22 @@ MM_RATIO = 380.0 / 420.0
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 
+# The GRU layer at the serving path's two shapes, (B, F, H, D, norm,
+# outputs): the first BiGRU of the edge streams, and the LayerNorm + second
+# BiGRU of the node streams, which writes final carries only.
+GRU_SERVING_SHAPES = [(4096 * 32, 16, 16, 2, False, True), (4096 * 28, 32, 8, 2, True, False)]
+# The L1 weight route, not on the serving path: the first BiGRU of a
+# latent-64 RecurrentBlock (d = 64, BiGRU(128, 128)) over the edge streams
+# of one block of 4096 windows. Timed over 4096 streams: cuDNN's
+# bidirectional GRU at 131,072 streams of width 128 fails (an illegal
+# memory access, H100, PyTorch 2.11 + CUDA 12.8).
+GRU_WIDE_SHAPE = (4096, 128, 128, 2, False, True)
+
 # Tolerances, card kernel vs the plain version on the card.
 # Windows: the same float ops in the same order -> 1e-6 absolute.
-# GRU: the H-term recurrent dot sums in another order (sequential FMAs vs a
-# blocked matmul), carried over 25 steps -> 2e-5 absolute.
+# GRU: the F-term projection and H-term recurrent dot sums, and the
+# LayerNorm's row sums, in another order (sequential FMAs vs blocked
+# matmuls), carried over 25 steps -> 2e-5 absolute.
 WINDOW_TOL = 1e-6
 GRU_TOL = 2e-5
 # Whole path, card vs CPU plain versions (float32 both): reductions over T
@@ -95,9 +114,33 @@ def _cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _gru_inputs(torch, g, dev, b, t, f, h, d, with_norm, full=False):
+    """Seeded GRU-layer inputs on the card: x with prefix lengths 0..T (0 and
+    T always present; masked rows zero, as the encoder's are), or all T
+    where ``full``, stacked weights of 1/sqrt(fan-in) scale, and an optional
+    LayerNorm."""
+    x = torch.randn(b, t, f, generator=g)
+    lengths = torch.randint(0, t + 1, (b,), generator=g)
+    lengths[0], lengths[1] = 0, t
+    if full:
+        lengths[:] = t
+    mask = torch.arange(t)[None] < lengths[:, None]
+    x[~mask] = 0.0
+    w = (
+        torch.randn(d, f, 3 * h, generator=g) / f ** 0.5,
+        torch.randn(d, 3 * h, generator=g) * 0.1,
+        torch.randn(d, h, 3 * h, generator=g) / h ** 0.5,
+        torch.randn(d, h, generator=g) * 0.1,
+    )
+    norm = None
+    if with_norm:
+        norm = ((1.0 + 0.2 * torch.randn(f, generator=g)).to(dev), (0.2 * torch.randn(f, generator=g)).to(dev), 1e-3)
+    return x.to(dev), mask.to(dev), tuple(v.to(dev) for v in w), norm
+
+
 def _check_kernels(torch):
     """Phase 2: each kernel against its plain version on the card."""
-    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_plain
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_config, gru_scan_plain
     from deepof_tpu_torch.ops.window_kernels import (
         window_gather_standardize,
         window_gather_standardize_plain,
@@ -125,25 +168,43 @@ def _check_kernels(torch):
 
     gru_err = 0.0
     cases = [
-        (4096 * 32, 16, 2),  # serving: edge streams, BiGRU(2d)
-        (4096 * 28, 8, 2),   # serving: node streams, BiGRU(d)
-        (3001, 128, 2),
-        (3001, 128, 1),
-        (777, 12, 1),
+        # (B, T, F, H, D, norm, outputs, x 16-byte aligned)
+        (4096 * 32, WINDOW, 16, 16, 2, False, True, True),  # serving: edge streams, BiGRU(2d)
+        (4096 * 28, WINDOW, 32, 8, 2, True, False, True),   # serving: node streams, LN + BiGRU(d), finals only
+        (5000, WINDOW, 8, 8, 2, False, True, True),         # latent 4 (register route), both layers
+        (5000, WINDOW, 16, 4, 2, True, False, True),
+        (4001, WINDOW, 16, 16, 2, False, True, False),      # misaligned x: the L1 route
+        (777, WINDOW, 13, 12, 1, False, True, True),        # L1 route, ragged B, F not a multiple of 4
+        (777, WINDOW, 13, 12, 2, True, False, True),
+        (3001, WINDOW, 32, 128, 2, False, True, True),      # widest H, L1 route, float4 rows
+        (3001, WINDOW, 40, 128, 1, True, True, True),
+        # Long T: latent 64's two layers, and latent 8's first, whose
+        # register-route tiles do not fit in shared memory at T = 600.
+        (300, 120, 128, 128, 2, False, True, True),
+        (300, 120, 256, 64, 2, True, False, True),
+        (301, 600, 16, 16, 2, False, True, True),
+        # The L1 route's LayerNorm statistics per lane and step: a tile's do
+        # not fit in shared memory at T = 4000.
+        (16, 4000, 24, 8, 2, True, False, True),
     ]
-    for b, h, d in cases:
-        t = WINDOW
+    for b, t, f, h, d, with_norm, outputs, aligned in cases:
+        x, mask, w, norm = _gru_inputs(torch, g, dev, b, t, f, h, d, with_norm)
+        if not aligned:
+            x = torch.empty(x.numel() + 1, device=dev)[1:].view_as(x).copy_(x)
         reverse = (False, True) if d == 2 else (True,)
-        xg = torch.randn(b, t, d, 3 * h, generator=g).to(dev)
-        lengths = torch.randint(0, t + 1, (b,), generator=g)
-        lengths[0], lengths[1] = 0, t
-        mask = (torch.arange(t)[None] < lengths[:, None]).to(dev)
-        wh = (torch.randn(d, h, 3 * h, generator=g) / h ** 0.5).to(dev)
-        bhn = torch.randn(d, h, generator=g).to(dev)
-        out, fin = gru_scan(xg, mask, wh, bhn, reverse)
-        p_out, p_fin = gru_scan_plain(xg, mask, wh, bhn, reverse)
-        err = max((out - p_out).abs().max().item(), (fin - p_fin).abs().max().item())
-        _log(f"gru_scan B={b} T={t} D={d} H={h} reverse={reverse}: max|diff| {err:.3e} (tol {GRU_TOL:.0e})")
+        out, fin = gru_scan(x, mask, *w, reverse, norm, outputs)
+        p_out, p_fin = gru_scan_plain(x, mask, *w, reverse, norm, outputs)
+        err = (fin - p_fin).abs().max().item()
+        if outputs:
+            err = max(err, (out - p_out).abs().max().item())
+        else:
+            # Final-only mode: the same launch's finals, bit for bit.
+            _, fin_with_out = gru_scan(x, mask, *w, reverse, norm, True)
+            if not torch.equal(fin, fin_with_out):
+                _fail("gru_scan finals differ between outputs=False and outputs=True")
+        cfg = gru_scan_config(t, f, h, d, outputs, with_norm) if aligned else "x misaligned: L1 route"
+        _log(f"gru_scan B={b} T={t} F={f} H={h} D={d} norm={with_norm} outputs={outputs} {cfg}: "
+             f"max|diff| {err:.3e} (tol {GRU_TOL:.0e})")
         if not err <= GRU_TOL:
             _fail(f"gru_scan disagrees with its plain version: {err}")
         gru_err = max(gru_err, err)
@@ -151,9 +212,49 @@ def _check_kernels(torch):
     return win_err, gru_err
 
 
+def _gru_layer_cost(b, t, f, h, d, with_norm, outputs, valid):
+    """(bytes, FP32 FLOP) the fused GRU layer must move and do: x, mask,
+    weights and norm read once, outputs (if written) and finals written
+    once; for each of the ``valid`` (unmasked) stream-steps, the projections
+    6H(F + H) and ~12H gate ops per direction, and ~7F for its LayerNorm."""
+    n_bytes = 4 * (b * t * f + d * (f + h + 1) * 3 * h + d * h + b * d * h) + b * t
+    n_bytes += 4 * (2 * f if with_norm else 0) + (4 * b * t * d * h if outputs else 0)
+    flop = valid * (d * (6 * h * (f + h) + 12 * h) + (7 * f if with_norm else 0))
+    return n_bytes, flop
+
+
+def _time_gru(torch, g, dev, b, f, h, d, with_norm, outputs):
+    """The fused GRU layer at one serving shape: kernel, plain version and
+    cuDNN yardstick times, and the bound."""
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_config, gru_scan_plain
+
+    # Every step valid, as nearly every window of a recording is: the bound
+    # then counts all the work the kernel does.
+    x, mask, w, norm = _gru_inputs(torch, g, dev, b, WINDOW, f, h, d, with_norm, full=True)
+    reverse = (False, True)
+    cudnn = torch.nn.GRU(f, h, batch_first=True, bidirectional=True).to(dev)
+    ln = torch.nn.LayerNorm(f, eps=1e-3).to(dev)
+    with torch.inference_mode():
+        res = {
+            "shape": f"x ({b}, {WINDOW}, {f}) float32, H={h}, D={d}, "
+                     f"norm={with_norm}, outputs={outputs}",
+            "weights": gru_scan_config(WINDOW, f, h, d, outputs, with_norm)["route"],
+            "ms": _cuda_ms(torch, lambda: gru_scan(x, mask, *w, reverse, norm, outputs)),
+            "plain_ms": _cuda_ms(torch, lambda: gru_scan_plain(x, mask, *w, reverse, norm, outputs), reps=3, warmup=1),
+            # Yardstick only, never called by the port: cuDNN's bidirectional
+            # GRU on the same streams (it does the input projection too, and
+            # knows no mask), behind PyTorch's LayerNorm where the layer has one.
+            "library_ms": _cuda_ms(torch, (lambda: cudnn(ln(x))) if with_norm else (lambda: cudnn(x))),
+        }
+    n_bytes, flop = _gru_layer_cost(b, WINDOW, f, h, d, with_norm, outputs, int(mask.sum()))
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flop / PEAK_FP32 * 1e3
+    res["bound_ms"] = max(by_bytes, by_ops)
+    res["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    return res
+
+
 def _time_kernels(torch):
     """Kernel, plain-version and yardstick times at the serving shapes."""
-    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_plain
     from deepof_tpu_torch.ops.window_kernels import (
         window_gather_standardize,
         window_gather_standardize_plain,
@@ -179,27 +280,7 @@ def _time_kernels(torch):
     win["bound_ms"] = win_bytes / PEAK_BYTES * 1e3
     win["bound_by"] = "bytes"
 
-    b, t, d, h = 4096 * 32, WINDOW, 2, 16
-    xg = torch.randn(b, t, d, 3 * h, generator=g).to(dev)
-    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
-    wh = (torch.randn(d, h, 3 * h, generator=g) / h ** 0.5).to(dev)
-    bhn = torch.randn(d, h, generator=g).to(dev)
-    gru_bytes = 4 * (xg.numel() + wh.numel() + bhn.numel() + b * t * d * h + b * d * h) + mask.numel()
-    gru_flops = b * t * d * (2 * 3 * h * h + 12 * h)
-    cudnn = torch.nn.GRU(2 * h, h, batch_first=True, bidirectional=True).to(dev)
-    x_in = torch.randn(b, t, 2 * h, generator=g).to(dev)
-    with torch.inference_mode():
-        gru = {
-            "shape": f"xg ({b}, {t}, {d}, {3 * h}) float32, H={h}, both directions",
-            "ms": _cuda_ms(torch, lambda: gru_scan(xg, mask, wh, bhn, (False, True))),
-            "plain_ms": _cuda_ms(torch, lambda: gru_scan_plain(xg, mask, wh, bhn, (False, True)), reps=3, warmup=1),
-            # Yardstick only: cuDNN's bidirectional GRU on the same streams
-            # (it also does the input projection, and knows no mask).
-            "library_ms": _cuda_ms(torch, lambda: cudnn(x_in)),
-        }
-    by_bytes, by_ops = gru_bytes / PEAK_BYTES * 1e3, gru_flops / PEAK_FP32 * 1e3
-    gru["bound_ms"] = max(by_bytes, by_ops)
-    gru["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    gru = [_time_gru(torch, g, dev, *shape) for shape in GRU_SERVING_SHAPES + [GRU_WIDE_SHAPE]]
     return win, gru
 
 
@@ -305,7 +386,7 @@ def main() -> int:
     _log(f"built {sorted(logs)} in {build_s:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 _log(f"  {name}: {line.strip()}")
     win_err, gru_err = _check_kernels(torch)
     win_t, gru_t = _time_kernels(torch)
@@ -365,7 +446,8 @@ def main() -> int:
         {"name": "gru_scan", "route": "cuda",
          "source": "deepof_tpu_torch/csrc/gru_scan.cu",
          "replaces": "deepof_tpu/ops/pallas_gru.py:100",
-         "launches": launches["gru_scan"], "max_abs_err": gru_err, **gru_t},
+         "launches": launches["gru_scan"], "max_abs_err": gru_err, **gru_t[0],
+         "at_shapes": gru_t},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Recurrent building blocks (port of deepof_tpu/models/blocks.py).
 
 Per-node streams are folded into the batch axis by the callers, so each GRU
-sees one large batch. The recurrence runs in ``ops.gru_kernels.gru_scan``:
+sees one large batch. Each GRU layer (input projection, recurrence, and the
+LayerNorm in front of the second BiGRU) runs in ``ops.gru_kernels.gru_scan``:
 the CUDA kernel for tensors on the card, the plain loop on the CPU. GRU
 weights keep the flax GRUCell form the kernel consumes: ``wi`` (F, 3H) and
 ``bi`` (3H,) for the input projection [r|z|n], ``wh`` (H, 3H) and ``bhn``
@@ -64,14 +65,12 @@ class MaskedGRU(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor):
         """x (B, T, F), mask (B, T) -> (outputs (B, T, H), final (B, H))."""
-        b, t, f = x.shape
-        xg = torch.addmm(self.bi, x.reshape(b * t, f), self.wi).reshape(b, t, 1, -1)
-        return gru_scan(xg, mask, self.wh[None].contiguous(), self.bhn[None].contiguous(), (self.reverse,))
+        return gru_scan(x, mask, self.wi[None], self.bi[None], self.wh[None], self.bhn[None], (self.reverse,))
 
 
 class BiGRU(nn.Module):
     """Bidirectional masked GRU, concat merge. Both directions' input
-    projections are one GEMM and both recurrences one kernel launch."""
+    projections and recurrences run in one kernel launch."""
 
     def __init__(self, in_features: int, hidden_size: int,
                  generator: Optional[torch.Generator] = None):
@@ -79,15 +78,14 @@ class BiGRU(nn.Module):
         self.fwd = MaskedGRU(in_features, hidden_size, False, generator)
         self.bwd = MaskedGRU(in_features, hidden_size, True, generator)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor):
-        """Returns (outputs (B, T, 2H), final (B, 2H))."""
-        b, t, f = x.shape
-        wi = torch.cat([self.fwd.wi, self.bwd.wi], dim=1)
-        bi = torch.cat([self.fwd.bi, self.bwd.bi])
-        xg = torch.addmm(bi, x.reshape(b * t, f), wi).reshape(b, t, 2, -1)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, norm=None, outputs: bool = True):
+        """Returns (outputs (B, T, 2H) or None, final (B, 2H)); ``norm`` and
+        ``outputs`` as in :func:`gru_scan`."""
+        wi = torch.stack([self.fwd.wi, self.bwd.wi])
+        bi = torch.stack([self.fwd.bi, self.bwd.bi])
         wh = torch.stack([self.fwd.wh, self.bwd.wh])
         bhn = torch.stack([self.fwd.bhn, self.bwd.bhn])
-        return gru_scan(xg, mask, wh, bhn, (False, True))
+        return gru_scan(x, mask, wi, bi, wh, bhn, (False, True), norm, outputs)
 
 
 class RecurrentBlock(nn.Module):
@@ -119,8 +117,10 @@ class RecurrentBlock(nn.Module):
         lengths = (y > 0).any(dim=-1).sum(dim=1)
         mask = torch.arange(y.shape[1], device=y.device)[None, :] < lengths[:, None]
         y, _ = self.gru1(y.contiguous(), mask)
-        y = self.norm1(y)
-        _, final = self.gru2(y, mask)
+        # norm1 runs inside gru2's kernel, on the rows it stages; only the
+        # final carries are written.
+        norm1 = (self.norm1.weight, self.norm1.bias, self.norm1.eps)
+        _, final = self.gru2(y, mask, norm=norm1, outputs=False)
         final = self.norm2(final)
         return final if self.proj is None else self.proj(final)
 

@@ -7,7 +7,9 @@ each against its plain version there.
 
 Bars: windows rtol 1e-6 (float32; the kernel multiplies by 1/sd where the
 XLA oracle divides, one rounding apart); GRU atol 1e-6 (float32, as
-tests/test_pallas.py holds the Pallas GRU to the scan).
+tests/test_pallas.py holds the Pallas GRU to the scan), the LayerNorm'd
+GRU included (a two-pass variance against flax's E[x^2] - E[x]^2 differs
+by ~1e-7 at eps 1e-3).
 """
 
 import numpy as np
@@ -17,7 +19,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import flax.linen as fnn
+
+from deepof_tpu.models.blocks import BiGRU as JaxBiGRU
 from deepof_tpu.models.blocks import MaskedGRU as JaxMaskedGRU
+from deepof_tpu.ops.pallas_gru import gru_scan_pallas
 from deepof_tpu.ops.pallas_kernels import (
     window_gather_standardize as jax_window_gather,
     window_gather_standardize_xla,
@@ -64,10 +70,13 @@ def test_window_wrapper_checks_and_cpu_dispatch():
 
 
 def _gru_params(rng, f, h):
-    p = {g: {"kernel": rng.normal(scale=0.5, size=(f, h)).astype(np.float32),
+    # Weights of scale 0.5 at the serving widths; 1/sqrt(H)-like above, so
+    # that wide pre-activations stay O(1) as trained weights keep them.
+    sc = min(0.5, 2.0 / h ** 0.5)
+    p = {g: {"kernel": rng.normal(scale=sc, size=(f, h)).astype(np.float32),
              "bias": rng.normal(scale=0.2, size=h).astype(np.float32)} for g in ("ir", "iz", "in")}
-    p.update({g: {"kernel": rng.normal(scale=0.5, size=(h, h)).astype(np.float32)} for g in ("hr", "hz")})
-    p["hn"] = {"kernel": rng.normal(scale=0.5, size=(h, h)).astype(np.float32),
+    p.update({g: {"kernel": rng.normal(scale=sc, size=(h, h)).astype(np.float32)} for g in ("hr", "hz")})
+    p["hn"] = {"kernel": rng.normal(scale=sc, size=(h, h)).astype(np.float32),
                "bias": rng.normal(scale=0.2, size=h).astype(np.float32)}
     return p
 
@@ -78,7 +87,20 @@ def _prefix_mask(rng, b, t):
     return np.arange(t)[None] < lengths[:, None]
 
 
-@pytest.mark.parametrize("h,reverse", [(8, False), (16, True)])
+def _stacked(cells):
+    """flax GRUCell trees, one per direction -> (wi, bi, wh, bhn) stacked over D."""
+    st = [from_flax_params({"GRUCell_0": c}, kind="MaskedGRU") for c in cells]
+    return tuple(torch.stack([s[k] for s in st]) for k in ("wi", "bi", "wh", "bhn"))
+
+
+def _random_gru(rng, b, t, f, h, d):
+    x = torch.as_tensor(rng.normal(size=(b, t, f)).astype(np.float32))
+    mask = torch.as_tensor(_prefix_mask(rng, b, t))
+    return x, mask, _stacked([_gru_params(rng, f, h) for _ in range(d)])
+
+
+@pytest.mark.parametrize("h", [8, 16, 128])
+@pytest.mark.parametrize("reverse", [False, True])
 def test_gru_plain_matches_pallas_and_masked_scan(h, reverse, monkeypatch):
     rng = np.random.default_rng(3 + h)
     b, t, f = 7, 9, 5
@@ -86,9 +108,15 @@ def test_gru_plain_matches_pallas_and_masked_scan(h, reverse, monkeypatch):
     mask = _prefix_mask(rng, b, t)
     cell = _gru_params(rng, f, h)
 
-    st = from_flax_params({"GRUCell_0": cell}, kind="MaskedGRU")
-    xg = (torch.as_tensor(x).reshape(b * t, f) @ st["wi"] + st["bi"]).reshape(b, t, 1, 3 * h)
-    out, fin = gru_scan(xg, torch.as_tensor(mask), st["wh"][None], st["bhn"][None], (reverse,))
+    out, fin = gru_scan(torch.as_tensor(x), torch.as_tensor(mask), *_stacked([cell]), (reverse,))
+
+    # The TPU kernel itself, in interpret mode, on the same x and cell; it
+    # scans forward, so the reverse direction is the flip, scan, flip.
+    flip = (lambda a: a[:, ::-1]) if reverse else (lambda a: a)
+    p_out, p_fin = gru_scan_pallas(jnp.asarray(flip(x)), jnp.asarray(flip(mask)),
+                                   jax.tree_util.tree_map(jnp.asarray, cell), interpret=True)
+    np.testing.assert_allclose(out.numpy(), flip(np.asarray(p_out)), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(fin.numpy(), np.asarray(p_fin), atol=1e-6, rtol=0)
 
     module = JaxMaskedGRU(h, reverse=reverse)
     variables = {"params": {"GRUCell_0": jax.tree_util.tree_map(jnp.asarray, cell)}}
@@ -104,35 +132,78 @@ def test_gru_plain_matches_pallas_and_masked_scan(h, reverse, monkeypatch):
     np.testing.assert_allclose(fin.numpy(), np.asarray(e_fin), atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("f,h", [(32, 8), (6, 5)])
+def test_gru_norm_matches_flax_layernorm_then_bigru(f, h):
+    rng = np.random.default_rng(20 + f)
+    b, t = 8, 7
+    x = rng.normal(loc=0.5, scale=2.0, size=(b, t, f)).astype(np.float32)
+    mask = _prefix_mask(rng, b, t)
+    x[~mask] = 0.0  # masked rows are zeros, which the LayerNorm maps to beta
+    gamma = rng.normal(loc=1.0, scale=0.3, size=f).astype(np.float32)
+    beta = rng.normal(scale=0.3, size=f).astype(np.float32)
+    cells = [_gru_params(rng, f, h) for _ in range(2)]
+
+    out, fin = gru_scan(torch.as_tensor(x), torch.as_tensor(mask), *_stacked(cells), (False, True),
+                        norm=(torch.as_tensor(gamma), torch.as_tensor(beta), 1e-3))
+
+    y = fnn.LayerNorm(epsilon=1e-3).apply(
+        {"params": {"scale": jnp.asarray(gamma), "bias": jnp.asarray(beta)}}, jnp.asarray(x))
+    params = {f"MaskedGRU_{k}": {"GRUCell_0": jax.tree_util.tree_map(jnp.asarray, c)} for k, c in enumerate(cells)}
+    w_out, w_fin = JaxBiGRU(h).apply({"params": params}, y, jnp.asarray(mask))
+    np.testing.assert_allclose(out.numpy(), np.asarray(w_out), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(fin.numpy(), np.asarray(w_fin), atol=1e-6, rtol=0)
+    assert torch.all(out[0] == 0) and torch.all(fin[0] == 0)  # prefix length 0
+
+
 def test_gru_two_directions_equal_two_single_launches():
     rng = np.random.default_rng(11)
-    b, t, h = 6, 7, 4
-    xg = torch.as_tensor(rng.normal(size=(b, t, 2, 3 * h)).astype(np.float32))
-    mask = torch.as_tensor(_prefix_mask(rng, b, t))
-    wh = torch.as_tensor(rng.normal(scale=0.5, size=(2, h, 3 * h)).astype(np.float32))
-    bhn = torch.as_tensor(rng.normal(size=(2, h)).astype(np.float32))
-    out, fin = gru_scan(xg, mask, wh, bhn, (False, True))
-    f_out, f_fin = gru_scan(xg[:, :, :1].contiguous(), mask, wh[:1], bhn[:1], (False,))
-    b_out, b_fin = gru_scan(xg[:, :, 1:].contiguous(), mask, wh[1:], bhn[1:], (True,))
+    x, mask, (wi, bi, wh, bhn) = _random_gru(rng, 6, 7, 3, 4, 2)
+    out, fin = gru_scan(x, mask, wi, bi, wh, bhn, (False, True))
+    f_out, f_fin = gru_scan(x, mask, wi[:1], bi[:1], wh[:1], bhn[:1], (False,))
+    b_out, b_fin = gru_scan(x, mask, wi[1:], bi[1:], wh[1:], bhn[1:], (True,))
     torch.testing.assert_close(out, torch.cat([f_out, b_out], -1), rtol=0, atol=0)
     torch.testing.assert_close(fin, torch.cat([f_fin, b_fin], -1), rtol=0, atol=0)
     # A zero-length prefix keeps the zero carry and writes zeros.
     assert torch.all(out[0] == 0) and torch.all(fin[0] == 0)
 
 
+@pytest.mark.parametrize("with_norm", [False, True])
+def test_gru_final_only_equals_finals_with_outputs(with_norm):
+    rng = np.random.default_rng(12)
+    x, mask, w = _random_gru(rng, 5, 6, 4, 3, 2)
+    norm = (torch.linspace(0.5, 1.5, 4), torch.linspace(-0.2, 0.2, 4), 1e-3) if with_norm else None
+    out, fin = gru_scan(x, mask, *w, (False, True), norm=norm)
+    none, fin_only = gru_scan(x, mask, *w, (False, True), norm=norm, outputs=False)
+    assert out.shape == (5, 6, 6) and none is None
+    torch.testing.assert_close(fin_only, fin, rtol=0, atol=0)
+
+
 def test_gru_wrapper_checks():
-    xg = torch.zeros(2, 3, 1, 12)
-    mask = torch.ones(2, 3, dtype=torch.bool)
-    wh, bhn = torch.zeros(1, 4, 12), torch.zeros(1, 4)
+    rng = np.random.default_rng(13)
+    x, mask, (wi, bi, wh, bhn) = _random_gru(rng, 2, 3, 5, 4, 1)
+    norm = (torch.ones(5), torch.zeros(5), 1e-3)
     before = gru_scan.launches
-    gru_scan(xg, mask, wh, bhn, (False,))
-    assert gru_scan.launches == before
+    gru_scan(x, mask, wi, bi, wh, bhn, (False,), norm=norm)
+    assert gru_scan.launches == before  # the plain version ran
     with pytest.raises(ValueError):
-        gru_scan(xg, mask.float(), wh, bhn, (False,))
+        gru_scan(x, mask.float(), wi, bi, wh, bhn, (False,))
     with pytest.raises(ValueError):
-        gru_scan(xg, mask, wh, bhn, (False, True))
+        gru_scan(x, mask, wi, bi, wh, bhn, (False, True))
+    with pytest.raises(ValueError):  # wi's F is not x's
+        gru_scan(x, mask, wi[:, :4], bi, wh, bhn, (False,))
+    with pytest.raises(ValueError):  # wi's 3H is not wh's
+        gru_scan(x, mask, wi[..., :9], bi, wh, bhn, (False,))
     with pytest.raises(ValueError):
-        gru_scan(xg[..., :11], mask, wh, bhn, (False,))
+        gru_scan(x, mask, wi, bi[:, :11], wh, bhn, (False,))
     with pytest.raises(ValueError):
-        gru_scan(torch.zeros(2, 3, 1, 3 * 129), mask, torch.zeros(1, 129, 387), torch.zeros(1, 129), (False,))
-    torch.testing.assert_close(gru_scan(xg, mask, wh, bhn, (True,)), gru_scan_plain(xg, mask, wh, bhn, (True,)))
+        gru_scan(x, mask, wi, bi, wh, bhn, (False,), norm=(torch.ones(4), torch.zeros(5), 1e-3))
+    with pytest.raises(ValueError):
+        gru_scan(x, mask, wi, bi, wh, bhn, (False,), norm=(torch.ones(5), torch.zeros(6), 1e-3))
+    with pytest.raises(ValueError):
+        gru_scan(x, mask, wi, bi, wh, bhn, (False,), norm=(torch.ones(5, dtype=torch.float64), torch.zeros(5), 1e-3))
+    with pytest.raises(ValueError):
+        gru_scan(x, mask, torch.zeros(1, 5, 387), torch.zeros(1, 387), torch.zeros(1, 129, 387),
+                 torch.zeros(1, 129), (False,))
+    got = gru_scan(x, mask, wi, bi, wh, bhn, (True,), norm=norm)
+    want = gru_scan_plain(x, mask, wi, bi, wh, bhn, (True,), norm)
+    torch.testing.assert_close(got, want)

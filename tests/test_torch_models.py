@@ -14,6 +14,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import flax.linen as fnn
 
 from deepof_tpu.models import blocks as jblocks
 from deepof_tpu.models import encoders as jenc
@@ -88,6 +89,26 @@ def test_bigru_and_validity_mask():
         out, fin = pm(torch.as_tensor(x), torch.as_tensor(mask))
     want_out, want_fin = jm.apply({"params": params}, jnp.asarray(x), jnp.asarray(mask))
     _close(out, want_out)
+    _close(fin, want_fin)
+
+
+def test_bigru_with_norm_final_only():
+    # The RecurrentBlock's LayerNorm_0 + BiGRU_1 pair, as the port runs it:
+    # one call with the norm folded in and no per-step outputs.
+    rng = np.random.default_rng(6)
+    x = _inputs(rng, (5, 7, 6))
+    mask = np.array(jblocks.frame_validity_mask(jnp.asarray(x)))
+    ln = fnn.LayerNorm(epsilon=1e-3)
+    ln_params = _init(ln, 7, jnp.asarray(x))
+    jm = jblocks.BiGRU(4)
+    params = _init(jm, 6, jnp.asarray(x), jnp.asarray(mask))
+    pm = _load(pblocks.BiGRU(6, 4), params, "BiGRU")
+    norm = (torch.as_tensor(np.asarray(ln_params["scale"])), torch.as_tensor(np.asarray(ln_params["bias"])), 1e-3)
+    with torch.no_grad():
+        out, fin = pm(torch.as_tensor(x), torch.as_tensor(mask), norm=norm, outputs=False)
+    y = ln.apply({"params": ln_params}, jnp.asarray(x))
+    _, want_fin = jm.apply({"params": params}, y, jnp.asarray(mask))
+    assert out is None
     _close(fin, want_fin)
 
 
