@@ -21,6 +21,7 @@ class RecurrentEncoder(nn.Module):
 
     Call: x (B, T, N, F_node), a (B, T, E, F_edge) -> (B, latent_dim).
     Without the GNN the node features are flattened into one stream.
+    ``forward_streams`` takes the streams as the window kernel writes them.
     """
 
     def __init__(self, input_shape, edge_feature_shape, latent_dim: int,
@@ -29,6 +30,7 @@ class RecurrentEncoder(nn.Module):
         super().__init__()
         _, n, f_node = input_shape
         _, e, f_edge = edge_feature_shape
+        self.n_nodes, self.n_edges = n, e
         self.use_gnn = use_gnn
         if use_gnn:
             self.node_block = RecurrentBlock(f_node, latent_dim, generator)
@@ -49,10 +51,21 @@ class RecurrentEncoder(nn.Module):
             e, f_edge = a.shape[2:]
             xg = tf_style_group_reshape(x).reshape(b * n, t, f_node)
             ag = tf_style_group_reshape(a).reshape(b * e, t, f_edge)
-            node_emb = self.node_block(xg).reshape(b, n, -1)
-            edge_emb = self.edge_block(ag).reshape(b, e, -1)
+            return self.forward_streams(xg, ag)
+        return self.forward_streams(x.reshape(b, t, n * f_node), None)
+
+    def forward_streams(self, xg: torch.Tensor, ag: Optional[torch.Tensor]) -> torch.Tensor:
+        """With the GNN: xg (B*N, T, F_node) and ag (B*E, T, F_edge), stream
+        b*N + n being node n of sample b (window-major, as
+        ``ops.window_kernels.window_streams`` writes them). Without: xg is
+        the one flat stream (B, T, N*F_node) and ag is not read.
+        -> (B, latent_dim)."""
+        if self.use_gnn:
+            b = xg.shape[0] // self.n_nodes
+            node_emb = self.node_block(xg).reshape(b, self.n_nodes, -1)
+            edge_emb = self.edge_block(ag).reshape(b, self.n_edges, -1)
             node_g, edge_g = self.censnet(node_emb, edge_emb)
             enc = torch.cat([node_g.reshape(b, -1), edge_g.reshape(b, -1)], dim=-1)
         else:
-            enc = self.block(x.reshape(b, t, n * f_node))
+            enc = self.block(xg)
         return self.dense(enc)

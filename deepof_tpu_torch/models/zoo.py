@@ -38,7 +38,13 @@ class VQVAE(nn.Module):
     def forward(self, x: torch.Tensor, a: torch.Tensor) -> dict:
         """x (B, T, N, F), a (B, T, E, 1) -> encoder output, quantised code
         and soft counts, from one encoder pass."""
-        enc = self.encoder(x, a)
+        return self._head(self.encoder(x, a))
+
+    def forward_streams(self, xg: torch.Tensor, ag: Optional[torch.Tensor]) -> dict:
+        """The same from the encoder's streams (``RecurrentEncoder.forward_streams``)."""
+        return self._head(self.encoder.forward_streams(xg, ag))
+
+    def _head(self, enc: torch.Tensor) -> dict:
         quantized, soft_counts = self.vq_layer(enc)
         return {"encoder_output": enc, "quantized": quantized, "soft_counts": soft_counts}
 

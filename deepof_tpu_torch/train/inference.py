@@ -2,9 +2,9 @@
 (port of deepof_tpu/train/inference.py:204 ``scanned_windowed_forward``).
 
 Windows never exist on the host: the scaled (T, F) frame goes to the
-device once, and each block of ``block`` windows is gathered by the window
-kernel straight from it, reordered into node / edge streams and run through
-the encoder.
+device once, and for each block of ``block`` windows one launch of the
+window kernel writes the encoder's node and edge streams straight from the
+frame's rows, which ``forward_streams`` runs through the encoder.
 
 The JAX version rounds the number of blocks up to a power of two so that
 recordings of other lengths reuse one compiled program; PyTorch runs
@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from deepof_tpu_torch.device import resolve_device, to_device
-from deepof_tpu_torch.ops.window_kernels import window_gather_standardize
+from deepof_tpu_torch.ops.window_kernels import window_streams
 
 
 @dataclass
@@ -32,6 +32,17 @@ class ModelBundle:
 
     model: nn.Module
     rebuild_spec: Dict = field(default_factory=dict)
+
+
+def stream_tables(layout: Dict, use_gnn: bool = True):
+    """The window kernel's column tables for the encoder's streams: node n's
+    (x, y, speed) columns (N, 3) and edge e's column (E, 1); without the GNN
+    the one flat stream's columns (1, 3N), node-major as
+    ``x.reshape(b, t, n * 3)`` orders them."""
+    node = np.asarray(layout["node"], np.int32).reshape(3, -1).T
+    if not use_gnn:
+        return [node.reshape(1, -1)]
+    return [node, np.asarray(layout["edge"], np.int32)[:, None]]
 
 
 def scanned_windowed_forward(
@@ -82,9 +93,7 @@ def scanned_windowed_forward(
     padded = feats.new_zeros((n_blocks * block + window - 1, f))
     padded[:t] = feats
 
-    node_idx = torch.as_tensor(np.asarray(layout["node"], np.int64), device=dev)
-    edge_idx = torch.as_tensor(np.asarray(layout["edge"], np.int64), device=dev)
-    n_nodes = len(layout["node"]) // 3
+    tables = stream_tables(layout, model.encoder.use_gnn)
     zeros = feats.new_zeros(f)
     ones = feats.new_ones(f)
 
@@ -92,14 +101,9 @@ def scanned_windowed_forward(
     with torch.inference_mode():
         for i in range(n_blocks):
             rows = padded[i * block:i * block + rows_per_block]
-            w = window_gather_standardize(rows, zeros, ones, window)   # (block, W, F)
-            xf = w.index_select(2, node_idx)
-            xw = torch.stack(
-                [xf[..., :n_nodes], xf[..., n_nodes:2 * n_nodes], xf[..., 2 * n_nodes:]],
-                dim=-1,
-            )                                                            # (block, W, N, 3)
-            aw = w.index_select(2, edge_idx)[..., None]                  # (block, W, E, 1)
-            out = model(xw, aw)
+            # (block*N, W, 3) and (block*E, W, 1), from one launch.
+            xg, *ag = window_streams(rows, tables, zeros, ones, window)
+            out = model.forward_streams(xg, ag[0] if ag else None)
             embs.append(out["encoder_output"])
             scs.append(out["soft_counts"])
     embs = torch.cat(embs)[:n_windows]

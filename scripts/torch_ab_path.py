@@ -1,27 +1,42 @@
 """A/B of the port between two trees on one CUDA GPU: the serving path's
-seconds from chip_smoke.py, and the RecurrentBlock's time at several latents.
+seconds, and the RecurrentBlock's time at several latents.
 
+    python3 scripts/torch_ab_path.py --path ROOT
     python3 scripts/torch_ab_path.py --blocks ROOT [--latents 4 8 16 64]
     python3 scripts/torch_ab_path.py --summarize A.jsonl B.jsonl
 
-``--blocks`` imports deepof_tpu_torch from ROOT (a checkout of any commit of
-the port; its kernels build into ROOT/build/cuda) and times, through that
-tree's own modules, the serving encoder's node block (4096 x 28 streams, 3
-features) and edge block (4096 x 32 streams, 1 feature) at each latent:
-``RecurrentBlock.forward``, and its first BiGRU alone (``gru1(x, mask)``),
-with every window full; CUDA events over 10 calls after 2 warm ones. Prints
-the card's name and power limit, then one JSON line.
+``--path`` drives the serving path of chip_smoke.py through ROOT's own
+chip_smoke.py and package (a checkout of any commit of the port; its
+kernels build into ROOT/build/cuda), with nothing else in the process:
+the setup and one untimed 2,000-frame run, then, after emptying the caching
+allocator, two timed 1-hour runs. The first pays the cudaMallocs of the
+path's full-size buffers, as a process that embeds one recording does; the
+second reuses them. Prints one stage line in the form of chip_smoke.py's
+(``first_run_s`` and ``total_s``, the stages of each, and the cudaMalloc
+calls of each). Only the path's own code runs before the timed runs, the
+same in every tree; chip_smoke.py's own timed runs follow its kernel
+checks, which differ between trees.
+
+``--blocks`` times, through ROOT's own modules, the serving encoder's node
+block (4096 x 28 streams, 3 features) and edge block (4096 x 32 streams, 1
+feature) at each latent: ``RecurrentBlock.forward``, and its first BiGRU
+alone (``gru1(x, mask)``), with every window full; CUDA events over 10
+calls after 2 warm ones.
+
+Both print the card's name and power limit, then one JSON line.
 
 ``--summarize`` reads files of JSON lines, one file per tree, each line
-either chip_smoke.py's stage line (the one with "total_s") or a --blocks
-line, written in turns (A, B, B, A, ...). Prints per file the median and
-quartiles of the path's seconds, embed seconds and frames/s and the median
-block times, and with two files how many of the paired path runs (the k-th
-of one file against the k-th of the other) each tree won. A call on the
-card, with the other tree unpacked into the git-ignored build/parent:
+either a stage line (chip_smoke.py's or --path's, the one with "total_s")
+or a --blocks line, written in turns (A, B, B, A, ...). Prints per file the
+median and quartiles of the path's seconds (the first run's too, where the
+lines have it), embed seconds and frames/s, and the median block times;
+with two files, how many of the paired runs (the k-th line of one file
+against the k-th of the other) each tree won. A call on the card, with the
+other tree unpacked into the git-ignored build/parent:
 
     for root in build/parent . . build/parent; do
       (cd $root && python3 chip_smoke.py) | grep '"total_s"' >> chiprun_out/ab_$(basename $root).jsonl
+      python3 scripts/torch_ab_path.py --path $root | grep total_s >> chiprun_out/path_$(basename $root).jsonl
     done
 """
 
@@ -49,6 +64,32 @@ def _ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def path(root: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import time
+
+    import torch
+
+    import chip_smoke
+
+    setup = chip_smoke._serving_setup(torch)
+    pos, lik = chip_smoke._synthesize(chip_smoke.T_FRAMES, setup["nodes"])
+    chip_smoke._run_path(torch, setup, pos[:chip_smoke.PREFIX], lik[:chip_smoke.PREFIX], "cuda")
+    torch.cuda.empty_cache()
+    runs = []
+    for _ in range(2):
+        stages = {}
+        mallocs = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        t0 = time.perf_counter()
+        chip_smoke._run_path(torch, setup, pos, lik, "cuda", stages)
+        total_s = time.perf_counter() - t0
+        runs.append((stages, total_s, torch.cuda.memory_stats().get("segment.all.allocated", 0) - mallocs))
+    (first_stages, first_s, first_mallocs), (stages, total_s, mallocs) = runs
+    return {"stages_s": stages, "total_s": total_s, "frames_per_s": chip_smoke.T_FRAMES / total_s,
+            "cuda_mallocs": mallocs, "first_stages_s": first_stages, "first_run_s": first_s,
+            "first_frames_per_s": chip_smoke.T_FRAMES / first_s, "first_cuda_mallocs": first_mallocs}
 
 
 def blocks(root: str, latents) -> dict:
@@ -91,6 +132,11 @@ def summarize(paths) -> dict:
             res["total_s"] = _quartiles([r["total_s"] for r in runs])
             res["embed_s"] = _quartiles([r["stages_s"]["embed"] for r in runs])
             res["frames_per_s"] = _quartiles([r["frames_per_s"] for r in runs])
+        firsts = [r for r in runs if "first_run_s" in r]
+        if firsts:
+            res["first_run_s"] = _quartiles([r["first_run_s"] for r in firsts])
+            res["first_embed_s"] = _quartiles([r["first_stages_s"]["embed"] for r in firsts])
+            res["first_frames_per_s"] = _quartiles([r["first_frames_per_s"] for r in firsts])
         for key in blocks_[0] if blocks_ else []:
             res[key] = statistics.median(b[key] for b in blocks_)
         out[path] = res
@@ -98,22 +144,26 @@ def summarize(paths) -> dict:
         a, b = paths_runs
         pairs = list(zip(a, b))
         out["pairs"] = len(pairs)
-        out["pairs_won"] = {paths[0]: sum(x["total_s"] < y["total_s"] for x, y in pairs),
-                            paths[1]: sum(y["total_s"] < x["total_s"] for x, y in pairs)}
+        for key in ("total_s", "first_run_s"):
+            both = [(x[key], y[key]) for x, y in pairs if key in x and key in y]
+            if both:
+                out[f"pairs_won_{key}"] = {paths[0]: sum(x < y for x, y in both),
+                                           paths[1]: sum(y < x for x, y in both)}
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", metavar="ROOT", help="tree whose RecurrentBlock to time")
+    ap.add_argument("--path", metavar="ROOT", help="tree whose serving path to time")
     ap.add_argument("--latents", type=int, nargs="+", default=[4, 8, 16, 64])
     ap.add_argument("--summarize", metavar="FILE", nargs="+", help="files of JSON lines, one per tree")
     args = ap.parse_args()
     if args.summarize:
         print(json.dumps(summarize(args.summarize), indent=1))
         return 0
-    if not args.blocks:
-        ap.error("--blocks or --summarize is required")
+    if not (args.blocks or args.path):
+        ap.error("--blocks, --path or --summarize is required")
     import torch
 
     if not torch.cuda.is_available():
@@ -123,9 +173,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    res = blocks(args.blocks, args.latents)
     print(card)
-    print(json.dumps({"root": args.blocks, "card": card, "blocks": res}), flush=True)
+    if args.path:
+        print(json.dumps({"root": args.path, "card": card, **path(args.path)}), flush=True)
+    else:
+        print(json.dumps({"root": args.blocks, "card": card, "blocks": blocks(args.blocks, args.latents)}), flush=True)
     return 0
 
 

@@ -6,7 +6,10 @@ The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 each against its plain version there.
 
 Bars: windows rtol 1e-6 (float32; the kernel multiplies by 1/sd where the
-XLA oracle divides, one rounding apart); GRU atol 1e-6 (float32, as
+XLA oracle divides, one rounding apart), the encoder streams of
+``window_streams`` too, against the JAX package's composition (the Pallas
+window kernel in interpret mode, ``jnp.take`` of the node and edge columns,
+the three-slice ``jnp.stack`` and ``tf_style_group_reshape``); GRU atol 1e-6 (float32, as
 tests/test_pallas.py holds the Pallas GRU to the scan), the LayerNorm'd
 GRU included (a two-pass variance against flax's E[x^2] - E[x]^2 differs
 by ~1e-7 at eps 1e-3).
@@ -22,6 +25,7 @@ import jax.numpy as jnp
 import flax.linen as fnn
 
 from deepof_tpu.models.blocks import BiGRU as JaxBiGRU
+from deepof_tpu.models.blocks import tf_style_group_reshape as jax_group_reshape
 from deepof_tpu.models.blocks import MaskedGRU as JaxMaskedGRU
 from deepof_tpu.ops.pallas_gru import gru_scan_pallas
 from deepof_tpu.ops.pallas_kernels import (
@@ -30,9 +34,14 @@ from deepof_tpu.ops.pallas_kernels import (
 )
 
 from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_plain
+from deepof_tpu_torch.core.graph import build_body_graph, connect_mouse
+from deepof_tpu_torch.data import merged_feature_layout
 from deepof_tpu_torch.ops.window_kernels import (
+    MAX_TABLES,
     window_gather_standardize,
     window_gather_standardize_plain,
+    window_streams,
+    window_streams_plain,
 )
 from deepof_tpu_torch.weights import from_flax_params
 
@@ -67,6 +76,103 @@ def test_window_wrapper_checks_and_cpu_dispatch():
         window_gather_standardize(feats[0], ones, ones, 1)
     with pytest.raises(ValueError):
         window_gather_standardize(feats, ones.double(), ones, 3)
+
+
+def _deepof14_layout():
+    """Node and edge columns of the merged frame of two deepof_14 animals."""
+    ids = ["B", "W"]
+    graph = build_body_graph(sorted(f"{a}_{bp}" for a in ids for bp in connect_mouse().nodes), ids)
+    columns = merged_feature_layout(graph, ids, include_angles=False)[0]
+    nodes = list(graph.nodes)
+    node_cols = [(bp, "x") for bp in nodes] + [(bp, "y") for bp in nodes] + nodes
+    node = [columns.index(c) for c in node_cols]
+    edge = [columns.index(c) for c in sorted(graph.edge_names)]
+    return len(columns), np.array(node), np.array(edge)
+
+
+@pytest.mark.parametrize("t,f,window,block,layout", [
+    (301, 12, 25, 128, "random"), (97, 117, 8, 32, "random"), (60, 116, 25, 32, "deepof14"),
+])
+def test_window_streams_plain_matches_jax_composition(t, f, window, block, layout):
+    rng = np.random.default_rng(t)
+    if layout == "deepof14":
+        f_layout, node, edge = _deepof14_layout()
+        assert f_layout == f and len(node) == 3 * 28 and len(edge) == 32
+    else:
+        node = rng.permutation(f)[:3 * (f // 4)]
+        edge = rng.integers(0, f, size=f // 3)
+    n_nodes = len(node) // 3
+    feats = rng.normal(size=(t, f)).astype(np.float32)
+    mu = rng.normal(size=f).astype(np.float32)
+    sd = (np.abs(rng.normal(size=f)) + 0.5).astype(np.float32)
+
+    # The JAX package's windows -> encoder streams (inference.py:173-186,
+    # encoders.py:69-70), with its Pallas window kernel in interpret mode.
+    w = jax_window_gather(jnp.asarray(feats), jnp.asarray(mu), jnp.asarray(sd), window, block=block, interpret=True)
+    xf = jnp.take(w, jnp.asarray(node), axis=2)
+    xw = jnp.stack([xf[..., :n_nodes], xf[..., n_nodes:2 * n_nodes], xf[..., 2 * n_nodes:]], axis=-1)
+    aw = jnp.take(w, jnp.asarray(edge), axis=2)[..., None]
+    n = t - window + 1
+    want_x = jax_group_reshape(xw).reshape(n * n_nodes, window, 3)
+    want_a = jax_group_reshape(aw).reshape(n * len(edge), window, 1)
+
+    tables = [node.reshape(3, -1).T, edge[:, None]]
+    args = (torch.as_tensor(feats), tables, torch.as_tensor(mu), torch.as_tensor(sd), window)
+    before = window_streams.launches
+    for got_x, got_a in (window_streams_plain(*args), window_streams(*args)):
+        assert got_x.shape == (n * n_nodes, window, 3) and got_a.shape == (n * len(edge), window, 1)
+        np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), rtol=1e-6, atol=0)
+        np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), rtol=1e-6, atol=0)
+    assert window_streams.launches == before  # CPU tensors: the plain version ran
+
+
+def test_window_streams_identity_and_repeated_columns():
+    rng = np.random.default_rng(7)
+    feats = torch.as_tensor(rng.normal(size=(40, 5)).astype(np.float32))
+    mu = torch.as_tensor(rng.normal(size=5).astype(np.float32))
+    sd = torch.as_tensor((rng.random(5) + 0.5).astype(np.float32))
+    # The single table 0..F-1 is the (n, W, F) window gather.
+    (ident,) = window_streams(feats, [np.arange(5)[None]], mu, sd, 6)
+    assert torch.equal(ident, window_gather_standardize_plain(feats, mu, sd, 6))
+    # k = 2 with a repeated column, beside a k = 1 table, lists and tensors.
+    pair, single = window_streams(feats, [[[4, 4], [0, 2]], torch.tensor([[3]])], mu, sd, 6)
+    assert pair.shape == (35 * 2, 6, 2) and single.shape == (35, 6, 1)
+    assert torch.equal(pair[0::2, :, 0], pair[0::2, :, 1])
+    assert torch.equal(pair[0::2, :, 0], ident[:, :, 4])
+    assert torch.equal(pair[1::2], ident[:, :, [0, 2]])
+    assert torch.equal(single[:, :, 0], ident[:, :, 3])
+
+
+def test_window_streams_wrapper_checks():
+    feats = torch.zeros(10, 4)
+    zeros, ones = torch.zeros(4), torch.ones(4)
+    table = np.array([[0, 1, 2]])
+    with pytest.raises(ValueError):  # a column out of range
+        window_streams(feats, [np.array([[0, 4]])], zeros, ones, 3)
+    with pytest.raises(ValueError):
+        window_streams(feats, [np.array([[-1]])], zeros, ones, 3)
+    with pytest.raises(TypeError):  # a float table
+        window_streams(feats, [table.astype(np.float32)], zeros, ones, 3)
+    with pytest.raises(ValueError):  # a table on a device
+        window_streams(feats, [torch.tensor(table, device="meta")], zeros, ones, 3)
+    with pytest.raises(ValueError):  # mu on a foreign device
+        window_streams(feats, [table], torch.zeros(4, device="meta"), ones, 3)
+    with pytest.raises(ValueError):  # rows on a device the kernel does not take
+        window_streams(torch.zeros(10, 4, device="meta"), [table], zeros.to("meta"), ones.to("meta"), 3)
+    with pytest.raises(ValueError):
+        window_streams(feats, [table[0]], zeros, ones, 3)
+    with pytest.raises(ValueError):
+        window_streams(feats, [table] * (MAX_TABLES + 1), zeros, ones, 3)
+    with pytest.raises(ValueError):
+        window_streams(feats, [], zeros, ones, 3)
+    with pytest.raises(ValueError):
+        window_streams(feats[0], [table], zeros, ones, 1)
+    with pytest.raises(ValueError):
+        window_streams(feats, [table], zeros, ones, 11)
+    before = window_streams.launches
+    (out,) = window_streams(feats + 1.0, [table], zeros, ones * 2.0, 3)
+    assert window_streams.launches == before  # the plain version ran
+    assert out.shape == (8, 3, 3) and torch.all(out == 0.5)
 
 
 def _gru_params(rng, f, h):

@@ -143,6 +143,29 @@ def test_recurrent_encoder(use_gnn):
     _close(got, jm.apply({"params": params}, jnp.asarray(x), jnp.asarray(a)))
 
 
+@pytest.mark.parametrize("use_gnn", [True, False])
+def test_forward_equals_forward_streams(use_gnn):
+    # The public (B, T, N, 3) / (B, T, E, 1) forward is the stream forward
+    # on the reshaped streams, bit for bit, for the encoder and the VQ-VAE.
+    rng = np.random.default_rng(8)
+    b, t = 4, 8
+    x = torch.as_tensor(_inputs(rng, (b, t, N, 3)))
+    a = torch.as_tensor(_inputs(rng, (b, t, E, 1)))
+    model = pzoo.build_model("VQVAE", (t, N, 3), (t, E, 1), ADJ, latent_dim=4, n_components=5,
+                             use_gnn=use_gnn, generator=torch.Generator().manual_seed(8), device="cpu")
+    if use_gnn:
+        xg = x.transpose(1, 2).reshape(b * N, t, 3).contiguous()
+        ag = a.transpose(1, 2).reshape(b * E, t, 1).contiguous()
+    else:
+        xg, ag = x.reshape(b, t, N * 3), None
+    with torch.no_grad():
+        assert torch.equal(model.encoder(x, a), model.encoder.forward_streams(xg, ag))
+        out, out_streams = model(x, a), model.forward_streams(xg, ag)
+    assert out.keys() == out_streams.keys()
+    for key in out:
+        assert torch.equal(out[key], out_streams[key]), key
+
+
 def test_vector_quantizer():
     rng = np.random.default_rng(4)
     z = rng.normal(size=(9, 4)).astype(np.float32)

@@ -180,6 +180,41 @@ def test_slice_matches_jax_composition():
     np.testing.assert_allclose(p_sc.sum(1), 1.0, atol=1e-5)
 
 
+def test_scanned_forward_without_gnn_matches_jax():
+    """The encoder without the GNN reads one flat (N*3) stream, which the
+    window kernel writes from a single (1, 3N) column table."""
+    bodyparts = sorted(f"{a}_{bp}" for a in IDS for bp in jgraph.connect_mouse().nodes)
+    graph = build_body_graph(bodyparts, IDS)
+    columns = pdata.merged_feature_layout(graph, IDS, include_angles=False)[0]
+    nodes = list(graph.nodes)
+    node_cols = [(bp, "x") for bp in nodes] + [(bp, "y") for bp in nodes] + nodes
+    layout = {
+        "node": [columns.index(col) for col in node_cols],
+        "edge": [columns.index(col) for col in sorted(graph.edge_names)],
+        "angle": None,
+    }
+    n, e = graph.n_nodes, graph.n_edges
+    rng = np.random.default_rng(2)
+    scaled = rng.normal(size=(90, len(columns))).astype(np.float32)
+    jm = jzoo.build_model("VQVAE", (WINDOW, n, 3), (WINDOW, e, 1), graph.adjacency,
+                          latent_dim=LATENT, n_components=K, use_gnn=False)
+    shapes = jax.eval_shape(
+        lambda x, a: jm.init(jax.random.PRNGKey(0), x, a), jnp.zeros((1, WINDOW, n, 3)), jnp.zeros((1, WINDOW, e, 1))
+    )["params"]
+    params = jax.tree_util.tree_map(lambda v: rng.normal(scale=0.3, size=v.shape).astype(np.float32), shapes)
+    spec = {"model": "VQVAE", "input_shape": [WINDOW, n, 3], "edge_feature_shape": [WINDOW, e, 1], "use_angles": False}
+    j_emb, j_sc = jax_forward(
+        JaxBundle(model=jm, variables={"params": jax.tree_util.tree_map(jnp.asarray, params)}, rebuild_spec=spec),
+        scaled, layout, WINDOW, "VQVAE", block=32,
+    )
+    pm = build_model("VQVAE", (WINDOW, n, 3), (WINDOW, e, 1), graph.adjacency, LATENT, K, use_gnn=False, device="cpu")
+    pm.load_state_dict(from_flax_params(params))
+    p_emb, p_sc = scanned_windowed_forward(ModelBundle(pm, spec), scaled, layout, WINDOW, "VQVAE", block=32, device="cpu")
+    assert p_emb.shape == (90 - WINDOW + 1, LATENT)
+    _close(p_emb, j_emb, 1e-5)
+    _close(p_sc, j_sc, 1e-5)
+
+
 def test_port_imports_nothing_of_jax():
     """Every module of the port, and chip_smoke.py, in a fresh interpreter."""
     code = (
