@@ -14,18 +14,21 @@
    smaller than one CTA's chunk; 1-hour frames at F = 116 and 117, where
    every CTA walks several chunks; a single animal's tables, whose
    streams are no multiple of 4 floats) and in its (n, W, F) form,
-   ``window_gather_standardize``, each with its launch plan; then timed at
-   the serving block against its bound, its plain version and the PyTorch
+   ``window_gather_standardize``, each with its launch plan; and the public
+   path's block of the 158-column frame with the angle table as a third
+   table (1, 42), generic k, held bit-equal. Then it is timed at the
+   serving block against its bound, its plain version and the PyTorch
    chain it replaces (unfold, affine, index_select, stack, permute,
-   contiguous) and the fill of the same output bytes, and at a
-   single-animal serving block. The fused GRU layer is checked at both
-   serving shapes (the second with its LayerNorm and final carries only,
-   whose finals must equal those of the same launch with outputs), at
-   latent 4's widths, and on its L1 route: a misaligned x, a ragged B,
-   H = 128 and long T; with its launch plan (weight route, streams per CTA,
-   shared memory, CTAs per SM). Then it is timed, every step valid, at the
-   two serving shapes and at H = 128 against its bound, its plain version
-   and cuDNN.
+   contiguous) and the fill of the same output bytes, at a single-animal
+   serving block and at the three-table block. The fused GRU layer is
+   checked at both serving shapes (the second with its LayerNorm and final
+   carries only, whose finals must equal those of the same launch with
+   outputs), at the angle block's B = 4096 streams, at latent 4's widths,
+   and on its L1 route: a misaligned x, a ragged B, H = 128 and long T;
+   with its launch plan (weight route, streams per CTA, shared memory,
+   CTAs per SM). Then it is timed, every step valid, at the two serving
+   shapes, at the angle block's two and at H = 128 against its bound, its
+   plain version and cuDNN.
 3. Main path: a seeded synthetic 1-hour, 25 fps recording of two deepof_14
    animals (T = 90,000) through the port's entry points, timed on the
    process's first full-length run after the caching allocator was
@@ -38,7 +41,19 @@
    run (the window kernel once per block, writing the node and the edge
    streams), and that the card agrees with the plain versions on the CPU
    over a 2,000-frame prefix.
-4. Prints a stage line, a kernels line, and last
+4. Public path: a seeded DeepLabCut csv project (keys "test" and "test2",
+   half an hour at 25 fps each, two deepof_14 animals) in a temporary
+   directory, through ``Project(...).create(test=True)`` ->
+   ``Coordinates.get_graph_dataset(window_size=25)`` ->
+   ``embedding_per_video(batch_size=4096)`` into a seeded VQ-VAE (latent 8,
+   10 components, no angle stream), timed by stage on a first pass after
+   the caching allocator was emptied and on a second; then
+   ``embedding_per_video`` once more with a bundle whose encoder has the
+   angle stream. Checks the shapes, finiteness and soft-count sums, one
+   window launch per block per recording and the GRU launches of each run,
+   and card vs the CPU plain versions (float32) on a 2,000-frame copy of
+   the project, with and without the angle stream.
+5. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -49,8 +64,11 @@ from __future__ import annotations
 
 import copy
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -64,6 +82,9 @@ N_COMPONENTS = 10
 ANIMALS = ["B", "W"]
 PREFIX = 2_000
 MM_RATIO = 380.0 / 420.0
+# The public path's project: two recordings of half an hour each.
+PUBLIC_KEYS = ("test", "test2")
+PUBLIC_FRAMES = T_FRAMES // 2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 (no tensor core) FLOP/s.
 PEAK_BYTES = 3.35e12
@@ -80,6 +101,9 @@ GRU_SERVING_SHAPES = [(4096 * 32, 16, 16, 2, False, True), (4096 * 28, 32, 8, 2,
 # bidirectional GRU at 131,072 streams of width 128 fails (an illegal
 # memory access, H100, PyTorch 2.11 + CUDA 12.8).
 GRU_WIDE_SHAPE = (4096, 128, 128, 2, False, True)
+# The angle stream's RecurrentBlock at latent 8 (conv 42 -> 16 channels): its
+# two layers over one stream a window, B = 4096 a block.
+GRU_ANGLE_SHAPES = [(4096, 16, 16, 2, False, True), (4096, 32, 8, 2, True, False)]
 
 # Tolerances, card kernel vs the plain version on the card.
 # Windows: the same float ops in the same order -> 1e-6 absolute.
@@ -183,6 +207,8 @@ def _check_kernels(torch, layout):
     n_feat = 3 * 28 + 32
     serving = stream_tables(layout)
     _, single_cols, *_, single_layout = _frame_layout(ANIMALS[:1])
+    _, public_cols, *_, public_layout = _frame_layout(ANIMALS, include_angles=True)
+    public = stream_tables(public_layout)
     rng = np.random.default_rng(0)
     win_err = 0.0
     # (label, rows, F, tables, affine, the fewest chunks a CTA must walk)
@@ -204,12 +230,18 @@ def _check_kernels(torch, layout):
         # both tables take the scalar-head-and-tail stores.
         ("single-animal serving block", BLOCK + WINDOW - 1, len(single_cols),
          stream_tables(single_layout), True, 1),
+        # The public path's block with the angle stream: a third table (1, 42),
+        # generic k not a multiple of 4, from the 158-column frame.
+        ("public block, node + edge + angle tables", BLOCK + WINDOW - 1, len(public_cols), public, False, 1),
+        ("public block, node + edge + angle tables, affine", BLOCK + WINDOW - 1, len(public_cols), public, True, 1),
     ]:
         x, mu, sd = _window_inputs(torch, g, dev, rows, f, affine)
         got = window_streams(x, tables, mu, sd, WINDOW)
         want = window_streams_plain(x, tables, mu, sd, WINDOW)
         if [o.shape for o in got] != [o.shape for o in want]:
             _fail(f"window_streams shapes {[o.shape for o in got]} != {[o.shape for o in want]}")
+        if len(tables) == 3 and not all(torch.equal(a, b) for a, b in zip(got, want)):
+            _fail(f"window_streams case {label!r} is not bit-equal to its plain version")
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         del got, want
         plan = window_streams_config(rows, f, WINDOW, [t.shape for t in tables])
@@ -243,6 +275,8 @@ def _check_kernels(torch, layout):
         # (B, T, F, H, D, norm, outputs, x 16-byte aligned)
         (4096 * 32, WINDOW, 16, 16, 2, False, True, True),  # serving: edge streams, BiGRU(2d)
         (4096 * 28, WINDOW, 32, 8, 2, True, False, True),   # serving: node streams, LN + BiGRU(d), finals only
+        (4096, WINDOW, 16, 16, 2, False, True, True),       # the angle block, one stream a window
+        (4096, WINDOW, 32, 8, 2, True, False, True),
         (5000, WINDOW, 8, 8, 2, False, True, True),         # latent 4 (register route), both layers
         (5000, WINDOW, 16, 4, 2, True, False, True),
         (4001, WINDOW, 16, 16, 2, False, True, False),      # misaligned x: the L1 route
@@ -338,9 +372,11 @@ def _time_window_block(torch, g, layout, f, fill=False):
     mu, sd = torch.zeros(f, device=dev), torch.ones(f, device=dev)
     inv = 1.0 / sd
     tables = stream_tables(layout)
-    (n_nodes, _), (n_edges, _) = (t.shape for t in tables)
+    (n_nodes, _), (n_edges, _) = (t.shape for t in tables[:2])
+    n_angles = len(layout["angle"]) if layout["angle"] is not None else 0
     node_idx = torch.as_tensor(np.asarray(layout["node"]), device=dev)
     edge_idx = torch.as_tensor(np.asarray(layout["edge"]), device=dev)
+    angle_idx = torch.as_tensor(np.asarray(layout["angle"] or []), device=dev, dtype=torch.long)
 
     def chain():
         # Yardstick only, never called by the port: the PyTorch ops the
@@ -349,15 +385,17 @@ def _time_window_block(torch, g, layout, f, fill=False):
         xf = w.index_select(2, node_idx)
         xw = torch.stack([xf[..., :n_nodes], xf[..., n_nodes:2 * n_nodes], xf[..., 2 * n_nodes:]], dim=-1)
         aw = w.index_select(2, edge_idx)[..., None]
-        return (xw.permute(0, 2, 1, 3).contiguous().view(-1, WINDOW, 3),
-                aw.permute(0, 2, 1, 3).contiguous().view(-1, WINDOW, 1))
+        out = (xw.permute(0, 2, 1, 3).contiguous().view(-1, WINDOW, 3),
+               aw.permute(0, 2, 1, 3).contiguous().view(-1, WINDOW, 1))
+        return out + ((w.index_select(2, angle_idx),) if n_angles else ())
 
     for got, want in zip(chain(), window_streams(x, tables, mu, sd, WINDOW)):
         if not torch.equal(got, want):
             _fail("the yardstick chain computes another function than window_streams")
     res = {
         "shape": f"rows ({rows}, {f}) -> nodes ({BLOCK * n_nodes}, {WINDOW}, 3) + "
-                 f"edges ({BLOCK * n_edges}, {WINDOW}, 1) float32",
+                 f"edges ({BLOCK * n_edges}, {WINDOW}, 1)"
+                 + (f" + angles ({BLOCK}, {WINDOW}, {n_angles})" if n_angles else "") + " float32",
         "plan": window_streams_config(rows, f, WINDOW, [t.shape for t in tables]),
         "ms": _cuda_ms(torch, lambda: window_streams(x, tables, mu, sd, WINDOW), reps=50),
         "plain_ms": _cuda_ms(torch, lambda: window_streams_plain(x, tables, mu, sd, WINDOW)),
@@ -368,7 +406,7 @@ def _time_window_block(torch, g, layout, f, fill=False):
         # over the same bytes (timed only).
         outs = [torch.empty(n * WINDOW * k, device=dev) for n, k in ((BLOCK * n_nodes, 3), (BLOCK * n_edges, 1))]
         res["fill_ms"] = _cuda_ms(torch, lambda: [o.fill_(0.0) for o in outs], reps=50)
-    res["bound_ms"] = 4 * (rows * f + 2 * f + BLOCK * WINDOW * (3 * n_nodes + n_edges)) / PEAK_BYTES * 1e3
+    res["bound_ms"] = 4 * (rows * f + 2 * f + BLOCK * WINDOW * (3 * n_nodes + n_edges + n_angles)) / PEAK_BYTES * 1e3
     res["bound_by"] = "bytes"
     return res
 
@@ -388,26 +426,31 @@ def _time_kernels(torch, layout):
     # One deepof_14 animal's serving block, whose tables take the scalar stores.
     _, single_cols, *_, single_layout = _frame_layout(ANIMALS[:1])
     win["single_animal"] = _time_window_block(torch, g, single_layout, len(single_cols))
+    # The public path's block with the angle stream: three tables, F = 158.
+    _, public_cols, *_, public_layout = _frame_layout(ANIMALS, include_angles=True)
+    win["with_angle_table"] = _time_window_block(torch, g, public_layout, len(public_cols))
 
-    gru = [_time_gru(torch, g, dev, *shape) for shape in GRU_SERVING_SHAPES + [GRU_WIDE_SHAPE]]
+    gru = [_time_gru(torch, g, dev, *shape)
+           for shape in GRU_SERVING_SHAPES + [GRU_WIDE_SHAPE] + GRU_ANGLE_SHAPES]
     return win, gru
 
 
-def _frame_layout(animals):
+def _frame_layout(animals, include_angles=False):
     """The body graph of deepof_14 ``animals``, their merged feature frame's
-    columns, pairs, bridges and owners, and the encoder's stream layout."""
+    columns, pairs, bridges and owners, and the encoder's stream layout
+    (with the angle stream's columns where ``include_angles``)."""
     from deepof_tpu_torch.core.graph import build_body_graph, connect_mouse
     from deepof_tpu_torch.data import merged_feature_layout
 
     bodyparts = sorted(f"{a}_{bp}" for a in animals for bp in connect_mouse().nodes)
     graph = build_body_graph(bodyparts, animals)
     nodes = list(graph.nodes)
-    columns, pairs, bridges, owner = merged_feature_layout(graph, animals, include_angles=False)
+    columns, pairs, bridges, owner = merged_feature_layout(graph, animals, include_angles=include_angles)
     node_cols = [(bp, "x") for bp in nodes] + [(bp, "y") for bp in nodes] + nodes
     layout = {
         "node": [columns.index(c) for c in node_cols],
         "edge": [columns.index(c) for c in sorted(graph.edge_names)],
-        "angle": None,
+        "angle": [columns.index(tuple(b)) for b in graph.bridge_names] if include_angles else None,
     }
     return graph, columns, pairs, bridges, owner, layout
 
@@ -493,6 +536,203 @@ def _timed_run(torch, setup, pos, lik):
     return stages, total_s, mallocs, emb, sc
 
 
+def _public_tables(t: int, seed: int = 0):
+    """{key: (values (t, C), DLC column tuples)} of the public path's two
+    recordings: two deepof_14 animals' seeded random walks with jittered
+    bodyparts and likelihoods (the JAX package's bench.py:624-644)."""
+    from deepof_tpu_torch.core.graph import connect_mouse
+
+    bodyparts = sorted(connect_mouse(graph_preset="deepof_14").nodes)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key in PUBLIC_KEYS:
+        cols, data = [], []
+        for aid in ANIMALS:
+            base = rng.normal(size=(t, 2)).cumsum(axis=0) * 0.5 + 300.0
+            for bp in bodyparts:
+                xy = base + rng.normal(scale=15.0, size=(1, 2)) + rng.normal(scale=1.0, size=(t, 2))
+                for ci, coord in enumerate(("x", "y")):
+                    cols.append(("chip_smoke", aid, bp, coord))
+                    data.append(xy[:, ci])
+                cols.append(("chip_smoke", aid, bp, "likelihood"))
+                data.append(np.clip(rng.beta(20, 1, size=t), 0, 1))
+        out[key] = (np.stack(data, axis=1), cols)
+    return out
+
+
+def _write_public_project(root: str, tables, rows: int) -> str:
+    """A DeepLabCut csv project of the first ``rows`` frames of ``tables``
+    under ``root``: Tables/ with one csv a recording (the column levels as
+    rows led by their names, then rows led by the frame index) and Videos/
+    with a placeholder video each."""
+    os.makedirs(f"{root}/Tables")
+    os.makedirs(f"{root}/Videos")
+    names = ["scorer", "individuals", "bodyparts", "coords"]
+    for key, (values, cols) in tables.items():
+        header = "\n".join(",".join([names[lvl]] + [c[lvl] for c in cols]) for lvl in range(4))
+        v = values[:rows]
+        np.savetxt(f"{root}/Tables/{key}DLC_chip_smoke.csv", np.column_stack([np.arange(len(v)), v]),
+                   fmt=["%d"] + ["%.6f"] * v.shape[1], delimiter=",", header=header, comments="")
+        with open(f"{root}/Videos/{key}DLC_video.mp4", "wb") as f:
+            f.write(b"\x00" * 64)
+    return root
+
+
+def _public_bundles(torch):
+    """The seeded VQ-VAE of the public path (latent 8, 10 components, the
+    rebuild spec bench.py:674-679 gives it, no angle stream), and the same
+    with the encoder's angle stream."""
+    from deepof_tpu_torch.models import build_model
+    from deepof_tpu_torch.train.inference import ModelBundle
+
+    graph, columns, *_ = _frame_layout(ANIMALS, include_angles=True)
+    n, e, a = graph.n_nodes, graph.n_edges, len(graph.bridge_names)
+    bundles = []
+    for use_angles in (False, True):
+        angle_shape = [WINDOW, a] if use_angles else None
+        model = build_model(
+            "VQVAE", (WINDOW, n, 3), (WINDOW, e, 1), graph.adjacency, latent_dim=LATENT,
+            n_components=N_COMPONENTS, generator=torch.Generator().manual_seed(0), device="cuda",
+            angle_feature_shape=angle_shape,
+        )
+        spec = {"model": "VQVAE", "input_shape": [WINDOW, n, 3], "edge_feature_shape": [WINDOW, e, 1],
+                "n_components": N_COMPONENTS, "use_angles": use_angles, "angle_feature_shape": angle_shape}
+        bundles.append(ModelBundle(model, spec))
+    return graph, len(columns), bundles
+
+
+def _run_public(torch, root, bundles, device, stages=None, precision="auto"):
+    """Project(...).create(test=True) -> get_graph_dataset(window_size=25)
+    -> embedding_per_video(batch_size=4096) for each bundle. Returns
+    (merged TableDict, metainfo, adjacency, [(embeddings, soft counts)]);
+    fills ``stages`` with seconds per stage (the embed stage of each
+    bundle as embed, embed_1, ...)."""
+    from deepof_tpu_torch.data import Project
+    from deepof_tpu_torch.train.inference import ModelBundle, embedding_per_video
+
+    stages = {} if stages is None else stages
+    if device == "cpu":
+        bundles = [ModelBundle(copy.deepcopy(b.model).to("cpu"), b.rebuild_spec) for b in bundles]
+
+    def mark(name, t0):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    coords = Project(
+        project_path=root, project_name="public", video_path=f"{root}/Videos",
+        table_path=f"{root}/Tables", arena="circular-autodetect", video_scale="380 mm",
+        table_format="csv", frame_rate=FPS, animal_ids=ANIMALS, precision=precision, device=device,
+    ).create(force=True, test=True, verbose=False)
+    t0 = mark("create", t0)
+    _, meta, adjacency, tab_dict, scaler = coords.get_graph_dataset(window_size=WINDOW)
+    t0 = mark("graph_dataset", t0)
+    outs = []
+    for i, bundle in enumerate(bundles):
+        outs.append(embedding_per_video(coords, tab_dict, bundle, meta, global_scaler=scaler, batch_size=BLOCK))
+        t0 = mark("embed" if i == 0 else f"embed_{i}", t0)
+    return tab_dict, meta, adjacency, outs
+
+
+def _check_public_outputs(outs, rows):
+    """Shapes, finiteness and soft-count sums of each bundle's results."""
+    n_windows = rows - WINDOW + 1
+    for emb, sc in outs:
+        if sorted(emb) != sorted(PUBLIC_KEYS) or sorted(sc) != sorted(PUBLIC_KEYS):
+            _fail(f"public path: recordings {sorted(emb)}, {sorted(sc)}")
+        for key in PUBLIC_KEYS:
+            if emb[key].shape != (n_windows, LATENT) or sc[key].shape != (n_windows, N_COMPONENTS):
+                _fail(f"public path {key}: shapes {emb[key].shape}, {sc[key].shape}")
+            if not (np.isfinite(emb[key]).all() and np.isfinite(sc[key]).all()):
+                _fail(f"public path {key}: non-finite embeddings or soft counts")
+            sum_err = float(np.abs(sc[key].sum(axis=1) - 1.0).max())
+            if not sum_err <= 1e-4:
+                _fail(f"public path {key}: soft counts do not sum to 1 (max |sum - 1| {sum_err})")
+
+
+def _public_phase(torch, card):
+    """Phase 4: the public path on the card. Returns (stage line, launches
+    of each run)."""
+    from deepof_tpu_torch.core.storage import get_dt
+    from deepof_tpu_torch.io.readers import load_table
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan
+    from deepof_tpu_torch.ops.window_kernels import window_streams
+
+    t_write = time.perf_counter()
+    tables = _public_tables(PUBLIC_FRAMES)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
+    try:
+        full = _write_public_project(os.path.join(tmp, "full"), tables, PUBLIC_FRAMES)
+        prefix = _write_public_project(os.path.join(tmp, "prefix"), tables, PREFIX)
+        write_s = time.perf_counter() - t_write
+        graph, n_feat, bundles = _public_bundles(torch)
+
+        # Card vs the CPU plain versions (float32 both) on the 2,000-frame
+        # copy, with and without the angle stream (also the warm-up).
+        on_card = _run_public(torch, prefix, bundles, "cuda")
+        cpu = _run_public(torch, prefix, bundles, "cpu", precision="float32")
+        _check_public_outputs(on_card[3], PREFIX)
+        if not np.array_equal(on_card[2], graph.adjacency) or len(on_card[1]["angle_columns"]) != 42:
+            _fail("public path: the graph dataset's adjacency or angle columns differ from the body graph's")
+        copy_err = 0.0
+        for key in PUBLIC_KEYS:
+            pairs = [("scaled frame", get_dt(on_card[0]._scaled_frames, key), get_dt(cpu[0]._scaled_frames, key))]
+            for i, ((c_emb, c_sc), (p_emb, p_sc)) in enumerate(zip(on_card[3], cpu[3])):
+                pairs += [(f"bundle {i} embeddings", c_emb[key], p_emb[key]),
+                          (f"bundle {i} soft counts", c_sc[key], p_sc[key])]
+            for name, got, want in pairs:
+                err = float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+                _log(f"public copy of {PREFIX} frames, {key}, {name}, card vs CPU plain: "
+                     f"max|diff| / max(1, max|cpu|) {err:.3e} (tol {PATH_RTOL:.0e})")
+                if not err <= PATH_RTOL:
+                    _fail(f"card and CPU disagree on the public copy's {key} {name}: {err}")
+                copy_err = max(copy_err, err)
+
+        # Two timed passes of the main bundle, then its angle-stream twin.
+        n_blocks = len(PUBLIC_KEYS) * -(-(PUBLIC_FRAMES - WINDOW + 1) // BLOCK)
+        torch.cuda.empty_cache()
+        first_stages = {}
+        t0 = time.perf_counter()
+        _run_public(torch, full, bundles[:1], "cuda", first_stages)
+        first_s = time.perf_counter() - t0
+        runs = {}
+        for name, pass_bundles, gru_per_block in (("public", bundles[:1], 4), ("public_angles", bundles[1:], 6)):
+            window_streams.launches = 0
+            gru_scan.launches = 0
+            stages = {}
+            t0 = time.perf_counter()
+            _, _, _, outs = _run_public(torch, full, pass_bundles, "cuda", stages)
+            total_s = time.perf_counter() - t0
+            launches = {"window_streams": window_streams.launches, "gru_scan": gru_scan.launches}
+            _check_public_outputs(outs, PUBLIC_FRAMES)
+            if launches["window_streams"] != n_blocks:
+                _fail(f"{name}: the window kernel launched {launches['window_streams']} times for {n_blocks} blocks")
+            if launches["gru_scan"] != gru_per_block * n_blocks:
+                _fail(f"{name}: the GRU kernel launched {launches['gru_scan']} times, not "
+                      f"{gru_per_block} a block for {n_blocks} blocks")
+            runs[name] = {"stages_s": stages, "total_s": total_s, "launches": launches}
+            _log(f"{name} path: launches {launches}, stages {stages}")
+        # The share of the create stage that reads the csv tables (host only).
+        t0 = time.perf_counter()
+        for key in PUBLIC_KEYS:
+            load_table(f"{key}DLC_chip_smoke.csv", f"{full}/Tables", "csv")
+        read_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = {
+        "path": "public", "frames": len(PUBLIC_KEYS) * PUBLIC_FRAMES, "recordings": len(PUBLIC_KEYS),
+        "frame_columns": n_feat, "first_stages_s": first_stages, "first_total_s": first_s,
+        "first_frames_per_s": len(PUBLIC_KEYS) * PUBLIC_FRAMES / first_s,
+        "stages_s": runs["public"]["stages_s"], "total_s": runs["public"]["total_s"],
+        "frames_per_s": len(PUBLIC_KEYS) * PUBLIC_FRAMES / runs["public"]["total_s"],
+        "angles_stages_s": runs["public_angles"]["stages_s"], "angles_total_s": runs["public_angles"]["total_s"],
+        "csv_read_s": read_s, "write_csv_s": write_s, "copy_max_rel_err": copy_err, "card": card,
+    }
+    return line, {k: v["launches"] for k, v in runs.items()}
+
+
 def main() -> int:
     import torch
 
@@ -569,7 +809,11 @@ def main() -> int:
             _fail(f"kernel {name} was not launched on the main path")
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
+    # Phase 4: the public path.
+    public_line, public_launches = _public_phase(torch, card)
+
     print(card, flush=True)
+    print(json.dumps(public_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,
         "first_stages_s": first_stages, "first_run_s": first_run_s,
@@ -578,16 +822,21 @@ def main() -> int:
         "prefix_max_rel_err": prefix_err, "card": card,
         "wall_s": time.perf_counter() - t_start,
     }), flush=True)
+    # "launches" is this slice's main path, the public path's second pass;
+    # every path's count is beside it.
+    by_path = {name: {"raw_keypoints": launches[name], **{p: c[name] for p, c in public_launches.items()}}
+               for name in launches}
     kernels = [
         {"name": "window_streams", "route": "cuda",
          "source": "deepof_tpu_torch/csrc/window_gather.cu",
          "replaces": "deepof_tpu/ops/pallas_kernels.py:111",
-         "launches": launches["window_streams"], "max_abs_err": win_err, **win_t},
+         "launches": public_launches["public"]["window_streams"], "launches_by_path": by_path["window_streams"],
+         "max_abs_err": win_err, **win_t},
         {"name": "gru_scan", "route": "cuda",
          "source": "deepof_tpu_torch/csrc/gru_scan.cu",
          "replaces": "deepof_tpu/ops/pallas_gru.py:100",
-         "launches": launches["gru_scan"], "max_abs_err": gru_err, **gru_t[0],
-         "at_shapes": gru_t},
+         "launches": public_launches["public"]["gru_scan"], "launches_by_path": by_path["gru_scan"],
+         "max_abs_err": gru_err, **gru_t[0], "at_shapes": gru_t},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,124 @@
+"""Table storage of a TableDict value (port of ``deepof_tpu/core/storage.py``,
+in-memory mode).
+
+A TableDict value is the object itself, a :class:`LazyFrame` (a frame whose
+values still live on the device, realised on first access) or a
+:class:`LazyWindows` (window tensors realised on first access). The JAX
+package realises frames as ``pd.DataFrame``; here a frame is a float64
+numpy array and its columns are a list beside it. Paths mode (values stored
+in files and passed around as pointers, for very large projects) is not
+ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import numpy as np
+
+PATHS_MODE = (
+    "paths mode (tables stored in files, return_path / save_as_paths, very large "
+    "projects) is not ported yet: ROADMAP queue 1 item 2"
+)
+
+
+class LazyFrame:
+    """A (T, F) frame realised to a float64 numpy array on first access;
+    ``columns`` and ``shape`` answer without realising it."""
+
+    __slots__ = ("_realize", "_columns", "_nrows", "_cache")
+
+    def __init__(self, realize_fn, columns, nrows: int):
+        self._realize = realize_fn
+        self._columns = list(columns)
+        self._nrows = int(nrows)
+        self._cache = None
+
+    @property
+    def columns(self) -> list:
+        return self._columns
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self._nrows, len(self._columns))
+
+    def realize(self) -> np.ndarray:
+        if self._cache is None:
+            self._cache = np.asarray(self._realize(), np.float64)
+        return self._cache
+
+    def __getstate__(self):  # pickle: realise (device tensors stay behind)
+        return {"frame": self.realize(), "columns": self._columns}
+
+    def __setstate__(self, state):
+        frame = state["frame"]
+        self._realize = lambda: frame
+        self._columns = state["columns"]
+        self._nrows = len(frame)
+        self._cache = frame
+
+
+class LazyWindows:
+    """Windowed ``(nodes, edges, angles)`` tensors realised on first access;
+    ``shapes`` answers without realising them."""
+
+    __slots__ = ("_realize_fn", "_shapes", "_cache")
+
+    def __init__(self, realize_fn, shapes):
+        self._realize_fn = realize_fn
+        self._shapes = tuple(tuple(int(d) for d in s) for s in shapes)
+        self._cache = None
+
+    @property
+    def shapes(self):
+        return self._shapes
+
+    def realize(self) -> tuple:
+        if self._cache is None:
+            self._cache = tuple(self._realize_fn())
+        return self._cache
+
+    def __getstate__(self):
+        return {"windows": self.realize()}
+
+    def __setstate__(self, state):
+        windows = state["windows"]
+        self._realize_fn = lambda: windows
+        self._shapes = tuple(np.shape(w) for w in windows)
+        self._cache = windows
+
+
+def save_dt(dt: Any, path: Optional[str] = None, return_path: bool = False):
+    """The TableDict value for ``dt``: the object itself (in-memory mode)."""
+    if return_path:
+        raise NotImplementedError(PATHS_MODE)
+    return dt
+
+
+def get_dt(tab_dict: dict, key: str, only_metainfo: bool = False):
+    """Resolve a TableDict value, realising a lazy one.
+
+    With ``only_metainfo``: a dict of ``shape``, ``columns`` (None where the
+    value has no column list), ``num_rows`` and, for frames, ``num_cols``,
+    without realising anything.
+    """
+    entry = tab_dict[key]
+    if only_metainfo:
+        return _metainfo(entry)
+    return entry.realize() if isinstance(entry, (LazyFrame, LazyWindows)) else entry
+
+
+def _metainfo(entry) -> dict:
+    if isinstance(entry, LazyWindows):
+        shapes = [tuple(s) for s in entry.shapes]
+        return {"shape": shapes, "columns": None, "num_rows": shapes[0][0] if shapes else 0}
+    if isinstance(entry, LazyFrame):
+        return {"shape": entry.shape, "columns": list(entry.columns),
+                "num_cols": entry.shape[1], "num_rows": entry.shape[0]}
+    if isinstance(entry, tuple):
+        return {"shape": [np.shape(o) for o in entry], "columns": None,
+                "num_rows": np.shape(entry[0])[0] if entry else 0}
+    shape = np.shape(entry)
+    return {"shape": shape, "columns": None,
+            "num_cols": shape[1] if len(shape) > 1 else 1,
+            "num_rows": shape[0] if shape else 0}

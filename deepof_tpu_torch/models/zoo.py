@@ -23,7 +23,8 @@ class VQVAE(nn.Module):
 
     def __init__(self, input_shape, edge_feature_shape, adjacency: np.ndarray,
                  latent_dim: int, n_components: int, encoder_type: str = "recurrent",
-                 use_gnn: bool = True, generator: Optional[torch.Generator] = None):
+                 use_gnn: bool = True, generator: Optional[torch.Generator] = None,
+                 angle_feature_shape=None):
         super().__init__()
         if encoder_type != "recurrent":
             raise NotImplementedError(
@@ -31,28 +32,31 @@ class VQVAE(nn.Module):
                 "come with ROADMAP queue 1 item 8"
             )
         self.encoder = RecurrentEncoder(
-            input_shape, edge_feature_shape, latent_dim, adjacency, use_gnn, generator
+            input_shape, edge_feature_shape, latent_dim, adjacency, use_gnn, generator,
+            angle_feature_shape,
         )
         self.vq_layer = VectorQuantizer(n_components, latent_dim, generator)
 
-    def forward(self, x: torch.Tensor, a: torch.Tensor) -> dict:
-        """x (B, T, N, F), a (B, T, E, 1) -> encoder output, quantised code
-        and soft counts, from one encoder pass."""
-        return self._head(self.encoder(x, a))
+    def forward(self, x: torch.Tensor, a: torch.Tensor, angles: Optional[torch.Tensor] = None) -> dict:
+        """x (B, T, N, F), a (B, T, E, 1), angles (B, T, A[, 1]) where the
+        encoder has an angle stream -> encoder output, quantised code and
+        soft counts, from one encoder pass."""
+        return self._head(self.encoder(x, a, angles))
 
-    def forward_streams(self, xg: torch.Tensor, ag: Optional[torch.Tensor]) -> dict:
+    def forward_streams(self, xg: torch.Tensor, ag: Optional[torch.Tensor],
+                        ang: Optional[torch.Tensor] = None) -> dict:
         """The same from the encoder's streams (``RecurrentEncoder.forward_streams``)."""
-        return self._head(self.encoder.forward_streams(xg, ag))
+        return self._head(self.encoder.forward_streams(xg, ag, ang))
 
     def _head(self, enc: torch.Tensor) -> dict:
         quantized, soft_counts = self.vq_layer(enc)
         return {"encoder_output": enc, "quantized": quantized, "soft_counts": soft_counts}
 
-    def encode(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-        return self.encoder(x, a)
+    def encode(self, x: torch.Tensor, a: torch.Tensor, angles: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.encoder(x, a, angles)
 
-    def group(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-        return self.vq_layer(self.encoder(x, a))[1]
+    def group(self, x: torch.Tensor, a: torch.Tensor, angles: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.vq_layer(self.encoder(x, a, angles))[1]
 
 
 def build_model(
@@ -66,10 +70,13 @@ def build_model(
     use_gnn: bool = True,
     generator: Optional[torch.Generator] = None,
     device="cuda",
+    angle_feature_shape=None,
 ) -> VQVAE:
     """Factory for the serving models, in eval mode on ``device``. Weights are
     drawn on the CPU from ``generator`` (so one seed gives the same model on
-    every device) and then moved."""
+    every device) and then moved. ``angle_feature_shape`` (T, A[, 1]), the
+    training harness's ``rebuild_spec`` key, adds the encoder's angle
+    stream."""
     if model not in ("VQVAE", "vqvae"):
         raise NotImplementedError(
             f"model {model!r}: VaDE and Contrastive come with ROADMAP queue 1 item 8"
@@ -78,5 +85,6 @@ def build_model(
     net = VQVAE(
         tuple(input_shape), tuple(edge_feature_shape), np.asarray(adjacency),
         latent_dim, n_components, encoder_type, use_gnn, generator,
+        tuple(angle_feature_shape) if angle_feature_shape else None,
     )
     return net.to(dev).eval()

@@ -1,6 +1,9 @@
 """Device-side two-stage feature scaling (port of deepof_tpu/ops/scaling.py),
-plus the column bookkeeping and global fit that drive it for one merged
-graph-dataset frame.
+plus the column bookkeeping and the cohort-wide global fit that drive it
+(the port of ``TableDict``'s device scaling helpers,
+``deepof_tpu/core/table_dict.py:881-1020,1110``). ``core.table_dict`` runs
+these over every recording of a project; ``scale_merged_frame`` is the case
+of one frame.
 
 Passes over a (T, F) frame:
   * ``size_divisors``  - per-column body-size divisors (nan-median of the
@@ -148,8 +151,10 @@ def finish_scaled(
     return torch.nan_to_num(interp_nan_columns(x), nan=0.0)
 
 
+
+
 # --------------------------------------------------------------------------- #
-# Column bookkeeping for one merged graph-dataset frame
+# Column bookkeeping and the cohort-wide global fit
 # --------------------------------------------------------------------------- #
 
 
@@ -162,23 +167,12 @@ def _animal_of(bodypart: str) -> Optional[str]:
 # beyond 10 are re-interpolated, and body size is the Nose-Tail_base length.
 INTERP_THRESH = 10.0
 SIZE_REF = ("Nose", "Tail_base")
+SECTIONS = ("speed", "dist", "coord")
 
 
-def scale_plan(columns: Sequence, animal_ids: Sequence[str]) -> dict:
-    """Masks and divisor encoding for the device scaling of a merged frame
-    whose columns follow the graph-dataset naming: ``(bp, "x"|"y")``
-    coordinates, bare-bodypart speeds, 3-tuple angles, bodypart-pair
-    distances. The settings are TableDict.preprocess's defaults: "standard"
-    scaler, every standardize mode "per_column", log distances,
-    inter_scale="mean". Mirrors ``deepof_tpu/core/table_dict.py``
-    ``_build_scale_meta`` and ``_divisor_encoding``.
-
-    Returns a dict of numpy arrays: ``w (F, A+1)``, ``c (F,)``, ``quads``,
-    and bool masks ``log``, ``local``, ``clip``, ``global``.
-    """
-    columns = list(columns)
-    f = len(columns)
-    pos = {c: i for i, c in enumerate(columns)}
+def _column_kinds(columns: Sequence) -> np.ndarray:
+    """Graph-dataset column kinds: ``(bp, "x"|"y")`` coordinates,
+    bare-bodypart speeds, 3-tuple angles, bodypart-pair distances."""
     bodyparts = {c[0] for c in columns if isinstance(c, tuple) and len(c) == 2 and c[1] in ("x", "y")}
     kinds = []
     for col in columns:
@@ -192,7 +186,33 @@ def scale_plan(columns: Sequence, animal_ids: Sequence[str]) -> dict:
             kinds.append("dist")
         else:
             kinds.append(None)
-    kinds = np.asarray(kinds, dtype=object)
+    return np.asarray(kinds, dtype=object)
+
+
+def scale_plan(
+    columns: Sequence,
+    animal_ids: Sequence[str],
+    log_distances: bool = True,
+    dist_standardize: Optional[str] = "per_column",
+    speed_standardize: Optional[str] = "per_column",
+    coord_standardize: Optional[str] = "per_column",
+    interp_thresh: float = INTERP_THRESH,
+) -> dict:
+    """Masks, sections and divisor encoding for the device scaling of a
+    frame whose columns follow the graph-dataset naming, with the
+    "standard" scaler, inter_scale="mean" and each standardize mode
+    "per_column" or None. The port of ``_build_scale_meta`` and
+    ``_divisor_encoding`` (``deepof_tpu/core/table_dict.py:881,919``).
+
+    Returns a dict: ``columns``; ``w (F, A+1)``, ``c (F,)`` and ``quads``
+    for :func:`size_divisors`; bool masks ``log``, ``local``, ``clip``;
+    ``sections`` (speed / dist / coord column indices, in column order) and
+    their ``modes``; ``interp_thresh``.
+    """
+    columns = list(columns)
+    f = len(columns)
+    pos = {c: i for i, c in enumerate(columns)}
+    kinds = _column_kinds(columns)
     is_dist = kinds == "dist"
     is_speed = kinds == "speed"
     is_coord = kinds == "coord"
@@ -223,54 +243,155 @@ def scale_plan(columns: Sequence, animal_ids: Sequence[str]) -> dict:
         need = [(a, "x"), (a, "y"), (b, "x"), (b, "y")]
         quads.append(tuple(pos[k] for k in need) if all(k in pos for k in need) else None)
 
+    local = np.zeros(f, bool)
+    if speed_standardize:
+        local |= is_speed
+    if dist_standardize:
+        local |= is_dist
     return {
+        "columns": columns,
         "w": w,
         "c": c,
         "quads": tuple(quads),
-        "log": is_dist,
-        "local": is_speed | is_dist,
+        "log": is_dist if log_distances else np.zeros(f, bool),
+        "local": local,
         "clip": is_speed | is_dist | is_coord,
-        "global": is_speed | is_dist | is_coord,
+        "sections": {
+            "speed": np.flatnonzero(is_speed),
+            "dist": np.flatnonzero(is_dist),
+            "coord": np.flatnonzero(is_coord),
+        },
+        "modes": {"speed": speed_standardize, "dist": dist_standardize, "coord": coord_standardize},
+        "interp_thresh": float(interp_thresh or 0.0),
     }
 
 
-def fit_global_scaler(frame: torch.Tensor, cnt: torch.Tensor, sm: torch.Tensor, global_mask: np.ndarray):
-    """Streamed standard-scaler fit on one scaled frame, combined in float64
-    on the host: cohort mean from the blocked (count, sum), then one
-    ``col_ssd`` pass around it. Returns (gmean, gscale) float32 numpy.
+def _put(a, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), device=like.device)
+
+
+def stage12(frame: torch.Tensor, plan: dict):
+    """Body-size divisors, then :func:`scale_stage12` of one frame.
+    Returns (scaled, blocked count, blocked sum)."""
+    divisor = size_divisors(frame, _put(plan["w"], frame), _put(plan["c"], frame), plan["quads"])
+    return scale_stage12(frame, divisor, _put(plan["log"], frame), _put(plan["local"], frame))
+
+
+def column_totals(cnt: torch.Tensor, sm: torch.Tensor):
+    """The blocked (count, sum) statistics of one frame as float64 host
+    column totals."""
+    return (cnt.to("cpu", torch.float64).sum(dim=0).numpy(),
+            sm.to("cpu", torch.float64).sum(dim=0).numpy())
+
+
+class _StandardScalerLite:
+    """A fitted standard scaler (``mean_`` / ``var_`` / ``scale_``,
+    ``transform`` / ``inverse_transform``), the port of
+    ``deepof_tpu/core/table_dict.py:1110``."""
+
+    def __init__(self, mean, var):
+        self.mean_ = mean
+        self.var_ = var
+        scale = np.sqrt(var)
+        # sklearn's _handle_zeros_in_scale: constant features divide by 1.
+        scale[(scale == 0.0) | ~np.isfinite(scale)] = 1.0
+        self.scale_ = scale
+
+    def transform(self, x):
+        return (np.asarray(x, dtype=np.float64) - self.mean_) / self.scale_
+
+    def inverse_transform(self, x):
+        return np.asarray(x, dtype=np.float64) * self.scale_ + self.mean_
+
+
+def fit_global_scaler(stats, plan: dict) -> Optional[dict]:
+    """Streamed standard-scaler fit over a cohort, combined in float64 on
+    the host: the cohort mean from every frame's (count, sum) totals, then
+    one ``col_ssd`` pass per frame around it.
+
+    Args:
+        stats: per frame, (scaled frame, count totals, sum totals) as
+            :func:`stage12` and :func:`column_totals` give them.
+        plan: :func:`scale_plan` output.
+
+    Returns the section scaler dict (``kind``, ``speed``, ``dist``,
+    ``dist_inner``, ``dist_intra``, ``coord``), or None when no section is
+    per-column.
     """
-    cnt_h = cnt.to("cpu", torch.float64).sum(dim=0).numpy()
-    sum_h = sm.to("cpu", torch.float64).sum(dim=0).numpy()
+    f = len(plan["columns"])
+    cnt_h, sum_h = np.zeros(f), np.zeros(f)
+    for _, cnt, sm in stats:
+        cnt_h += cnt
+        sum_h += sm
     mean_h = sum_h / np.maximum(cnt_h, 1.0)
-    ssd = col_ssd(frame, torch.as_tensor(mean_h, dtype=frame.dtype, device=frame.device))
-    var_h = ssd.to("cpu", torch.float64).sum(dim=0).numpy() / np.maximum(cnt_h, 1.0)
+    ssd_h = np.zeros(f)
+    for xs, _, _ in stats:
+        mean_d = torch.as_tensor(mean_h, dtype=xs.dtype, device=xs.device)
+        ssd_h += col_ssd(xs, mean_d).to("cpu", torch.float64).sum(dim=0).numpy()
+    var_h = ssd_h / np.maximum(cnt_h, 1.0)
     mean_h[cnt_h == 0] = np.nan
     var_h[cnt_h == 0] = np.nan
-    scale = np.sqrt(var_h)
-    scale[(scale == 0.0) | ~np.isfinite(scale)] = 1.0
-    gmean = np.where(global_mask, mean_h, 0.0).astype(np.float32)
-    gscale = np.where(global_mask, scale, 1.0).astype(np.float32)
-    return gmean, gscale
+    scaler = {"kind": "standard", "speed": None, "dist": None, "dist_inner": None,
+              "dist_intra": None, "coord": None}
+    for name in SECTIONS:
+        idx = plan["sections"][name]
+        if plan["modes"][name] == "per_column" and len(idx):
+            scaler[name] = _StandardScalerLite(mean_h[idx], var_h[idx])
+    if all(v is None for k, v in scaler.items() if k != "kind"):
+        return None
+    return scaler
+
+
+def _global_scaler_vectors(gs: Optional[dict], plan: dict):
+    """The section scaler dict as full-length per-column (mean, scale,
+    mask) vectors for :func:`finish_scaled`; a section applies only where
+    its mode is "per_column". None when the dict holds what the per-column
+    formulation cannot express (groupwise sections, another kind of
+    scaler, sizes that do not match). The port of
+    ``deepof_tpu/core/table_dict.py:984``."""
+    f = len(plan["columns"])
+    gmean = np.zeros(f, np.float32)
+    gscale = np.ones(f, np.float32)
+    gmask = np.zeros(f, bool)
+    if gs is None:
+        return gmean, gscale, gmask
+    if gs.get("kind", "standard") != "standard":
+        return None
+    if gs.get("dist_inner") is not None or gs.get("dist_intra") is not None:
+        return None
+    for name in SECTIONS:
+        sc, idx = gs.get(name), plan["sections"][name]
+        if sc is None or not len(idx) or plan["modes"][name] != "per_column":
+            continue
+        mean = getattr(sc, "mean_", None)
+        scale = getattr(sc, "scale_", None)
+        if mean is None or scale is None or np.size(mean) != len(idx):
+            return None
+        gmean[idx] = np.asarray(mean, np.float64)
+        gscale[idx] = np.asarray(scale, np.float64)
+        gmask[idx] = True
+    return gmean, gscale, gmask
+
+
+def finish(xs: torch.Tensor, vectors, plan: dict) -> torch.Tensor:
+    """:func:`finish_scaled` with the (mean, scale, mask) vectors of
+    :func:`_global_scaler_vectors`."""
+    gmean, gscale, gmask = vectors
+    return finish_scaled(
+        xs, _put(gmean, xs).to(xs.dtype), _put(gscale, xs).to(xs.dtype), _put(gmask, xs),
+        _put(plan["clip"], xs), plan["interp_thresh"],
+    )
 
 
 def scale_merged_frame(frame: torch.Tensor, plan: dict) -> torch.Tensor:
     """All device scaling passes over one merged frame, in its dtype, with
-    the global scaler fitted on the frame itself (as a training run fits
-    it). Returns the scaled (T, F) frame.
+    the global scaler fitted on the frame itself (as a training run on one
+    recording fits it). Returns the scaled (T, F) frame.
 
     Args:
         frame: (T, F) merged features on the working device.
         plan: :func:`scale_plan` output.
     """
-    dev, dt = frame.device, frame.dtype
-
-    def put(a):
-        return torch.as_tensor(np.asarray(a), device=dev)
-
-    divisor = size_divisors(frame, put(plan["w"]), put(plan["c"]), plan["quads"])
-    xs, cnt, sm = scale_stage12(frame, divisor, put(plan["log"]), put(plan["local"]))
-    gmean, gscale = fit_global_scaler(xs, cnt, sm, plan["global"])
-    return finish_scaled(
-        xs, put(gmean).to(dt), put(gscale).to(dt), put(plan["global"]),
-        put(plan["clip"]), INTERP_THRESH,
-    )
+    xs, cnt, sm = stage12(frame, plan)
+    scaler = fit_global_scaler([(xs, *column_totals(cnt, sm))], plan)
+    return finish(xs, _global_scaler_vectors(scaler, plan), plan)

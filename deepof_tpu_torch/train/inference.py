@@ -1,10 +1,12 @@
-"""Embeddings and soft counts for every stride-1 window of a recording
-(port of deepof_tpu/train/inference.py:204 ``scanned_windowed_forward``).
+"""Embeddings and soft counts for every stride-1 window of every recording
+(port of deepof_tpu/train/inference.py:204 ``scanned_windowed_forward`` and
+:287 ``embedding_per_video``, its model-head branch).
 
-Windows never exist on the host: the scaled (T, F) frame goes to the
-device once, and for each block of ``block`` windows one launch of the
-window kernel writes the encoder's node and edge streams straight from the
-frame's rows, which ``forward_streams`` runs through the encoder.
+Windows never exist on the host: the scaled (T, F) frame is on the device,
+and for each block of ``block`` windows one launch of the window kernel
+writes the encoder's node, edge and (with the angle stream) angle streams
+straight from the frame's rows, which ``forward_streams`` runs through the
+encoder.
 
 The JAX version rounds the number of blocks up to a power of two so that
 recordings of other lengths reuse one compiled program; PyTorch runs
@@ -14,12 +16,14 @@ eagerly, so this port runs exactly ceil(n_windows / block) blocks.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from deepof_tpu_torch.core.storage import get_dt
+from deepof_tpu_torch.core.table_dict import TableDict
 from deepof_tpu_torch.device import resolve_device, to_device
 from deepof_tpu_torch.ops.window_kernels import window_streams
 
@@ -38,11 +42,13 @@ def stream_tables(layout: Dict, use_gnn: bool = True):
     """The window kernel's column tables for the encoder's streams: node n's
     (x, y, speed) columns (N, 3) and edge e's column (E, 1); without the GNN
     the one flat stream's columns (1, 3N), node-major as
-    ``x.reshape(b, t, n * 3)`` orders them."""
+    ``x.reshape(b, t, n * 3)`` orders them; then, where ``layout["angle"]``
+    is set, the one flat angle stream's columns (1, A)."""
     node = np.asarray(layout["node"], np.int32).reshape(3, -1).T
-    if not use_gnn:
-        return [node.reshape(1, -1)]
-    return [node, np.asarray(layout["edge"], np.int32)[:, None]]
+    tables = [node, np.asarray(layout["edge"], np.int32)[:, None]] if use_gnn else [node.reshape(1, -1)]
+    if layout.get("angle") is not None:
+        tables.append(np.asarray(layout["angle"], np.int32)[None, :])
+    return tables
 
 
 def scanned_windowed_forward(
@@ -53,6 +59,7 @@ def scanned_windowed_forward(
     model_name: str,
     block: int = 1024,
     device="cuda",
+    fetch: bool = True,
 ):
     """Embeddings + soft counts for all stride-1 windows of one recording.
 
@@ -65,17 +72,16 @@ def scanned_windowed_forward(
         window: model window size.
         model_name: "VQVAE" (the serving model of this slice).
         block: windows per encoder call (compute / memory granularity).
+        fetch: False leaves the results on the device.
 
     Returns:
-        (embeddings (W, D) float32 numpy, soft_counts (W, K) float32 numpy),
-        W = T - window + 1.
+        (embeddings (W, D), soft_counts (W, K)) float32, numpy (or tensors
+        on the device without ``fetch``), W = T - window + 1.
     """
     if model_name != "VQVAE":
         raise NotImplementedError(
             f"model {model_name!r}: VaDE and Contrastive come with ROADMAP queue 1 item 8"
         )
-    if layout.get("angle") is not None:
-        raise NotImplementedError("the angle stream comes with ROADMAP queue 1 item 8")
     dev = resolve_device(device)
     model = bundle.model
     for p in model.parameters():
@@ -86,14 +92,16 @@ def scanned_windowed_forward(
     t, f = feats.shape
     n_windows = t - window + 1
     if n_windows <= 0:
-        return np.zeros((0, 1), np.float32), None
+        empty = feats.new_zeros((0, 1))
+        return (empty.cpu().numpy() if fetch else empty), None
     block = min(block, max(64, 1 << (n_windows - 1).bit_length()))
     n_blocks = -(-n_windows // block)
     rows_per_block = block + window - 1
     padded = feats.new_zeros((n_blocks * block + window - 1, f))
     padded[:t] = feats
 
-    tables = stream_tables(layout, model.encoder.use_gnn)
+    use_gnn = model.encoder.use_gnn
+    tables = stream_tables(layout, use_gnn)
     zeros = feats.new_zeros(f)
     ones = feats.new_ones(f)
 
@@ -101,11 +109,140 @@ def scanned_windowed_forward(
     with torch.inference_mode():
         for i in range(n_blocks):
             rows = padded[i * block:i * block + rows_per_block]
-            # (block*N, W, 3) and (block*E, W, 1), from one launch.
-            xg, *ag = window_streams(rows, tables, zeros, ones, window)
-            out = model.forward_streams(xg, ag[0] if ag else None)
+            # (block*N, W, 3), (block*E, W, 1) [and (block, W, A)], from one launch.
+            streams = window_streams(rows, tables, zeros, ones, window)
+            xg, ag = (streams[0], streams[1]) if use_gnn else (streams[0], None)
+            ang = streams[len(tables) - 1] if layout.get("angle") is not None else None
+            out = model.forward_streams(xg, ag, ang)
             embs.append(out["encoder_output"])
             scs.append(out["soft_counts"])
     embs = torch.cat(embs)[:n_windows]
     scs = torch.cat(scs)[:n_windows]
+    if not fetch:
+        return embs, scs
     return embs.cpu().numpy(), scs.cpu().numpy()
+
+
+def _fetch_together(tensors):
+    """Device tensors -> host numpy arrays, through one device-to-host copy."""
+    if not tensors:
+        return []
+    host = torch.cat([x.reshape(-1) for x in tensors]).cpu().numpy()
+    out, start = [], 0
+    for x in tensors:
+        out.append(host[start:start + x.numel()].reshape(tuple(x.shape)))
+        start += x.numel()
+    return out
+
+
+def embedding_per_video(
+    coordinates,
+    to_preprocess: TableDict,
+    model: ModelBundle,
+    meta_info: Dict,
+    supervised_annotations=None,
+    scale: str = "standard",
+    animal_id: Optional[str] = None,
+    global_scaler: Any = None,
+    softcounts_extraction_method: Optional[str] = None,
+    n_components: Optional[int] = None,
+    samples_max: int = 227272,
+    batch_size: int = 256,
+    device=None,
+):
+    """Embeddings and soft counts of every experiment, from the model's head.
+
+    Args:
+        coordinates: the project's Coordinates.
+        to_preprocess: the merged TableDict that ``get_graph_dataset``
+            returns (its fourth item).
+        model: a ModelBundle whose ``rebuild_spec`` names the model, its
+            input shape and ``use_angles``.
+        meta_info: the graph dataset's metainfo (standardize modes and the
+            node / edge / angle columns).
+        global_scaler: the scaler fitted at training time. When it is the
+            very object ``get_graph_dataset`` fitted (and the settings
+            match), its scaled frames are reused; otherwise the merged
+            frames are scaled again with it.
+        batch_size: windows per encoder call.
+        device: defaults to the project's.
+
+    Returns:
+        (embeddings, soft_counts): TableDicts of (W, D) and (W, K) float32
+        arrays per experiment.
+    """
+    model_name = model.rebuild_spec["model"]
+    if model_name in ("VaDE", "Contrastive"):
+        raise NotImplementedError(f"model {model_name!r}: VaDE and Contrastive come with ROADMAP queue 1 item 8")
+    if softcounts_extraction_method is not None:
+        raise NotImplementedError(
+            f"softcounts_extraction_method={softcounts_extraction_method!r}: the gated GMM / "
+            "MSM / HMM decoders come with the post-hoc modules, ROADMAP queue 1 item 12"
+        )
+    dev = resolve_device(coordinates._device if device is None else device)
+    window_size = model.rebuild_spec["input_shape"][0]
+    sig = (
+        scale,
+        meta_info.get("dist_standardize", "per_column"),
+        meta_info.get("speed_standardize", "per_column"),
+        meta_info.get("coord_standardize", "per_column"),
+        samples_max,
+    )
+    if (
+        getattr(to_preprocess, "_scaled_sig", None) == sig
+        and to_preprocess._scaled_scaler is global_scaler
+    ):
+        scaled_tables = to_preprocess._scaled_frames
+        device_tables = to_preprocess._scaled_device
+    else:
+        processed, _, _ = to_preprocess.preprocess(
+            coordinates=coordinates, scale=scale, window_size=window_size, window_step=1,
+            shuffle=False, samples_max=samples_max, pretrained_scaler=global_scaler,
+            dist_standardize=sig[1], speed_standardize=sig[2], coord_standardize=sig[3],
+            return_windows=False, test_videos=0,
+        )
+        scaled_tables = processed[0]
+        device_tables = scaled_tables._device_frames
+
+    use_angles = bool(model.rebuild_spec.get("use_angles"))
+    pending = {}
+    for key in to_preprocess.keys():
+        if key not in scaled_tables.keys():
+            continue  # all-NaN tables are dropped by preprocess
+        all_cols = list(get_dt(scaled_tables, key, only_metainfo=True)["columns"])
+        node_cols = meta_info.get("node_columns")
+        if node_cols is not None:
+            layout = {
+                "node": [all_cols.index(c) for c in node_cols],
+                "edge": [all_cols.index(c) for c in meta_info.get("edge_columns")],
+                "angle": (
+                    [all_cols.index(c) for c in meta_info.get("angle_columns")]
+                    if use_angles else None
+                ),
+            }
+        else:
+            n_nodes = model.rebuild_spec["input_shape"][1]
+            layout = {
+                "node": list(range(3 * n_nodes)),
+                "edge": list(range(3 * n_nodes, len(all_cols))),
+                "angle": None,
+            }
+        pending[key] = scanned_windowed_forward(
+            model, device_tables[key], layout, window_size, model_name,
+            block=batch_size, device=dev, fetch=False,
+        )
+
+    # Every recording ran back to back on the device; one copy fetches all.
+    host = iter(_fetch_together([x for pair in pending.values() for x in pair if x is not None]))
+    embeddings, soft_counts = {}, {}
+    for key, (_, sc) in pending.items():
+        embeddings[key] = next(host)
+        if sc is not None:
+            soft_counts[key] = next(host)
+
+    header = dict(
+        table_path=coordinates._table_path, animal_ids=coordinates._animal_ids,
+        exp_conditions=coordinates._exp_conditions,
+    )
+    return (TableDict(embeddings, typ="unsupervised_embedding", **header),
+            TableDict(soft_counts, typ="unsupervised_counts", **header))

@@ -106,19 +106,24 @@ def _censnet(p: dict, where: str) -> State:
 
 
 def _recurrent_encoder(p: dict, where: str) -> State:
+    """flax numbers RecurrentBlocks in creation order: with the GNN node,
+    edge, then the angle block (after CensNetConv_0) as RecurrentBlock_2;
+    without it the flat block, then the angle block as RecurrentBlock_1."""
     if "CensNetConv_0" in p:
-        _keys(p, where, ("RecurrentBlock_0", "RecurrentBlock_1", "CensNetConv_0", "Dense_0"))
-        return {
-            **_nest("node_block", _recurrent_block(p["RecurrentBlock_0"], f"{where}/RecurrentBlock_0")),
-            **_nest("edge_block", _recurrent_block(p["RecurrentBlock_1"], f"{where}/RecurrentBlock_1")),
-            **_nest("censnet", _censnet(p["CensNetConv_0"], f"{where}/CensNetConv_0")),
-            **_nest("dense", _dense(p["Dense_0"], f"{where}/Dense_0")),
-        }
-    _keys(p, where, ("RecurrentBlock_0", "Dense_0"))
-    return {
-        **_nest("block", _recurrent_block(p["RecurrentBlock_0"], f"{where}/RecurrentBlock_0")),
-        **_nest("dense", _dense(p["Dense_0"], f"{where}/Dense_0")),
-    }
+        blocks = ("node_block", "edge_block")
+        _keys(p, where, ("RecurrentBlock_0", "RecurrentBlock_1", "CensNetConv_0", "Dense_0"),
+              ("RecurrentBlock_2",))
+        state = _nest("censnet", _censnet(p["CensNetConv_0"], f"{where}/CensNetConv_0"))
+    else:
+        blocks = ("block",)
+        _keys(p, where, ("RecurrentBlock_0", "Dense_0"), ("RecurrentBlock_1",))
+        state = {}
+    if f"RecurrentBlock_{len(blocks)}" in p:
+        blocks += ("angle_block",)
+    for i, name in enumerate(blocks):
+        state.update(_nest(name, _recurrent_block(p[f"RecurrentBlock_{i}"], f"{where}/RecurrentBlock_{i}")))
+    state.update(_nest("dense", _dense(p["Dense_0"], f"{where}/Dense_0")))
+    return state
 
 
 def _vector_quantizer(p: dict, where: str) -> State:
