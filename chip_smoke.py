@@ -53,7 +53,20 @@
    window launch per block per recording and the GRU launches of each run,
    and card vs the CPU plain versions (float32) on a 2,000-frame copy of
    the project, with and without the angle stream.
-5. Prints a stage line of each path, a kernels line, and last
+5. Training: the GRU layer's backward kernel (csrc/gru_scan_bwd.cu, through
+   ``gru_scan_backward``) held against ``gru_scan_backward_plain`` from the
+   carries the forward kernel stores, at every GRU shape of a training step
+   at batch 256 (the encoder's node and edge layers, the decoder's two under
+   frame-validity masks), a ragged B, H = 128 and T = 120, and timed there
+   against its bound, its plain version and cuDNN's ``nn.GRU`` forward +
+   backward; one train step card vs CPU (loss and every gradient) from the
+   same weights and batch; the step's GRU launches (8 forward, 8 backward),
+   time and peak memory; then ``Coordinates.deep_unsupervised_embedding``
+   on the public project (one recording held out) for one epoch capped at
+   50 train and 5 val batches, checking finite losses and the launches,
+   and the saved bundle read back with ``ModelBundle.load`` and served with
+   ``embedding_per_video``, its soft counts equal to the trained bundle's.
+6. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -79,6 +92,7 @@ WINDOW = 25
 BLOCK = 4096
 LATENT = 8
 N_COMPONENTS = 10
+TRAIN_BATCH = 256  # the JAX package's reference train-step batch (bench.py:368-424)
 ANIMALS = ["B", "W"]
 PREFIX = 2_000
 MM_RATIO = 380.0 / 420.0
@@ -105,6 +119,20 @@ GRU_WIDE_SHAPE = (4096, 128, 128, 2, False, True)
 # two layers over one stream a window, B = 4096 a block.
 GRU_ANGLE_SHAPES = [(4096, 16, 16, 2, False, True), (4096, 32, 8, 2, True, False)]
 
+# The GRU layers of one training step at batch 256, two deepof_14 animals
+# (28 nodes, 32 edges), latent 8, (B, F, H, outputs, mask): the encoder's
+# node and edge gru1 and gru2 (gru2 behind F.layer_norm, final carries
+# only) under prefix masks (zero-length prefixes among them), and the
+# decoder's two BiGRUs under frame-validity masks (any frames).
+GRU_TRAIN_SHAPES = [
+    (TRAIN_BATCH * 28, 16, 16, True, "prefix"), (TRAIN_BATCH * 28, 32, 8, False, "prefix"),
+    (TRAIN_BATCH * 32, 16, 16, True, "prefix"), (TRAIN_BATCH * 32, 32, 8, False, "prefix"),
+    (TRAIN_BATCH, 8, 8, True, "random"), (TRAIN_BATCH, 16, 16, True, "random"),
+]
+# One epoch of the training phase, capped as ``limit_*_batches`` cap it.
+TRAIN_BATCHES, VAL_BATCHES = 50, 5
+TIMED_STEPS = 20
+
 # Tolerances, card kernel vs the plain version on the card.
 # Windows: the same float ops in the same order -> 1e-6 absolute.
 # GRU: the F-term projection and H-term recurrent dot sums, and the
@@ -112,6 +140,19 @@ GRU_ANGLE_SHAPES = [(4096, 16, 16, 2, False, True), (4096, 32, 8, 2, True, False
 # matmuls), carried over 25 steps -> 2e-5 absolute.
 WINDOW_TOL = 1e-6
 GRU_TOL = 2e-5
+# GRU backward: the kernel recomputes the gates with the forward's SFU
+# exponentials (~1e-7 off), sums its recurrent products in another order
+# than the plain version's matmuls and carries dh over 25 steps; the
+# wrapper's products then sum up to B*T = 204,800 terms. Bar: max |diff|
+# <= 1e-4 * max(1, max |plain|) for each gradient tensor.
+GRU_BWD_RTOL = 1e-4
+# One train step, card vs CPU (float32 both, same weights and batch): the
+# loss at 1e-4 relative; each parameter's gradient at 1e-3 of its own max
+# |g_cpu| (no floor, so a small gradient is held to its own size): the
+# card's SFU gates and summation orders, through the encoder, the
+# codebook's straight-through path and both decoder passes.
+STEP_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3
 # Whole path, card vs CPU plain versions (float32 both): reductions over T
 # (outlier thresholds, scaler statistics) and matmuls sum in other orders,
 # ~1e-7 relative per op; through the encoder that grows to ~1e-5 of the
@@ -652,9 +693,10 @@ def _check_public_outputs(outs, rows):
                 _fail(f"public path {key}: soft counts do not sum to 1 (max |sum - 1| {sum_err})")
 
 
-def _public_phase(torch, card):
-    """Phase 4: the public path on the card. Returns (stage line, launches
-    of each run)."""
+def _public_phase(torch, card, tmp):
+    """Phase 4: the public path on the card, its projects written under
+    ``tmp``. Returns (stage line, launches of each run, the full project's
+    root)."""
     from deepof_tpu_torch.core.storage import get_dt
     from deepof_tpu_torch.io.readers import load_table
     from deepof_tpu_torch.ops.gru_kernels import gru_scan
@@ -662,65 +704,61 @@ def _public_phase(torch, card):
 
     t_write = time.perf_counter()
     tables = _public_tables(PUBLIC_FRAMES)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
-    try:
-        full = _write_public_project(os.path.join(tmp, "full"), tables, PUBLIC_FRAMES)
-        prefix = _write_public_project(os.path.join(tmp, "prefix"), tables, PREFIX)
-        write_s = time.perf_counter() - t_write
-        graph, n_feat, bundles = _public_bundles(torch)
+    full = _write_public_project(os.path.join(tmp, "full"), tables, PUBLIC_FRAMES)
+    prefix = _write_public_project(os.path.join(tmp, "prefix"), tables, PREFIX)
+    write_s = time.perf_counter() - t_write
+    graph, n_feat, bundles = _public_bundles(torch)
 
-        # Card vs the CPU plain versions (float32 both) on the 2,000-frame
-        # copy, with and without the angle stream (also the warm-up).
-        on_card = _run_public(torch, prefix, bundles, "cuda")
-        cpu = _run_public(torch, prefix, bundles, "cpu", precision="float32")
-        _check_public_outputs(on_card[3], PREFIX)
-        if not np.array_equal(on_card[2], graph.adjacency) or len(on_card[1]["angle_columns"]) != 42:
-            _fail("public path: the graph dataset's adjacency or angle columns differ from the body graph's")
-        copy_err = 0.0
-        for key in PUBLIC_KEYS:
-            pairs = [("scaled frame", get_dt(on_card[0]._scaled_frames, key), get_dt(cpu[0]._scaled_frames, key))]
-            for i, ((c_emb, c_sc), (p_emb, p_sc)) in enumerate(zip(on_card[3], cpu[3])):
-                pairs += [(f"bundle {i} embeddings", c_emb[key], p_emb[key]),
-                          (f"bundle {i} soft counts", c_sc[key], p_sc[key])]
-            for name, got, want in pairs:
-                err = float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
-                _log(f"public copy of {PREFIX} frames, {key}, {name}, card vs CPU plain: "
-                     f"max|diff| / max(1, max|cpu|) {err:.3e} (tol {PATH_RTOL:.0e})")
-                if not err <= PATH_RTOL:
-                    _fail(f"card and CPU disagree on the public copy's {key} {name}: {err}")
-                copy_err = max(copy_err, err)
+    # Card vs the CPU plain versions (float32 both) on the 2,000-frame
+    # copy, with and without the angle stream (also the warm-up).
+    on_card = _run_public(torch, prefix, bundles, "cuda")
+    cpu = _run_public(torch, prefix, bundles, "cpu", precision="float32")
+    _check_public_outputs(on_card[3], PREFIX)
+    if not np.array_equal(on_card[2], graph.adjacency) or len(on_card[1]["angle_columns"]) != 42:
+        _fail("public path: the graph dataset's adjacency or angle columns differ from the body graph's")
+    copy_err = 0.0
+    for key in PUBLIC_KEYS:
+        pairs = [("scaled frame", get_dt(on_card[0]._scaled_frames, key), get_dt(cpu[0]._scaled_frames, key))]
+        for i, ((c_emb, c_sc), (p_emb, p_sc)) in enumerate(zip(on_card[3], cpu[3])):
+            pairs += [(f"bundle {i} embeddings", c_emb[key], p_emb[key]),
+                      (f"bundle {i} soft counts", c_sc[key], p_sc[key])]
+        for name, got, want in pairs:
+            err = float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+            _log(f"public copy of {PREFIX} frames, {key}, {name}, card vs CPU plain: "
+                 f"max|diff| / max(1, max|cpu|) {err:.3e} (tol {PATH_RTOL:.0e})")
+            if not err <= PATH_RTOL:
+                _fail(f"card and CPU disagree on the public copy's {key} {name}: {err}")
+            copy_err = max(copy_err, err)
 
-        # Two timed passes of the main bundle, then its angle-stream twin.
-        n_blocks = len(PUBLIC_KEYS) * -(-(PUBLIC_FRAMES - WINDOW + 1) // BLOCK)
-        torch.cuda.empty_cache()
-        first_stages = {}
+    # Two timed passes of the main bundle, then its angle-stream twin.
+    n_blocks = len(PUBLIC_KEYS) * -(-(PUBLIC_FRAMES - WINDOW + 1) // BLOCK)
+    torch.cuda.empty_cache()
+    first_stages = {}
+    t0 = time.perf_counter()
+    _run_public(torch, full, bundles[:1], "cuda", first_stages)
+    first_s = time.perf_counter() - t0
+    runs = {}
+    for name, pass_bundles, gru_per_block in (("public", bundles[:1], 4), ("public_angles", bundles[1:], 6)):
+        window_streams.launches = 0
+        gru_scan.launches = 0
+        stages = {}
         t0 = time.perf_counter()
-        _run_public(torch, full, bundles[:1], "cuda", first_stages)
-        first_s = time.perf_counter() - t0
-        runs = {}
-        for name, pass_bundles, gru_per_block in (("public", bundles[:1], 4), ("public_angles", bundles[1:], 6)):
-            window_streams.launches = 0
-            gru_scan.launches = 0
-            stages = {}
-            t0 = time.perf_counter()
-            _, _, _, outs = _run_public(torch, full, pass_bundles, "cuda", stages)
-            total_s = time.perf_counter() - t0
-            launches = {"window_streams": window_streams.launches, "gru_scan": gru_scan.launches}
-            _check_public_outputs(outs, PUBLIC_FRAMES)
-            if launches["window_streams"] != n_blocks:
-                _fail(f"{name}: the window kernel launched {launches['window_streams']} times for {n_blocks} blocks")
-            if launches["gru_scan"] != gru_per_block * n_blocks:
-                _fail(f"{name}: the GRU kernel launched {launches['gru_scan']} times, not "
-                      f"{gru_per_block} a block for {n_blocks} blocks")
-            runs[name] = {"stages_s": stages, "total_s": total_s, "launches": launches}
-            _log(f"{name} path: launches {launches}, stages {stages}")
-        # The share of the create stage that reads the csv tables (host only).
-        t0 = time.perf_counter()
-        for key in PUBLIC_KEYS:
-            load_table(f"{key}DLC_chip_smoke.csv", f"{full}/Tables", "csv")
-        read_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        _, _, _, outs = _run_public(torch, full, pass_bundles, "cuda", stages)
+        total_s = time.perf_counter() - t0
+        launches = {"window_streams": window_streams.launches, "gru_scan": gru_scan.launches}
+        _check_public_outputs(outs, PUBLIC_FRAMES)
+        if launches["window_streams"] != n_blocks:
+            _fail(f"{name}: the window kernel launched {launches['window_streams']} times for {n_blocks} blocks")
+        if launches["gru_scan"] != gru_per_block * n_blocks:
+            _fail(f"{name}: the GRU kernel launched {launches['gru_scan']} times, not "
+                  f"{gru_per_block} a block for {n_blocks} blocks")
+        runs[name] = {"stages_s": stages, "total_s": total_s, "launches": launches}
+        _log(f"{name} path: launches {launches}, stages {stages}")
+    # The share of the create stage that reads the csv tables (host only).
+    t0 = time.perf_counter()
+    for key in PUBLIC_KEYS:
+        load_table(f"{key}DLC_chip_smoke.csv", f"{full}/Tables", "csv")
+    read_s = time.perf_counter() - t0
     line = {
         "path": "public", "frames": len(PUBLIC_KEYS) * PUBLIC_FRAMES, "recordings": len(PUBLIC_KEYS),
         "frame_columns": n_feat, "first_stages_s": first_stages, "first_total_s": first_s,
@@ -730,7 +768,267 @@ def _public_phase(torch, card):
         "angles_stages_s": runs["public_angles"]["stages_s"], "angles_total_s": runs["public_angles"]["total_s"],
         "csv_read_s": read_s, "write_csv_s": write_s, "copy_max_rel_err": copy_err, "card": card,
     }
-    return line, {k: v["launches"] for k, v in runs.items()}
+    return line, {k: v["launches"] for k, v in runs.items()}, full
+
+
+def _gru_train_inputs(torch, g, dev, b, t, f, h, d, mask_kind, full=False):
+    """GRU-layer inputs of a training shape: prefix masks as the encoder's
+    (``_gru_inputs``; zero-length prefixes among them), or frame-validity
+    masks as the decoder's (any frame valid with probability 0.8, the
+    inputs unmasked)."""
+    x, mask, w, _ = _gru_inputs(torch, g, dev, b, t, f, h, d, False, full=full and mask_kind == "prefix")
+    if mask_kind == "random":
+        mask = (torch.rand(b, t, generator=g) < 0.8).to(dev)
+        x = torch.randn(b, t, f, generator=g).to(dev)
+    return x, mask, w
+
+
+def _check_backward(torch):
+    """Phase 5a: the GRU backward kernel (through ``gru_scan_backward``, the
+    kernel and the wrapper's gradient products) against
+    ``gru_scan_backward_plain`` on the card, from the carries the forward
+    kernel stored, at every training shape, a ragged B with one reverse
+    direction, the widest H and a longer T. Returns (max abs error, max
+    error relative to each tensor's max(1, max |plain|))."""
+    from deepof_tpu_torch.ops.gru_kernels import (
+        gru_scan_backward, gru_scan_backward_plain, gru_scan_bwd_config, gru_scan_carries,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(2)
+    cases = [(b, WINDOW, f, h, 2, outputs, kind) for b, f, h, outputs, kind in GRU_TRAIN_SHAPES] + [
+        (777, WINDOW, 13, 12, 1, True, "prefix"),    # ragged B, one reverse direction, F % 4 != 0
+        (3001, WINDOW, 128, 128, 2, True, "prefix"),  # widest H: a group spans warps
+        (301, 120, 16, 16, 2, True, "random"),        # longer T
+    ]
+    names = ("dG", "dHn", "dx", "dW_i", "db_i", "dW_h", "db_hn")
+    abs_err = rel_err = 0.0
+    for b, t, f, h, d, outputs, kind in cases:
+        x, mask, w = _gru_train_inputs(torch, g, dev, b, t, f, h, d, kind)
+        reverse = (False, True) if d == 2 else (True,)
+        out, fin, hs = gru_scan_carries(x, mask, *w, reverse, outputs)
+        _, p_fin, p_hs = gru_scan_carries(x.cpu(), mask.cpu(), *[v.cpu() for v in w], reverse, outputs)
+        hs_err = max((hs.cpu() - p_hs).abs().max().item(), (fin.cpu() - p_fin).abs().max().item())
+        if not hs_err <= GRU_TOL:
+            _fail(f"the forward kernel's stored carries disagree with the plain loop's: {hs_err}")
+        d_out = torch.randn(b, t, d * h, generator=g).to(dev) if outputs else None
+        # The decoder's layers get no gradient of their final carries.
+        d_fin = torch.randn(b, d * h, generator=g).to(dev) if kind == "prefix" else None
+        got = gru_scan_backward(x, mask, *w, reverse, hs, d_out, d_fin)
+        want = gru_scan_backward_plain(x, mask, *w, reverse, hs, d_out, d_fin)
+        if got[0][~mask].any() or got[1][~mask].any():
+            _fail("gru_scan_backward wrote gate gradients at masked steps")
+        errs = {}
+        for name, a, p in zip(names, got, want):
+            err = (a - p).abs().max().item()
+            errs[name] = err / max(1.0, p.abs().max().item())
+            abs_err = max(abs_err, err)
+        _log(f"gru_scan_backward B={b} T={t} F={f} H={h} D={d} outputs={outputs} mask={kind} "
+             f"{gru_scan_bwd_config(t, f, h, d)}: carries max|diff| {hs_err:.3e}; max|diff| / max(1, max|plain|) "
+             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {GRU_BWD_RTOL:.0e})")
+        if not max(errs.values()) <= GRU_BWD_RTOL:
+            _fail(f"gru_scan_backward disagrees with its plain version: {errs}")
+        rel_err = max(rel_err, max(errs.values()))
+    torch.cuda.synchronize()
+    return abs_err, rel_err
+
+
+def _gru_bwd_cost(b, t, f, h, d, outputs, with_dfin, valid):
+    """(bytes, FP32 FLOP) of ``gru_scan_backward``: x, mask, the carries,
+    the output and final-carry gradients and the weights read once; dG,
+    dHn, dx and the weight gradients written once; per valid stream-step
+    and direction the recomputed projections 6H(F + H), the carry gradient
+    6H^2 and ~20H of gate algebra, and over all B*T rows the products for
+    dx, dW_i (2 * 3H * F each a direction) and dW_h (2 * 3H * H)."""
+    n_w = d * (f * 3 * h + 3 * h + h * 3 * h + h)
+    n_in = b * t * f + b * t * d * h + (b * t * d * h if outputs else 0) + (b * d * h if with_dfin else 0) + n_w
+    n_out = b * t * d * 4 * h + b * t * f + n_w
+    flop = valid * d * (6 * h * (f + h) + 6 * h * h + 20 * h) + b * t * d * (12 * h * f + 6 * h * h)
+    return 4 * (n_in + n_out) + b * t, flop
+
+
+def _time_backward(torch, g, b, f, h, outputs, kind):
+    """The GRU layer's backward at one training shape: the wrapper (kernel +
+    gradient products), its products alone, the plain version, the layer's
+    forward + backward through autograd (the training launch, then the
+    wrapper) and cuDNN's ``nn.GRU`` forward + backward (yardstick, never
+    called by the port), and the wrapper's bound."""
+    from deepof_tpu_torch.ops import gru_kernels as gk
+
+    dev = torch.device("cuda")
+    d, reverse = 2, (False, True)
+    x, mask, w = _gru_train_inputs(torch, g, dev, b, WINDOW, f, h, d, kind, full=True)
+    _, fin, hs = gk.gru_scan_carries(x, mask, *w, reverse, outputs)
+    d_out = torch.randn(b, WINDOW, d * h, generator=g).to(dev) if outputs else None
+    d_fin = torch.randn(b, d * h, generator=g).to(dev) if kind == "prefix" else None
+    dg, dhn = gk.gru_scan_backward(x, mask, *w, reverse, hs, d_out, d_fin)[:2]
+    leaves = [x.clone().requires_grad_()] + [v.clone().requires_grad_() for v in w]
+
+    def port_fwd_bwd():
+        out, fn = gk.gru_scan(leaves[0], mask, *leaves[1:], reverse, None, outputs)
+        pairs = [(o, go) for o, go in ((out, d_out), (fn, d_fin)) if go is not None]
+        torch.autograd.grad([o for o, _ in pairs], leaves, [go for _, go in pairs])
+
+    cudnn = torch.nn.GRU(f, h, batch_first=True, bidirectional=True).to(dev)
+    c_leaves = [leaves[0]] + list(cudnn.parameters())
+
+    def cudnn_fwd_bwd():
+        out, hn = cudnn(leaves[0])
+        pairs = [(out, d_out)] if outputs else []
+        if d_fin is not None:
+            pairs.append((hn, d_fin.view(b, d, h).transpose(0, 1)))
+        torch.autograd.grad([o for o, _ in pairs], c_leaves, [go for _, go in pairs])
+
+    res = {
+        "shape": f"x ({b}, {WINDOW}, {f}) float32, H={h}, D={d}, outputs={outputs}, mask={kind}, "
+                 f"final-carry gradient={d_fin is not None}",
+        "plan": gk.gru_scan_bwd_config(WINDOW, f, h, d),
+        "ms": _cuda_ms(torch, lambda: gk.gru_scan_backward(x, mask, *w, reverse, hs, d_out, d_fin)),
+        "products_ms": _cuda_ms(torch, lambda: gk._gradient_products(x, w[0], hs, dg, dhn)),
+        "plain_ms": _cuda_ms(torch, lambda: gk.gru_scan_backward_plain(x, mask, *w, reverse, hs, d_out, d_fin),
+                             reps=3, warmup=1),
+        "fwd_bwd_ms": _cuda_ms(torch, port_fwd_bwd),
+        "library_ms": _cuda_ms(torch, cudnn_fwd_bwd),
+    }
+    n_bytes, flop = _gru_bwd_cost(b, WINDOW, f, h, d, outputs, d_fin is not None, int(mask.sum()))
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flop / PEAK_FP32 * 1e3
+    res["bound_ms"] = max(by_bytes, by_ops)
+    res["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    return res
+
+
+def _training_phase(torch, card, root):
+    """Phase 5: the training path on the card. The backward kernel against
+    its plain version and timed at the training shapes; one train step card
+    vs CPU from the same weights and batch; the steps' GRU launches, time
+    and peak memory at batch 256; then ``deep_unsupervised_embedding`` on
+    the public project (one recording held out) for one epoch capped at
+    TRAIN_BATCHES train and VAL_BATCHES val batches, the saved bundle read
+    back with ``ModelBundle.load`` and served with ``embedding_per_video``.
+    Returns (stage line, backward errors, backward times, launches of the
+    training path)."""
+    from deepof_tpu_torch.core.storage import get_dt
+    from deepof_tpu_torch.data import Project
+    from deepof_tpu_torch.graph_dataset import reorder_and_reshape
+    from deepof_tpu_torch.models import build_model
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_backward
+    from deepof_tpu_torch.ops.window_kernels import window_streams
+    from deepof_tpu_torch.train.harness import ClippedAdam, ModelBundle, make_vqvae_step, vqvae_loss
+    from deepof_tpu_torch.train.inference import embedding_per_video
+
+    t_phase = time.perf_counter()
+    bwd_err = _check_backward(torch)
+    g = torch.Generator().manual_seed(3)
+    bwd_t = [_time_backward(torch, g, *shape) for shape in GRU_TRAIN_SHAPES]
+
+    t0 = time.perf_counter()
+    coords = Project(
+        project_path=root, project_name="public", video_path=f"{root}/Videos", table_path=f"{root}/Tables",
+        arena="circular-autodetect", video_scale="380 mm", table_format="csv", frame_rate=FPS,
+        animal_ids=ANIMALS, device="cuda",
+    ).create(force=True, test=True, verbose=False)
+    ggd = coords.get_graph_dataset(window_size=WINDOW, test_videos=1)
+    (train, test), meta, adjacency, tab_dict, scaler = ggd
+    prep_s = time.perf_counter() - t0
+    if len(train) != 1 or len(test) != 1:
+        _fail(f"training split: {list(train)} / {list(test)}, not one recording each")
+
+    # One batch: the first TRAIN_BATCH training windows.
+    nodes, edges, _ = get_dt(train, list(train)[0])
+    x = reorder_and_reshape(np.asarray(nodes[:TRAIN_BATCH], np.float32))
+    a = np.asarray(edges[:TRAIN_BATCH], np.float32)[..., None]
+
+    # Card vs CPU: one step's loss and every gradient, same weights, same batch.
+    cpu_model = build_model("VQVAE", x.shape[1:], a.shape[1:], adjacency, LATENT, N_COMPONENTS,
+                            generator=torch.Generator().manual_seed(0), device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    loss = {}
+    for dev, m in (("cpu", cpu_model), ("cuda", card_model)):
+        total, _ = vqvae_loss(m, torch.as_tensor(x, device=dev), torch.as_tensor(a, device=dev))
+        total.backward()
+        loss[dev] = total.item()
+    loss_err = abs(loss["cuda"] - loss["cpu"]) / max(1.0, abs(loss["cpu"]))
+    grads = {}  # name -> (max |g_cpu|, max |g_card - g_cpu| / max |g_cpu|)
+    for (name, pc), (_, pg) in zip(cpu_model.named_parameters(), card_model.named_parameters()):
+        if pc.grad is None or pg.grad is None:
+            _fail(f"one train step left {name} without a gradient")
+        scale, diff = pc.grad.abs().max().item(), (pg.grad.cpu() - pc.grad).abs().max().item()
+        grads[name] = (scale, diff / scale if scale > 0 else (0.0 if diff == 0 else np.inf))
+    _log("one train step, per parameter max|g_cpu| and max|diff| / max|g_cpu|: "
+         + ", ".join(f"{k} {v[0]:.2e} {v[1]:.1e}" for k, v in grads.items()))
+    grad_err = max(v[1] for v in grads.values())
+    worst = max(grads, key=lambda k: grads[k][1])
+    smallest = min(grads, key=lambda k: grads[k][0])
+    _log(f"one train step, card vs CPU: loss {loss['cuda']:.6f} vs {loss['cpu']:.6f}, rel {loss_err:.3e} "
+         f"(tol {STEP_RTOL:.0e}); gradients max|diff| / max|g_cpu| {grad_err:.3e} at {worst} "
+         f"(tol {STEP_GRAD_RTOL:.0e}); smallest max|g_cpu| {grads[smallest][0]:.3e} at {smallest}")
+    if not (loss_err <= STEP_RTOL and grad_err <= STEP_GRAD_RTOL):
+        _fail(f"one train step: card and CPU disagree (loss {loss_err}, gradients {grad_err} at {worst})")
+
+    # The step on the card: its GRU launches, then TIMED_STEPS timed steps.
+    model = build_model("VQVAE", x.shape[1:], a.shape[1:], adjacency, LATENT, N_COMPONENTS,
+                        generator=torch.Generator().manual_seed(0), device="cuda")
+    step = make_vqvae_step(model, ClippedAdam(model.parameters(), 3e-4))
+    xb, ab = torch.as_tensor(x, device="cuda"), torch.as_tensor(a, device="cuda")
+    step(xb, ab)
+    gru_scan.launches = gru_scan_backward.launches = 0
+    step(xb, ab)
+    per_step = {"forward": gru_scan.launches, "backward": gru_scan_backward.launches}
+    if per_step != {"forward": 8, "backward": 8}:
+        _fail(f"one train step launched the GRU kernels {per_step} times, not 8 forward (4 encoder, "
+              "4 decoder) and 8 backward")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        logs = step(xb, ab)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(v.item()) for v in logs.values()):
+        _fail(f"non-finite losses after {TIMED_STEPS + 2} steps: {logs}")
+    del model, step, card_model
+
+    # One epoch through the entry point, then the saved bundle served.
+    window_streams.launches = gru_scan.launches = gru_scan_backward.launches = 0
+    t0 = time.perf_counter()
+    bundle, _, _, summary = coords.deep_unsupervised_embedding(
+        ggd[:3], adjacency_matrix=adjacency, embedding_model="VQVAE", batch_size=TRAIN_BATCH,
+        latent_dim=LATENT, epochs=1, n_clusters=N_COMPONENTS, save_checkpoints=True, verbose=False,
+        limit_train_batches=TRAIN_BATCHES, limit_val_batches=VAL_BATCHES,
+    )
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = {"gru_scan": gru_scan.launches, "gru_scan_bwd": gru_scan_backward.launches}
+    if fit_launches != {"gru_scan": 8 * (TRAIN_BATCHES + VAL_BATCHES), "gru_scan_bwd": 8 * TRAIN_BATCHES}:
+        _fail(f"one epoch of {TRAIN_BATCHES} + {VAL_BATCHES} batches launched the GRU kernels {fit_launches} times")
+    if not ({"total_loss", "val_total_loss"} <= set(summary) and all(np.isfinite(v) for v in summary.values())):
+        _fail(f"training losses: {summary}")
+    path = os.path.join(root, "public", "Trained_models", "models",
+                        f"VQVAE_recurrent_latent{LATENT}_k{N_COMPONENTS}_run0.ckpt")
+    t0 = time.perf_counter()
+    loaded = ModelBundle.load(path)
+    outs = [embedding_per_video(coords, tab_dict, b, meta, global_scaler=scaler, batch_size=BLOCK)
+            for b in (bundle, loaded)]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    _check_public_outputs(outs, PUBLIC_FRAMES)
+    for key in PUBLIC_KEYS:
+        if not np.array_equal(outs[0][1][key], outs[1][1][key]):
+            _fail(f"the reloaded bundle's soft counts differ from the trained bundle's on {key}")
+    launches = {"window_streams": window_streams.launches, "gru_scan": gru_scan.launches,
+                "gru_scan_bwd": gru_scan_backward.launches}
+    _log(f"training path: losses {summary}, launches {launches}")
+    line = {
+        "path": "training", "batch": TRAIN_BATCH, "latent": LATENT, "window": WINDOW,
+        "ms_per_step": step_s * 1e3, "steps_per_s": 1.0 / step_s, "windows_per_s": TRAIN_BATCH / step_s,
+        "gru_launches_per_step": per_step, "peak_mem_gib": peak_gib, "timed_steps": TIMED_STEPS,
+        "prep_s": prep_s, "fit_s": fit_s, "fit_batches": [TRAIN_BATCHES, VAL_BATCHES], "serve_s": serve_s,
+        "losses": summary, "step_loss_rel_err": loss_err, "step_grad_rel_err": grad_err,
+        "step_grad_min_scale": grads[smallest][0],
+        "bwd_max_rel_err": bwd_err[1], "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    return line, bwd_err, bwd_t, launches
 
 
 def main() -> int:
@@ -809,11 +1107,17 @@ def main() -> int:
             _fail(f"kernel {name} was not launched on the main path")
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
-    # Phase 4: the public path.
-    public_line, public_launches = _public_phase(torch, card)
+    # Phases 4 and 5: the public path, then training on its project.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
+    try:
+        public_line, public_launches, full = _public_phase(torch, card, tmp)
+        train_line, bwd_err, bwd_t, train_launches = _training_phase(torch, card, full)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     print(card, flush=True)
     print(json.dumps(public_line), flush=True)
+    print(json.dumps(train_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,
         "first_stages_s": first_stages, "first_run_s": first_run_s,
@@ -822,9 +1126,11 @@ def main() -> int:
         "prefix_max_rel_err": prefix_err, "card": card,
         "wall_s": time.perf_counter() - t_start,
     }), flush=True)
-    # "launches" is this slice's main path, the public path's second pass;
-    # every path's count is beside it.
-    by_path = {name: {"raw_keypoints": launches[name], **{p: c[name] for p, c in public_launches.items()}}
+    # "launches" is the public path's second pass for the serving kernels and
+    # the training path for the backward kernel; every path's count is
+    # beside it.
+    by_path = {name: {"raw_keypoints": launches[name], **{p: c[name] for p, c in public_launches.items()},
+                      "training": train_launches[name]}
                for name in launches}
     kernels = [
         {"name": "window_streams", "route": "cuda",
@@ -837,6 +1143,11 @@ def main() -> int:
          "replaces": "deepof_tpu/ops/pallas_gru.py:100",
          "launches": public_launches["public"]["gru_scan"], "launches_by_path": by_path["gru_scan"],
          "max_abs_err": gru_err, **gru_t[0], "at_shapes": gru_t},
+        {"name": "gru_scan_bwd", "route": "cuda",
+         "source": "deepof_tpu_torch/csrc/gru_scan_bwd.cu",
+         "replaces": "deepof_tpu/models/blocks.py:78 (no TPU kernel: XLA's derivative of flax nn.scan)",
+         "launches": train_launches["gru_scan_bwd"], "launches_by_path": {"training": train_launches["gru_scan_bwd"]},
+         "max_abs_err": bwd_err[0], "max_rel_err": bwd_err[1], **bwd_t[0], "at_shapes": bwd_t},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,10 @@
 // A masked step keeps the carry and writes 0. Direction d walks t
 // backwards when bit d of rev_mask is set (MaskedGRU's flip, scan, flip).
 // Outputs (B, T, D*H) are the directions concatenated; `out` may be null,
-// and then only the final carries (B, D*H) are written.
+// and then only the final carries (B, D*H) are written. For training,
+// `hs` (B, T, D*H) receives the carry each step starts from (the zero
+// state at a direction's first step), one store per lane and step, which
+// the backward kernel (gru_scan_bwd.cu) reads; serving passes null.
 //
 // Design. A CTA owns a tile of S consecutive streams and both directions.
 // One lane owns one hidden unit of one direction of P streams (a group of
@@ -85,6 +88,7 @@ struct Params {
   float eps;
   float* out;  // null: final carries only
   float* fin;
+  float* hs;  // null: no carry store
   int B, T, F, H, D, G, S, rev_mask;
   int vec;    // L1 route: x, gamma and beta read as float4
   int stats;  // L1 route with a LayerNorm: row statistics in shared memory
@@ -474,6 +478,7 @@ __global__ void __launch_bounds__(FT > 0 ? TARGET_THREADS : MAX_THREADS) gru_lay
         const float n = tanh_sfu(an[i] + r * gn[i]);
         const float hn = (1.0f - z) * n + z * h[i];
         if (unit) {
+          if (p.hs != nullptr && si < ns) p.hs[((size_t)(s0 + si) * T + t) * DH + d * H + j] = h[i];
           h[i] = m[i] ? hn : h[i];
           hbuf[(((size_t)((step + 1) & 1) * S + si) * D + d) * G + j] = h[i];
           if (outputs && si < ns) ob[((size_t)si * T + t) * DH + d * H + j] = m[i] ? hn : 0.0f;
@@ -604,7 +609,7 @@ extern "C" int gru_scan_config(int T, int F, int H, int D, int outputs, int norm
 extern "C" int gru_scan_launch(
     const float* x, const unsigned char* mask, const float* wi, const float* bi,
     const float* wh, const float* bhn, const float* gamma, const float* beta,
-    float eps, float* out, float* fin, int B, int T, int F, int H, int D,
+    float eps, float* out, float* fin, float* hs, int B, int T, int F, int H, int D,
     int rev_mask, void* stream) {
   if (!valid(B, T, F, H, D)) return (int)cudaErrorInvalidValue;
   const bool aligned = (uintptr_t)x % 16 == 0;
@@ -623,7 +628,7 @@ extern "C" int gru_scan_launch(
 
   Params p;
   p.x = x; p.mask = mask; p.wi = wi; p.bi = bi; p.wh = wh; p.bhn = bhn;
-  p.gamma = gamma; p.beta = beta; p.eps = eps; p.out = out; p.fin = fin;
+  p.gamma = gamma; p.beta = beta; p.eps = eps; p.out = out; p.fin = fin; p.hs = hs;
   p.B = B; p.T = T; p.F = F; p.H = H; p.D = D; p.G = pl.G; p.S = pl.S;
   p.rev_mask = rev_mask;
   p.stats = pl.stats;

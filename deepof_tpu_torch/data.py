@@ -666,6 +666,12 @@ class Coordinates:
 
         return get_graph_dataset(self, *args, **kwargs)
 
+    def deep_unsupervised_embedding(self, *args, **kwargs):
+        """See :func:`deepof_tpu_torch.train.harness.deep_unsupervised_embedding`."""
+        from deepof_tpu_torch.train.harness import deep_unsupervised_embedding
+
+        return deep_unsupervised_embedding(self, *args, **kwargs)
+
     def merged_graph_features_device(self, include_angles: bool = True, device=None):
         """Per-experiment merged graph-dataset frames on the device: arena-
         centred coordinates | speeds | bridge angles | skeleton-edge

@@ -88,8 +88,7 @@ def get_graph_dataset(
     if window_size is None:
         window_size = int(np.round(coordinates._frame_rate))
     window_step = int(kwargs.pop("window_step", 1))
-    if kwargs.pop("shuffle", False):
-        raise NotImplementedError("shuffled training windows come with training: ROADMAP queue 1 item 9")
+    shuffle = bool(kwargs.pop("shuffle", False))
     if not preprocess:
         raise NotImplementedError("preprocess=False graph datasets are not yet supported.")
     fused = (
@@ -150,21 +149,28 @@ def get_graph_dataset(
     tab_dict._scaled_scaler = global_scaler
     tab_dict._scaled_sig = (scale, dist_standardize, speed_standardize, coord_standardize, samples_max)
 
-    def gather_windows(frame):
-        """(T, F) scaled frame -> (nodes, edges, angles) window views."""
-        return tuple(
+    def gather_windows(frame, order=None):
+        """(T, F) scaled frame -> (nodes, edges, angles) window views, or
+        their windows in ``order`` (copies)."""
+        windows = tuple(
             rolling_windows_host(frame[:, idx], window_size, window_step, contiguous=False)
             if len(idx)
             else np.zeros((max(frame.shape[0] - window_size + 1, 0), window_size, 0))[::window_step]
             for idx in (node_idx, edge_idx, angle_idx)
         )
+        return windows if order is None else tuple(w[order] for w in windows)
 
+    # shuffle: each recording's windows in a permutation drawn, recording by
+    # recording in the parts' order, from one np.random.default_rng(42), as
+    # the JAX package draws it (graph_dataset.py:295, 331-333).
+    rng = np.random.default_rng(42) if shuffle else None
     for k, part in enumerate(to_preprocess):
         num_rows = 0
         for key in part.keys():
             n_win = len(range(0, max(int(part[key].shape[0]) - window_size + 1, 0), window_step))
+            order = None if rng is None else rng.permutation(n_win)
             part[key] = LazyWindows(
-                (lambda h=part._deferred_f32[key]: gather_windows(h.f32())),
+                (lambda h=part._deferred_f32[key], o=order: gather_windows(h.f32(), o)),
                 [(n_win, window_size, len(idx)) for idx in (node_idx, edge_idx, angle_idx)],
             )
             num_rows += n_win

@@ -3,7 +3,9 @@
 Per-node streams are folded into the batch axis by the callers, so each GRU
 sees one large batch. Each GRU layer (input projection, recurrence, and the
 LayerNorm in front of the second BiGRU) runs in ``ops.gru_kernels.gru_scan``:
-the CUDA kernel for tensors on the card, the plain loop on the CPU. GRU
+the CUDA kernel for tensors on the card, the plain loop on the CPU; in
+training on the card its forward and backward kernels through
+``GRULayerFunction`` (the prefix-length mask carries no gradient). GRU
 weights keep the flax GRUCell form the kernel consumes: ``wi`` (F, 3H) and
 ``bi`` (3H,) for the input projection [r|z|n], ``wh`` (H, 3H) and ``bhn``
 (H,) for the recurrent side.

@@ -1,8 +1,10 @@
-"""Serving-path model: the VQ-VAE encoder and codebook head
-(port of deepof_tpu/models/zoo.py:65 ``VQVAE``, eval form).
+"""The VQ-VAE: encoder, codebook head and decoder (port of
+deepof_tpu/models/zoo.py:65 ``VQVAE``).
 
-The decoder is not on the serving path and comes with the training slice;
-VaDE and Contrastive come with the rest of the zoo (ROADMAP queue 1).
+Serving reads the encoder and the head (``forward``, ``forward_streams``,
+``encode``, ``group``); training also runs the decoder
+(``training_forward``). VaDE and Contrastive come with the rest of the zoo
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -14,17 +16,18 @@ import torch
 from torch import nn
 
 from deepof_tpu_torch.device import resolve_device
+from deepof_tpu_torch.models.decoders import RecurrentDecoder
 from deepof_tpu_torch.models.encoders import RecurrentEncoder
 from deepof_tpu_torch.models.heads import VectorQuantizer
 
 
 class VQVAE(nn.Module):
-    """Vector-quantised autoencoder over pose windows, encoder and head."""
+    """Vector-quantised autoencoder over pose windows."""
 
     def __init__(self, input_shape, edge_feature_shape, adjacency: np.ndarray,
                  latent_dim: int, n_components: int, encoder_type: str = "recurrent",
                  use_gnn: bool = True, generator: Optional[torch.Generator] = None,
-                 angle_feature_shape=None):
+                 angle_feature_shape=None, kmeans_loss: float = 0.0):
         super().__init__()
         if encoder_type != "recurrent":
             raise NotImplementedError(
@@ -35,7 +38,9 @@ class VQVAE(nn.Module):
             input_shape, edge_feature_shape, latent_dim, adjacency, use_gnn, generator,
             angle_feature_shape,
         )
-        self.vq_layer = VectorQuantizer(n_components, latent_dim, generator)
+        self.vq_layer = VectorQuantizer(n_components, latent_dim, generator, kmeans_loss)
+        _, n, f = input_shape
+        self.decoder = RecurrentDecoder(n * f, latent_dim, generator)
 
     def forward(self, x: torch.Tensor, a: torch.Tensor, angles: Optional[torch.Tensor] = None) -> dict:
         """x (B, T, N, F), a (B, T, E, 1), angles (B, T, A[, 1]) where the
@@ -47,6 +52,26 @@ class VQVAE(nn.Module):
                         ang: Optional[torch.Tensor] = None) -> dict:
         """The same from the encoder's streams (``RecurrentEncoder.forward_streams``)."""
         return self._head(self.encoder.forward_streams(xg, ag, ang))
+
+    def training_forward(self, x: torch.Tensor, a: torch.Tensor,
+                         angles: Optional[torch.Tensor] = None) -> dict:
+        """The training (and training-evaluation) forward, the JAX package's
+        ``VQVAE.__call__`` (zoo.py:94-111): both reconstructions (the
+        decoder on the quantised code, with straight-through gradients, and
+        on the encoder output) as MaskedNormals over (B, T, N*F), the code,
+        soft counts, encoder output and the VQ losses."""
+        enc = self.encoder(x, a, angles)
+        quantized, soft_counts, vq_losses = self.vq_layer(enc, return_losses=True)
+        b, t, n, f = x.shape
+        x_flat = x.reshape(b, t, n * f)
+        return {
+            "quantized_reconstruction": self.decoder(quantized, x_flat),
+            "encoding_reconstruction": self.decoder(enc, x_flat),
+            "quantized": quantized,
+            "soft_counts": soft_counts,
+            "encoder_output": enc,
+            "vq_losses": vq_losses,
+        }
 
     def _head(self, enc: torch.Tensor) -> dict:
         quantized, soft_counts = self.vq_layer(enc)
@@ -71,12 +96,15 @@ def build_model(
     generator: Optional[torch.Generator] = None,
     device="cuda",
     angle_feature_shape=None,
+    kmeans_loss: float = 0.0,
 ) -> VQVAE:
-    """Factory for the serving models, in eval mode on ``device``. Weights are
-    drawn on the CPU from ``generator`` (so one seed gives the same model on
-    every device) and then moved. ``angle_feature_shape`` (T, A[, 1]), the
-    training harness's ``rebuild_spec`` key, adds the encoder's angle
-    stream."""
+    """Factory for the models, trainable (train mode) on ``device``. Weights
+    are drawn on the CPU from ``generator`` (so one seed gives the same
+    model on every device) and then moved. ``angle_feature_shape``
+    (T, A[, 1]), the training harness's ``rebuild_spec`` key, adds the
+    encoder's angle stream; ``kmeans_loss`` weighs the codebook head's
+    k-means regulariser in training. The model has no dropout or batch
+    norm: its train and eval modes compute the same function."""
     if model not in ("VQVAE", "vqvae"):
         raise NotImplementedError(
             f"model {model!r}: VaDE and Contrastive come with ROADMAP queue 1 item 8"
@@ -85,6 +113,6 @@ def build_model(
     net = VQVAE(
         tuple(input_shape), tuple(edge_feature_shape), np.asarray(adjacency),
         latent_dim, n_components, encoder_type, use_gnn, generator,
-        tuple(angle_feature_shape) if angle_feature_shape else None,
+        tuple(angle_feature_shape) if angle_feature_shape else None, kmeans_loss,
     )
-    return net.to(dev).eval()
+    return net.to(dev).train()

@@ -1,6 +1,6 @@
 """Fused masked GRU layer with flax GRUCell math: optional LayerNorm of the
 input rows, the input projection ``x W_i + b_i`` and the recurrence, for one
-or two directions in one launch.
+or two directions in one launch, and its backward for training.
 
 Port of the TPU kernel ``deepof_tpu/ops/pallas_gru.py`` ``gru_scan_pallas``
 (:55, ``pallas_call`` at :100), whose input projection (:91) sits in the
@@ -14,8 +14,22 @@ direction, then a Python loop over T: prefix lengths can be 0, which
 ``pack_padded_sequence`` rejects, and the gates are flax's, not
 ``nn.GRU``'s). There is no fallback from a CUDA tensor.
 
+Training. The JAX package's Pallas GRU has no VJP (JAX trains through flax
+``nn.scan`` and lets XLA differentiate it), so the backward is this port's
+own: ``GRULayerFunction``, whose forward launches the forward kernel with
+the carry store on (each step's starting carry, (B, T, D, H)) and whose
+backward launches ``csrc/gru_scan_bwd.cu`` (``gru_scan_backward``) for the
+serial part, the gate pre-activation gradients, then forms the input and
+weight gradients as matrix products over all stream-steps. On a CUDA
+tensor ``gru_scan`` takes it whenever grad mode is on and x or a weight
+requires grad; with a LayerNorm it then runs ``F.layer_norm`` in front of
+an un-normed launch, which autograd differentiates (the fused norm stays on
+the serving launch). On the CPU the plain loop is differentiated by
+autograd.
+
 Bound on an H100 at the serving widths ((F, H) = (16, 16) and (32, 8)):
-FP32 operations of the projections.
+FP32 operations of the projections. The backward kernel's note is in its
+source.
 """
 
 from __future__ import annotations
@@ -34,6 +48,33 @@ MAX_HIDDEN = 128
 Norm = Tuple[torch.Tensor, torch.Tensor, float]
 
 
+def _plain_scan(x, mask, wi, bi, wh, bhn, reverse):
+    """The masked recurrence over un-normed rows: (outputs (B, T, D, H),
+    final carries (B, D*H), the carry each step starts from (B, T, D, H))."""
+    b, t, f = x.shape
+    d, h = bhn.shape
+    x2 = x.reshape(b * t, f)
+    outs = x.new_zeros((b, t, d, h))
+    carries = x.new_zeros((b, t, d, h))
+    finals = []
+    for k in range(d):
+        xg = torch.addmm(bi[k], x2, wi[k]).reshape(b, t, 3 * h)
+        carry = x.new_zeros((b, h))
+        for s in (range(t - 1, -1, -1) if reverse[k] else range(t)):
+            g = xg[:, s]
+            hg = carry @ wh[k]
+            r = torch.sigmoid(g[:, :h] + hg[:, :h])
+            z = torch.sigmoid(g[:, h:2 * h] + hg[:, h:2 * h])
+            n = torch.tanh(g[:, 2 * h:] + r * (hg[:, 2 * h:] + bhn[k]))
+            new = (1.0 - z) * n + z * carry
+            m = mask[:, s, None]
+            carries[:, s, k] = carry
+            carry = torch.where(m, new, carry)
+            outs[:, s, k] = torch.where(m, new, 0.0)
+        finals.append(carry)
+    return outs, torch.cat(finals, dim=-1), carries
+
+
 def gru_scan_plain(
     x: torch.Tensor,
     mask: torch.Tensor,
@@ -47,27 +88,10 @@ def gru_scan_plain(
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Loop over T per direction; same arguments and results as :func:`gru_scan`."""
     b, t, f = x.shape
-    d, h = bhn.shape
     if norm is not None:
         x = F.layer_norm(x, (f,), norm[0], norm[1], norm[2])
-    x2 = x.reshape(b * t, f)
-    outs = x.new_zeros((b, t, d, h))
-    finals = []
-    for k in range(d):
-        xg = torch.addmm(bi[k], x2, wi[k]).reshape(b, t, 3 * h)
-        carry = x.new_zeros((b, h))
-        for s in (range(t - 1, -1, -1) if reverse[k] else range(t)):
-            g = xg[:, s]
-            hg = carry @ wh[k]
-            r = torch.sigmoid(g[:, :h] + hg[:, :h])
-            z = torch.sigmoid(g[:, h:2 * h] + hg[:, h:2 * h])
-            n = torch.tanh(g[:, 2 * h:] + r * (hg[:, 2 * h:] + bhn[k]))
-            new = (1.0 - z) * n + z * carry
-            m = mask[:, s, None]
-            carry = torch.where(m, new, carry)
-            outs[:, s, k] = torch.where(m, new, 0.0)
-        finals.append(carry)
-    return (outs.reshape(b, t, d * h) if outputs else None), torch.cat(finals, dim=-1)
+    outs, finals, _ = _plain_scan(x, mask, wi, bi, wh, bhn, reverse)
+    return (outs.reshape(b, t, -1) if outputs else None), finals
 
 
 def _check(x, mask, wi, bi, wh, bhn, reverse, norm):
@@ -100,6 +124,44 @@ def _check(x, mask, wi, bi, wh, bhn, reverse, norm):
         raise ValueError("x, the weights and the norm must share one dtype")
 
 
+def _check_cuda(tensors) -> None:
+    if tensors[0].dtype != torch.float32:
+        raise TypeError(f"the CUDA kernels take float32, got {tensors[0].dtype}")
+    if not all(v.is_contiguous() for v in tensors):
+        raise ValueError("x, mask, the weights, the norm and the carries must be contiguous")
+
+
+def _launch_forward(x, mask, wi, bi, wh, bhn, reverse, norm, outputs, carries):
+    """One launch of ``csrc/gru_scan.cu``: (outputs (B, T, D*H) or None,
+    finals (B, D*H), the carry each step starts from (B, T, D, H) where
+    ``carries``, else None)."""
+    tensors = [x, mask, wi, bi, wh, bhn] + ([norm[0], norm[1]] if norm is not None else [])
+    _check_cuda(tensors)
+    b, t, f = x.shape
+    d, h = bhn.shape
+    out = torch.empty((b, t, d * h), device=x.device, dtype=torch.float32) if outputs else None
+    fin = torch.empty((b, d * h), device=x.device, dtype=torch.float32)
+    hs = torch.empty((b, t, d, h), device=x.device, dtype=torch.float32) if carries else None
+    if b == 0 or t == 0:
+        return (out.zero_() if outputs else None), fin.zero_(), (hs.zero_() if carries else None)
+    launch = cuda_build.load("gru_scan").gru_scan_launch
+    launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    rev_mask = sum(1 << k for k, r in enumerate(reverse) if r)
+    gamma, beta, eps = (norm[0].data_ptr(), norm[1].data_ptr(), float(norm[2])) if norm is not None else (None, None, 0.0)
+    with torch.cuda.device(x.device):
+        err = launch(
+            x.data_ptr(), mask.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
+            bhn.data_ptr(), gamma, beta, eps, out.data_ptr() if outputs else None,
+            fin.data_ptr(), hs.data_ptr() if carries else None, b, t, f, h, d, rev_mask,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gru_scan launch failed with CUDA error {err} (B={b}, T={t}, F={f}, H={h}, D={d})")
+    gru_scan.launches += 1
+    return out, fin, hs
+
+
 def gru_scan(
     x: torch.Tensor,
     mask: torch.Tensor,
@@ -127,45 +189,220 @@ def gru_scan(
 
     Returns:
         (outputs (B, T, D*H) or None, final carries (B, D*H)), directions
-        concatenated.
+        concatenated. On a CUDA tensor with grad mode on and x, a weight or
+        the norm requiring grad, both come from :class:`GRULayerFunction`
+        and carry its ``grad_fn``: no call returns a CUDA output without
+        one while its inputs require grad.
     """
     _check(x, mask, wi, bi, wh, bhn, reverse, norm)
     if x.device.type == "cpu":
         return gru_scan_plain(x, mask, wi, bi, wh, bhn, reverse, norm, outputs)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel takes float32, got {x.dtype}")
-    tensors = [x, mask, wi, bi, wh, bhn] + ([norm[0], norm[1]] if norm is not None else [])
-    if not all(v.is_contiguous() for v in tensors):
-        raise ValueError("x, mask, the weights and the norm must be contiguous")
-
-    b, t, f = x.shape
-    d, h = bhn.shape
-    out = torch.empty((b, t, d * h), device=x.device, dtype=torch.float32) if outputs else None
-    fin = torch.empty((b, d * h), device=x.device, dtype=torch.float32)
-    if b == 0 or t == 0:
-        return (out.zero_() if outputs else None), fin.zero_()
-    launch = cuda_build.load("gru_scan").gru_scan_launch
-    launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    rev_mask = sum(1 << k for k, r in enumerate(reverse) if r)
-    gamma, beta, eps = (norm[0].data_ptr(), norm[1].data_ptr(), float(norm[2])) if norm is not None else (None, None, 0.0)
-    with torch.cuda.device(x.device):
-        err = launch(
-            x.data_ptr(), mask.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
-            bhn.data_ptr(), gamma, beta, eps, out.data_ptr() if outputs else None,
-            fin.data_ptr(), b, t, f, h, d, rev_mask,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"gru_scan launch failed with CUDA error {err} (B={b}, T={t}, F={f}, H={h}, D={d})")
-    gru_scan.launches += 1
+    params = [x, wi, bi, wh, bhn] + ([norm[0], norm[1]] if norm is not None else [])
+    if torch.is_grad_enabled() and any(v.requires_grad for v in params):
+        if norm is not None:
+            x = F.layer_norm(x, (x.shape[-1],), norm[0], norm[1], norm[2])
+        out, fin = GRULayerFunction.apply(x, mask, wi, bi, wh, bhn, tuple(reverse), outputs)
+        return (out if outputs else None), fin
+    out, fin, _ = _launch_forward(x, mask, wi, bi, wh, bhn, reverse, norm, outputs, carries=False)
     return out, fin
 
 
-# Kernel launches since the last reset (set to 0 to reset).
+# Kernel launches since the last reset (set to 0 to reset): serving and
+# training launches of the forward kernel.
 gru_scan.launches = 0
+
+
+def gru_scan_carries(x, mask, wi, bi, wh, bhn, reverse, outputs=True):
+    """The forward of a training step, no LayerNorm: (outputs (B, T, D*H) or
+    None, finals (B, D*H), the carry each step starts from (B, T, D, H)),
+    which :func:`gru_scan_backward` reads. One launch of the forward kernel
+    with its carry store on a CUDA tensor, the plain loop on the CPU."""
+    _check(x, mask, wi, bi, wh, bhn, reverse, None)
+    if x.device.type == "cpu":
+        outs, fin, hs = _plain_scan(x, mask, wi, bi, wh, bhn, reverse)
+        return (outs.reshape(x.shape[0], x.shape[1], -1) if outputs else None), fin, hs
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _launch_forward(x, mask, wi, bi, wh, bhn, reverse, None, outputs, carries=True)
+
+
+def _sum_over_rows(a, b, rows: int = 1024):
+    """a^T b for a (n, p) and b (n, q) (unit column stride, any row
+    stride) over a long n, as a batched product of chunks of ``rows``
+    rows summed over the chunks: one product with a
+    small output and an n-long reduction runs on a handful of CTAs
+    (6.3 ms for the node layer's two at n = 179,200, H100)."""
+    n = a.shape[0]
+    c = n // rows
+    out = torch.bmm(a[:c * rows].view(c, rows, -1).transpose(1, 2), b[:c * rows].view(c, rows, -1)).sum(0) \
+        if c else a.new_zeros((a.shape[1], b.shape[1]))
+    return out + a[c * rows:].T @ b[c * rows:] if c * rows < n else out
+
+
+def _gradient_products(x, wi, hs, dg, dhn):
+    """(dx, dW_i, db_i, dW_h, db_hn) from the gate gradients, as products
+    over all B*T stream-steps: dx = sum_d dG_d W_i,d^T, dW_i = x^T dG,
+    db_i = sum dG, dW_h = h^T [dG_r | dG_z | dHn], db_hn = sum dHn."""
+    b, t, f = x.shape
+    d, h = dhn.shape[2:]
+    n = b * t
+    dgf = dg.reshape(n, d * 3 * h)
+    dhf = dhn.reshape(n, d * h)
+    hp = hs.reshape(n, d * h)
+    dx = (dgf @ wi.transpose(1, 2).reshape(d * 3 * h, f)).reshape(b, t, f)
+    dwi = _sum_over_rows(x.reshape(n, f), dgf).view(f, d, 3 * h).transpose(0, 1).contiguous()
+    # Both directions' carries against both directions' gradients, in two
+    # products whose diagonal blocks are each direction's dW_h. The products
+    # are latency-bound at the training shapes: per-direction products, half
+    # the multiply-adds, took longer on an H100 (PERF.md, PR 5 review round;
+    # ``scripts/torch_ab_path.py --products``).
+    hg, hn = _sum_over_rows(hp, dgf), _sum_over_rows(hp, dhf)
+    dwh = torch.stack([
+        torch.cat([hg[k * h:(k + 1) * h, 3 * k * h:3 * k * h + 2 * h], hn[k * h:(k + 1) * h, k * h:(k + 1) * h]], 1)
+        for k in range(d)
+    ])
+    return dx, dwi, dgf.sum(0).view(d, 3 * h), dwh, dhf.sum(0).view(d, h)
+
+
+def gru_scan_backward_plain(x, mask, wi, bi, wh, bhn, reverse, hs, d_out=None, d_fin=None):
+    """What the backward kernel writes, as a loop over T, then the gradient
+    products; same arguments and results as :func:`gru_scan_backward`."""
+    b, t, f = x.shape
+    d, h = bhn.shape
+    dg = x.new_zeros((b, t, d, 3 * h))
+    dhn = x.new_zeros((b, t, d, h))
+    dout = None if d_out is None else d_out.reshape(b, t, d, h)
+    x2 = x.reshape(b * t, f)
+    for k in range(d):
+        xg = torch.addmm(bi[k], x2, wi[k]).reshape(b, t, 3 * h)
+        dh = x.new_zeros((b, h)) if d_fin is None else d_fin.reshape(b, d, h)[:, k]
+        # The direction's processing order, walked backwards.
+        for s in (range(t) if reverse[k] else range(t - 1, -1, -1)):
+            hp = hs[:, s, k]
+            g = xg[:, s]
+            hg = hp @ wh[k]
+            r = torch.sigmoid(g[:, :h] + hg[:, :h])
+            z = torch.sigmoid(g[:, h:2 * h] + hg[:, h:2 * h])
+            hn = hg[:, 2 * h:] + bhn[k]
+            n = torch.tanh(g[:, 2 * h:] + r * hn)
+            dht = dh if dout is None else dh + dout[:, s, k]
+            m = mask[:, s, None]
+            dan = torch.where(m, dht * (1.0 - z) * (1.0 - n * n), 0.0)
+            dar = dan * hn * r * (1.0 - r)
+            daz = torch.where(m, dht * (hp - n) * z * (1.0 - z), 0.0)
+            dhs = dan * r
+            dg[:, s, k] = torch.cat([dar, daz, dan], dim=-1)
+            dhn[:, s, k] = dhs
+            dh = torch.where(m, z * dht + torch.cat([dar, daz, dhs], dim=-1) @ wh[k].T, dh)
+    return (dg, dhn) + _gradient_products(x, wi, hs, dg, dhn)
+
+
+def gru_scan_backward(
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    wi: torch.Tensor,
+    bi: torch.Tensor,
+    wh: torch.Tensor,
+    bhn: torch.Tensor,
+    reverse: Sequence[bool],
+    hs: torch.Tensor,
+    d_out: Optional[torch.Tensor] = None,
+    d_fin: Optional[torch.Tensor] = None,
+):
+    """Gradients of the un-normed GRU layer from the carries its forward stored.
+
+    Args:
+        x, mask, wi, bi, wh, bhn, reverse: as in :func:`gru_scan` (x un-normed).
+        hs: (B, T, D, H) the carry each step started from
+            (:func:`gru_scan_carries`).
+        d_out: (B, T, D*H) gradient of the outputs, or None (final-only
+            layers; zero).
+        d_fin: (B, D*H) gradient of the final carries, or None (zero).
+
+    Returns:
+        (dG (B, T, D, 3H), the input-side gate pre-activation gradients;
+        dHn (B, T, D, H), the candidate's recurrent-side gradient; dx;
+        dW_i; db_i; dW_h; db_hn). On a CUDA tensor ``csrc/gru_scan_bwd.cu``
+        writes dG and dHn, and the rest are matrix products.
+    """
+    _check(x, mask, wi, bi, wh, bhn, reverse, None)
+    b, t, _ = x.shape
+    d, h = bhn.shape
+    if hs.shape != (b, t, d, h):
+        raise ValueError(f"hs must be ({b}, {t}, {d}, {h}), got {tuple(hs.shape)}")
+    if d_out is not None and d_out.shape != (b, t, d * h):
+        raise ValueError(f"d_out must be ({b}, {t}, {d * h}), got {tuple(d_out.shape)}")
+    if d_fin is not None and d_fin.shape != (b, d * h):
+        raise ValueError(f"d_fin must be ({b}, {d * h}), got {tuple(d_fin.shape)}")
+    if any(v is not None and v.device != x.device for v in (hs, d_out, d_fin)):
+        raise ValueError("the carries and the gradients must lie on x's device")
+    if x.device.type == "cpu":
+        return gru_scan_backward_plain(x, mask, wi, bi, wh, bhn, reverse, hs, d_out, d_fin)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    d_out = None if d_out is None else d_out.contiguous()
+    d_fin = None if d_fin is None else d_fin.contiguous()
+    _check_cuda([x, mask, wi, bi, wh, bhn, hs] + [v for v in (d_out, d_fin) if v is not None])
+    dg = torch.empty((b, t, d, 3 * h), device=x.device, dtype=torch.float32)
+    dhn = torch.empty((b, t, d, h), device=x.device, dtype=torch.float32)
+    if b == 0 or t == 0:
+        dg.zero_()
+        dhn.zero_()
+    else:
+        launch = cuda_build.load("gru_scan_bwd").gru_scan_bwd_launch
+        launch.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        rev_mask = sum(1 << k for k, r in enumerate(reverse) if r)
+        wht = wh.transpose(1, 2).contiguous()  # the kernel reads rows of W_h as columns
+        with torch.cuda.device(x.device):
+            err = launch(
+                x.data_ptr(), mask.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
+                wht.data_ptr(), bhn.data_ptr(), hs.data_ptr(), None if d_out is None else d_out.data_ptr(),
+                None if d_fin is None else d_fin.data_ptr(), dg.data_ptr(), dhn.data_ptr(),
+                b, t, x.shape[2], h, d, rev_mask, torch.cuda.current_stream(x.device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"gru_scan_backward launch failed with CUDA error {err} (B={b}, T={t}, H={h}, D={d})")
+        gru_scan_backward.launches += 1
+    return (dg, dhn) + _gradient_products(x, wi, hs, dg, dhn)
+
+
+# Backward kernel launches since the last reset (set to 0 to reset).
+gru_scan_backward.launches = 0
+
+
+class GRULayerFunction(torch.autograd.Function):
+    """The un-normed GRU layer as an autograd node: forward through
+    :func:`gru_scan_carries` (the carries saved for the backward), backward
+    through :func:`gru_scan_backward`. The kernels on a CUDA tensor, the
+    plain versions on the CPU.
+
+    ``apply(x, mask, wi, bi, wh, bhn, reverse, outputs)`` -> (outputs
+    (B, T, D*H), an empty tensor where ``outputs`` is False; finals (B, D*H)).
+    """
+
+    @staticmethod
+    def forward(ctx, x, mask, wi, bi, wh, bhn, reverse, outputs):
+        out, fin, hs = gru_scan_carries(x, mask, wi, bi, wh, bhn, reverse, outputs)
+        ctx.save_for_backward(x, mask, wi, bi, wh, bhn, hs)
+        ctx.reverse = reverse
+        ctx.set_materialize_grads(False)
+        if out is None:
+            out = x.new_empty(0)
+            ctx.mark_non_differentiable(out)
+        return out, fin
+
+    @staticmethod
+    def backward(ctx, d_out, d_fin):
+        x, mask, wi, bi, wh, bhn, hs = ctx.saved_tensors
+        if d_out is not None and d_out.numel() == 0:
+            d_out = None
+        if d_out is None and d_fin is None:
+            return (None,) * 8
+        _, _, dx, dwi, dbi, dwh, dbhn = gru_scan_backward(x, mask, wi, bi, wh, bhn, ctx.reverse, hs, d_out, d_fin)
+        return dx, None, dwi, dbi, dwh, dbhn, None, None
 
 
 def gru_scan_config(t: int, f: int, h: int, d: int, outputs: bool = True, norm: bool = False) -> dict:
@@ -183,3 +420,18 @@ def gru_scan_config(t: int, f: int, h: int, d: int, outputs: bool = True, norm: 
     route, s, threads, smem, per_sm = info
     return {"route": "registers" if route else "L1", "streams_per_cta": s,
             "threads": threads, "smem_bytes": smem, "ctas_per_sm": per_sm}
+
+
+def gru_scan_bwd_config(t: int, f: int, h: int, d: int) -> dict:
+    """The launch ``gru_scan_backward`` makes on the current CUDA device for
+    this shape: streams and threads per CTA, shared memory per CTA, CTAs
+    resident per SM."""
+    fn = cuda_build.load("gru_scan_bwd").gru_scan_bwd_config
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 4)()
+    err = fn(t, f, h, d, ctypes.cast(info, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"gru_scan_bwd_config failed with CUDA error {err}")
+    s, threads, smem, per_sm = info
+    return {"streams_per_cta": s, "threads": threads, "smem_bytes": smem, "ctas_per_sm": per_sm}

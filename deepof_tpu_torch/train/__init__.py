@@ -1,1 +1,1 @@
-"""Inference over recordings (training waits for a later slice)."""
+"""Training of the VQ-VAE (``harness``) and inference over recordings (``inference``)."""

@@ -15,27 +15,18 @@ eagerly, so this port runs exactly ceil(n_windows / block) blocks.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from deepof_tpu_torch.core.storage import get_dt
 from deepof_tpu_torch.core.table_dict import TableDict
 from deepof_tpu_torch.device import resolve_device, to_device
 from deepof_tpu_torch.ops.window_kernels import window_streams
+from deepof_tpu_torch.train.harness import ModelBundle
 
-
-@dataclass
-class ModelBundle:
-    """A model and the spec it was built from (``rebuild_spec["model"]``,
-    ``["input_shape"]``, ...), the minimal counterpart of the JAX package's
-    ModelBundle for serving."""
-
-    model: nn.Module
-    rebuild_spec: Dict = field(default_factory=dict)
+__all__ = ["ModelBundle", "embedding_per_video", "scanned_windowed_forward", "stream_tables"]
 
 
 def stream_tables(layout: Dict, use_gnn: bool = True):
@@ -157,7 +148,8 @@ def embedding_per_video(
         to_preprocess: the merged TableDict that ``get_graph_dataset``
             returns (its fourth item).
         model: a ModelBundle whose ``rebuild_spec`` names the model, its
-            input shape and ``use_angles``.
+            input shape and ``use_angles``: one that ``train_deepof_model``
+            returned, one ``ModelBundle.load`` read, or one built by hand.
         meta_info: the graph dataset's metainfo (standardize modes and the
             node / edge / angle columns).
         global_scaler: the scaler fitted at training time. When it is the

@@ -11,8 +11,8 @@ dicts of numpy arrays, onto the state-dict names of the port's modules
   ``bhn`` (H,), the flax form the GRU kernel consumes;
 - CensNet leaves and the (D, K) codebook as they are.
 
-Unknown or missing keys raise. The VQ-VAE's ``decoder`` subtree is skipped
-by name: the decoder is not on the serving path.
+Unknown or missing keys raise, so a whole JAX VQ-VAE (encoder, codebook
+and decoder) crosses over or nothing does.
 """
 
 from __future__ import annotations
@@ -126,22 +126,40 @@ def _recurrent_encoder(p: dict, where: str) -> State:
     return state
 
 
+def _recurrent_decoder(p: dict, where: str) -> State:
+    _keys(p, where, ("BiGRU_0", "LayerNorm_0", "BiGRU_1", "LayerNorm_1", "Conv_0", "LayerNorm_2",
+                     "ProbabilisticHead_0"))
+    _keys(p["Conv_0"], f"{where}/Conv_0", ("kernel",))
+    _keys(p["ProbabilisticHead_0"], f"{where}/ProbabilisticHead_0", ("Dense_0",))
+    return {
+        **_nest("gru1", _bigru(p["BiGRU_0"], f"{where}/BiGRU_0")),
+        **_nest("norm1", _layer_norm(p["LayerNorm_0"], f"{where}/LayerNorm_0")),
+        **_nest("gru2", _bigru(p["BiGRU_1"], f"{where}/BiGRU_1")),
+        **_nest("norm2", _layer_norm(p["LayerNorm_1"], f"{where}/LayerNorm_1")),
+        "conv_weight": _t(np.asarray(p["Conv_0"]["kernel"]).transpose(2, 1, 0)),
+        **_nest("norm3", _layer_norm(p["LayerNorm_2"], f"{where}/LayerNorm_2")),
+        **_nest("head.dense", _dense(p["ProbabilisticHead_0"]["Dense_0"], f"{where}/ProbabilisticHead_0/Dense_0")),
+    }
+
+
 def _vector_quantizer(p: dict, where: str) -> State:
     _keys(p, where, ("codebook",))
     return {"codebook": _t(p["codebook"])}
 
 
 def _vqvae(p: dict, where: str) -> State:
-    _keys(p, where, ("encoder", "vq_layer"), ("decoder",))
+    _keys(p, where, ("encoder", "vq_layer", "decoder"))
     return {
         **_nest("encoder", _recurrent_encoder(p["encoder"], f"{where}/encoder")),
         **_nest("vq_layer", _vector_quantizer(p["vq_layer"], f"{where}/vq_layer")),
+        **_nest("decoder", _recurrent_decoder(p["decoder"], f"{where}/decoder")),
     }
 
 
 _CONVERTERS: Dict[str, Callable[[dict, str], State]] = {
     "VQVAE": _vqvae,
     "RecurrentEncoder": _recurrent_encoder,
+    "RecurrentDecoder": _recurrent_decoder,
     "RecurrentBlock": _recurrent_block,
     "CensNetConv": _censnet,
     "VectorQuantizer": _vector_quantizer,

@@ -1,8 +1,10 @@
 """A/B of the port between two trees on one CUDA GPU: the serving path's
-seconds, and the RecurrentBlock's time at several latents.
+seconds, the RecurrentBlock's time at several latents, and the GRU
+backward's gradient products at the training shapes.
 
     python3 scripts/torch_ab_path.py --path ROOT
     python3 scripts/torch_ab_path.py --blocks ROOT [--latents 4 8 16 64]
+    python3 scripts/torch_ab_path.py --products ROOT
     python3 scripts/torch_ab_path.py --summarize A.jsonl B.jsonl
 
 ``--path`` drives the serving path of chip_smoke.py through ROOT's own
@@ -23,11 +25,19 @@ feature) at each latent: ``RecurrentBlock.forward``, and its first BiGRU
 alone (``gru1(x, mask)``), with every window full; CUDA events over 10
 calls after 2 warm ones.
 
-Both print the card's name and power limit, then one JSON line.
+``--products`` times, through ROOT's own ``ops.gru_kernels``, the GRU
+backward's gradient products (``_gradient_products``: dx and the weight
+gradients from the gate gradients) at the six GRU shapes of a batch-256
+training step (``PRODUCT_SHAPES``, D = 2, T = 25), on seeded random inputs;
+CUDA events over 20 calls after 2 warm ones, with no spin of the card
+first, so a call whose host work outlasts its kernels reads its host time,
+as it does inside the host-bound train step.
+
+All three print the card's name and power limit, then one JSON line.
 
 ``--summarize`` reads files of JSON lines, one file per tree, each line
 either a stage line (chip_smoke.py's or --path's, the one with "total_s")
-or a --blocks line, written in turns (A, B, B, A, ...). Prints per file the
+or a --blocks or --products line, written in turns (A, B, B, A, ...). Prints per file the
 median and quartiles of the path's seconds (the first run's too, where the
 lines have it), embed seconds and frames/s, and the median block times;
 with two files, how many of the paired runs (the k-th line of one file
@@ -51,6 +61,10 @@ import sys
 
 WINDOW = 25
 BLOCKS = {"node": (4096 * 28, 3), "edge": (4096 * 32, 1)}
+# (B, F, H) of the GRU layers of a batch-256 training step: the encoder's
+# node and edge gru1 and gru2, the decoder's two layers.
+PRODUCT_SHAPES = [(256 * 28, 16, 16), (256 * 28, 32, 8), (256 * 32, 16, 16), (256 * 32, 32, 8),
+                  (256, 8, 8), (256, 16, 16)]
 
 
 def _ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
@@ -115,6 +129,21 @@ def blocks(root: str, latents) -> dict:
     return out
 
 
+def products(root: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from deepof_tpu_torch.ops.gru_kernels import _gradient_products
+
+    g = torch.Generator().manual_seed(2)
+    out = {}
+    for b, f, h in PRODUCT_SHAPES:
+        x, wi, hs, dg, dhn = (torch.randn(*shape, generator=g).to("cuda") for shape in (
+            (b, WINDOW, f), (2, f, 3 * h), (b, WINDOW, 2, h), (b, WINDOW, 2, 3 * h), (b, WINDOW, 2, h)))
+        out[f"b{b}_f{f}_h{h}_ms"] = _ms(torch, lambda: _gradient_products(x, wi, hs, dg, dhn), reps=20)
+    return out
+
+
 def _quartiles(v):
     q = statistics.quantiles(v, n=4) if len(v) > 1 else [v[0]] * 3
     return {"median": q[1], "q1": q[0], "q3": q[2]}
@@ -125,7 +154,7 @@ def summarize(paths) -> dict:
     for path in paths:
         lines = [json.loads(line) for line in open(path) if line.startswith("{")]
         runs = [r for r in lines if "total_s" in r]
-        blocks_ = [r["blocks"] for r in lines if "blocks" in r]
+        blocks_ = [r.get("blocks") or r["products"] for r in lines if "blocks" in r or "products" in r]
         paths_runs.append(runs)
         res = {"runs": len(runs), "card": sorted({r["card"] for r in lines})}
         if runs:
@@ -156,14 +185,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", metavar="ROOT", help="tree whose RecurrentBlock to time")
     ap.add_argument("--path", metavar="ROOT", help="tree whose serving path to time")
+    ap.add_argument("--products", metavar="ROOT", help="tree whose GRU gradient products to time")
     ap.add_argument("--latents", type=int, nargs="+", default=[4, 8, 16, 64])
     ap.add_argument("--summarize", metavar="FILE", nargs="+", help="files of JSON lines, one per tree")
     args = ap.parse_args()
     if args.summarize:
         print(json.dumps(summarize(args.summarize), indent=1))
         return 0
-    if not (args.blocks or args.path):
-        ap.error("--blocks, --path or --summarize is required")
+    if not (args.blocks or args.path or args.products):
+        ap.error("--blocks, --path, --products or --summarize is required")
     import torch
 
     if not torch.cuda.is_available():
@@ -176,6 +206,8 @@ def main() -> int:
     print(card)
     if args.path:
         print(json.dumps({"root": args.path, "card": card, **path(args.path)}), flush=True)
+    elif args.products:
+        print(json.dumps({"root": args.products, "card": card, "products": products(args.products)}), flush=True)
     else:
         print(json.dumps({"root": args.blocks, "card": card, "blocks": blocks(args.blocks, args.latents)}), flush=True)
     return 0

@@ -1,6 +1,7 @@
-"""Where the time of the port's serving path goes on one CUDA GPU.
+"""Where the time of the port's serving path, or of one train step, goes on one CUDA GPU.
 
     python3 scripts/torch_profile_path.py [--root ROOT] [--animals B]
+    python3 scripts/torch_profile_path.py --train [--batch 256] [--steps 20]
 
 Drives the same 1-hour, 2-animal serving path as chip_smoke.py (warm: one
 untimed 2,000-frame and one untimed 1-hour run first, as chip_smoke.py
@@ -21,6 +22,19 @@ The chrome trace of the path is written to chiprun_out/torch_profile_path.json.
 With ``--root`` the path runs through the package and chip_smoke.py of ROOT,
 a checkout of another commit of the port, and no trace is written;
 ``--animals B`` makes the recording one deepof_14 animal's.
+
+With ``--train``, the step of chip_smoke.py's training phase instead
+(latent 8, 10 components, window 25, two deepof_14 animals: 28 nodes, 32
+edges, CensNet on, seeded weights), on a seeded batch of random windows of
+that shape. It prints the card; ms per step over ``--steps`` steps (wall
+clock, synchronised at the end) and the step split into its forward (loss),
+backward and optimiser phases, each synchronised; the host's enqueue time of
+one step, of its phases and of the GRU layer's wrappers at the node gru1
+shape (7168 streams), each measured while a spin keeps the card busy, so
+that no call waits for the device; PyTorch's synchronising calls in a step;
+then five steps under the profiler: the device's busy share, kernel launches
+a step, the kernels ranked by device time and the host operators by their
+own CPU time. Its chrome trace is chiprun_out/torch_profile_train.json.
 """
 
 from __future__ import annotations
@@ -42,20 +56,39 @@ def _device_us(evt) -> float:
 
 
 def _kernels(torch, prof):
-    """(device us, launches, name) of every CUDA kernel, by total time."""
+    """(device us, launches, name) of every CUDA kernel, by total time.
+    User annotations (a range around kernels, such as Optimizer.step) are
+    not kernels and are left out."""
     rows = []
     for evt in prof.key_averages():
         us = _device_us(evt)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(evt, "is_user_annotation", False):
             rows.append((us, evt.count, evt.key))
     return sorted(rows, reverse=True)
 
 
-def _print_table(rows, top):
+def _host_ops(torch, prof):
+    """(self CPU us, calls, name) of every host operator, by total time."""
+    rows = [(float(evt.self_cpu_time_total), evt.count, evt.key) for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CPU and not getattr(evt, "is_user_annotation", False)]
+    return sorted(rows, reverse=True)
+
+
+def _print_table(rows, top, per: int = 1, what: str = "kernel"):
+    """The first ``top`` rows, times and counts divided by ``per`` (steps)."""
     busy_us = sum(r[0] for r in rows)
-    print(f"{'device ms':>10} {'share':>6} {'launches':>8}  kernel")
+    unit = "/step" if per > 1 else ""
+    print(f"{'ms' + unit:>10} {'share':>6} {'calls' + unit:>10}  {what}")
     for us, count, key in rows[:top]:
-        print(f"{us / 1e3:10.3f} {us / busy_us:6.1%} {count:8d}  {key[:110]}")
+        print(f"{us / 1e3 / per:10.4f} {us / busy_us:6.1%} {count / per:10.1f}  {key[:110]}")
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def _conv_probe(torch, profile, activities, block, window):
@@ -85,10 +118,137 @@ def _conv_probe(torch, profile, activities, block, window):
     return out
 
 
+def _profile_train(torch, chip_smoke, batch: int, steps: int) -> None:
+    """The ``--train`` mode (see the module's docstring)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepof_tpu_torch.models import build_model
+    from deepof_tpu_torch.ops import gru_kernels as gk
+    from deepof_tpu_torch.train.harness import ClippedAdam, make_vqvae_step, vqvae_loss
+
+    card = _card()
+    graph, *_ = chip_smoke._frame_layout(chip_smoke.ANIMALS)
+    n, e, w = graph.n_nodes, graph.n_edges, chip_smoke.WINDOW
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(batch, w, n, 3, generator=g).to("cuda")
+    a = torch.randn(batch, w, e, 1, generator=g).to("cuda")
+    model = build_model("VQVAE", (w, n, 3), (w, e, 1), graph.adjacency, chip_smoke.LATENT,
+                        chip_smoke.N_COMPONENTS, generator=torch.Generator().manual_seed(0), device="cuda")
+    opt = ClippedAdam(model.parameters(), 3e-4)
+    step = make_vqvae_step(model, opt)
+    for _ in range(3):
+        step(x, a)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(x, a)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+
+    phases = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        total, _ = vqvae_loss(model, x, a)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.zero_grad(set_to_none=False)
+        total.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        phases["forward"] += (t1 - t0) * 1e3 / steps
+        phases["backward"] += (t2 - t1) * 1e3 / steps
+        phases["optimizer"] += (t3 - t2) * 1e3 / steps
+
+    def enqueue_ms(fn, reps):
+        """Host ms per call of ``fn`` while the card spins (~200 ms), so
+        that nothing waits for the device."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(400_000_000)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    b, f, h = batch * n, 16, 16
+    xs = torch.randn(b, w, f, generator=g).to("cuda")
+    mask = torch.ones(b, w, dtype=torch.bool, device="cuda")
+    wts = [v.to("cuda") for v in (torch.randn(2, f, 3 * h, generator=g) / 4, torch.zeros(2, 3 * h),
+                                  torch.randn(2, h, 3 * h, generator=g) / 4, torch.zeros(2, h))]
+    _, _, hs = gk.gru_scan_carries(xs, mask, *wts, (False, True))
+    d_out = torch.randn(b, w, 2 * h, generator=g).to("cuda")
+    dg, dhn = gk.gru_scan_backward(xs, mask, *wts, (False, True), hs, d_out)[:2]
+    # One step at a time: a step enqueues ~670 launches, and CUDA's launch
+    # queue holds ~1,000 before the host waits. Then its phases alone: a
+    # phase whose enqueue time exceeds its synchronised time waits for the
+    # device somewhere.
+    losses = []
+
+    def backward():
+        opt.zero_grad(set_to_none=False)
+        losses.pop().backward()
+
+    enqueue = {"step": enqueue_ms(lambda: step(x, a), 1),
+               "forward": enqueue_ms(lambda: losses.append(vqvae_loss(model, x, a)[0]), 1)}
+    losses[:] = [vqvae_loss(model, x, a)[0], vqvae_loss(model, x, a)[0]]
+    enqueue["backward"] = enqueue_ms(backward, 1)
+    enqueue["optimizer"] = enqueue_ms(opt.step, 1)
+    # PyTorch's own synchronising calls within one step (device-to-host
+    # copies, nonzero, item); syncs inside cuDNN or the kernels' C launchers
+    # are not seen here.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        step(x, a)
+        torch.cuda.set_sync_debug_mode("default")
+    sync_points = sorted({str(c.message)[:160] for c in caught if "synchroniz" in str(c.message)})
+    with torch.no_grad():
+        enqueue |= {
+            "gru_scan_serving": enqueue_ms(lambda: gk.gru_scan(xs, mask, *wts, (False, True)), 20),
+            "gru_scan_carries": enqueue_ms(lambda: gk.gru_scan_carries(xs, mask, *wts, (False, True)), 20),
+            "gru_scan_backward": enqueue_ms(lambda: gk.gru_scan_backward(xs, mask, *wts, (False, True), hs, d_out), 20),
+            "gradient_products": enqueue_ms(lambda: gk._gradient_products(xs, wts[0], hs, dg, dhn), 20),
+        }
+
+    n_prof = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            step(x, a)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels, host = _kernels(torch, prof), _host_ops(torch, prof)
+    busy_s = sum(k[0] for k in kernels) / 1e6
+    print(card)
+    print(json.dumps({
+        "card": card, "batch": batch, "steps": steps, "ms_per_step": step_ms,
+        "phases_ms_synchronised": phases, "host_enqueue_ms": enqueue, "torch_sync_points": sync_points,
+        "profiled_steps": n_prof, "profiled_ms_per_step": wall_s / n_prof * 1e3,
+        "device_busy_ms_per_step": busy_s / n_prof * 1e3, "device_busy_share": busy_s / wall_s,
+        "kernel_launches_per_step": sum(k[1] for k in kernels) / n_prof,
+    }))
+    _print_table(kernels, 25, n_prof)
+    _print_table(host, 25, n_prof, "host operator (self CPU time)")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "torch_profile_train.json"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", help="checkout of the port to profile (default: this one)")
     ap.add_argument("--animals", nargs="+", help="animal ids of the recording (default: chip_smoke.py's two)")
+    ap.add_argument("--train", action="store_true", help="profile one VQ-VAE train step instead of the path")
+    ap.add_argument("--batch", type=int, default=256, help="--train: windows a step")
+    ap.add_argument("--steps", type=int, default=20, help="--train: timed steps")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root or REPO))
     import chip_smoke  # the serving-path setup lives there
@@ -102,10 +262,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_path: no CUDA device is available", file=sys.stderr)
         return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    if args.train:
+        _profile_train(torch, chip_smoke, args.batch, args.steps)
+        return 0
+    card = _card()
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     setup = chip_smoke._serving_setup(torch)
     pos, lik = chip_smoke._synthesize(chip_smoke.T_FRAMES, setup["nodes"])

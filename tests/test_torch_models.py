@@ -184,8 +184,8 @@ def test_vqvae_encode_group_and_weight_keys():
     x = _inputs(rng, (4, 8, N, 3))
     a = _inputs(rng, (4, 8, E, 1))
     jm = jzoo.build_model("VQVAE", (8, N, 3), (8, E, 1), ADJ, latent_dim=4, n_components=5)
-    params = _init(jm, 5, jnp.asarray(x), jnp.asarray(a), method=jm.group)
-    params["decoder"] = {"Conv_0": {"kernel": np.zeros((5, 3, 3), np.float32)}}  # skipped by name
+    params = _init(jm, 5, jnp.asarray(x), jnp.asarray(a))  # encoder, codebook and decoder
+    assert set(params) == {"encoder", "vq_layer", "decoder"}
     pm = pzoo.build_model("VQVAE", (8, N, 3), (8, E, 1), ADJ, latent_dim=4, n_components=5, device="cpu")
     _load(pm, params, "VQVAE")
     xt, at = torch.as_tensor(x), torch.as_tensor(a)
@@ -203,7 +203,10 @@ def test_vqvae_encode_group_and_weight_keys():
     enc_params = dict(params["encoder"])
     del enc_params["Dense_0"]
     with pytest.raises(KeyError, match="missing"):
-        from_flax_params({"encoder": enc_params, "vq_layer": params["vq_layer"]}, kind="VQVAE")
+        from_flax_params({"encoder": enc_params, "vq_layer": params["vq_layer"],
+                          "decoder": params["decoder"]}, kind="VQVAE")
+    with pytest.raises(KeyError, match="missing"):  # the decoder is converted, not skipped
+        from_flax_params({"encoder": params["encoder"], "vq_layer": params["vq_layer"]}, kind="VQVAE")
     with pytest.raises(NotImplementedError, match="queue 1"):
         pzoo.build_model("VaDE", (8, N, 3), (8, E, 1), ADJ, latent_dim=4, device="cpu")
 
