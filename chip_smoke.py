@@ -53,7 +53,16 @@
    window launch per block per recording and the GRU launches of each run,
    and card vs the CPU plain versions (float32) on a 2,000-frame copy of
    the project, with and without the angle stream.
-5. Training: the GRU layer's backward kernel (csrc/gru_scan_bwd.cu, through
+5. Getters: the public project created with the test arenas and an ROI
+   saved through ``save_arena_data`` and read back through
+   ``create(arena_path=...)``; ``get_coords`` plain, arena-centred and
+   aligned on Spine_1, polar, and at speed 1 for animal B;
+   ``get_distances`` on the skeleton's edges, over all pairs and at speed
+   1; ``get_angles`` in degrees; ``get_areas``; ``get_coords(roi_number=1)``.
+   Each held card vs CPU (float32 both) on the 2,000-frame copy at 1e-4 of
+   max(1, max |value|), then timed on the full project (the second of two
+   calls), with the peak device memory.
+6. Training: the GRU layer's backward kernel (csrc/gru_scan_bwd.cu, through
    ``gru_scan_backward``) held against ``gru_scan_backward_plain`` from the
    carries the forward kernel stores, at every GRU shape of a training step
    at batch 256 (the encoder's node and edge layers, the decoder's two under
@@ -66,7 +75,7 @@
    50 train and 5 val batches, checking finite losses and the launches,
    and the saved bundle read back with ``ModelBundle.load`` and served with
    ``embedding_per_video``, its soft counts equal to the trained bundle's.
-6. Prints a stage line of each path, a kernels line, and last
+7. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -158,6 +167,23 @@ STEP_GRAD_RTOL = 1e-3
 # ~1e-7 relative per op; through the encoder that grows to ~1e-5 of the
 # output's scale. Bar: 1e-4 relative to the largest |value| on the CPU.
 PATH_RTOL = 1e-4
+
+# The getters phase: each call on the public project, (name, method,
+# keywords, columns of a table), checked card vs CPU (float32 both) on its 2,000-frame copy at
+# PATH_RTOL, per getter. ROI 1 is the half-plane left of the median x of
+# animal B's Center, saved with the test arenas through save_arena_data.
+GETTER_CALLS = (
+    ("coords", "get_coords", {}, 56),
+    ("coords_arena_aligned", "get_coords", {"center": "arena", "align": "Spine_1"}, 56),
+    ("coords_polar", "get_coords", {"polar": True}, 56),
+    ("coords_speed_B", "get_coords", {"speed": 1, "selected_id": "B"}, 14),
+    ("distances_graph", "get_distances", {"filter_on_graph": True}, 32),
+    ("distances_all_pairs", "get_distances", {"filter_on_graph": False}, 378),
+    ("distances_speed", "get_distances", {"speed": 1}, 32),
+    ("angles_degrees", "get_angles", {"degrees": True}, 42),
+    ("areas", "get_areas", {}, 8),
+    ("coords_roi", "get_coords", {"roi_number": 1}, 56),
+)
 
 
 def _synthesize(t: int, nodes, seed: int = 0):
@@ -696,7 +722,7 @@ def _check_public_outputs(outs, rows):
 def _public_phase(torch, card, tmp):
     """Phase 4: the public path on the card, its projects written under
     ``tmp``. Returns (stage line, launches of each run, the full project's
-    root)."""
+    root, the recordings' tables)."""
     from deepof_tpu_torch.core.storage import get_dt
     from deepof_tpu_torch.io.readers import load_table
     from deepof_tpu_torch.ops.gru_kernels import gru_scan
@@ -768,7 +794,89 @@ def _public_phase(torch, card, tmp):
         "angles_stages_s": runs["public_angles"]["stages_s"], "angles_total_s": runs["public_angles"]["total_s"],
         "csv_read_s": read_s, "write_csv_s": write_s, "copy_max_rel_err": copy_err, "card": card,
     }
-    return line, {k: v["launches"] for k, v in runs.items()}, full
+    return line, {k: v["launches"] for k, v in runs.items()}, full, tables
+
+
+def _getters_project(root, tables, rows, device, precision="auto"):
+    """The csv project under ``root`` created with the test arenas and ROI 1
+    (the half-plane left of the median x of B's Center over the first
+    ``rows`` frames) read back from an arena file through ``arena_path``."""
+    from deepof_tpu_torch.data import Project
+
+    proj = Project(
+        project_path=root, project_name="getters", video_path=f"{root}/Videos", table_path=f"{root}/Tables",
+        arena="circular-autodetect", video_scale="380 mm", table_format="csv", frame_rate=FPS,
+        animal_ids=ANIMALS, precision=precision, device=device,
+    )
+    scales, params, _, res = proj.get_arena(test=True)
+    rois = {}
+    for key, (values, cols) in tables.items():
+        xm = float(np.median(values[:rows, cols.index(("chip_smoke", "B", "Center", "x"))]))
+        xm *= scales[key][3] / scales[key][2]
+        rois[key] = {1: np.array([[-1e4, -1e4], [xm, -1e4], [xm, 1e4], [-1e4, 1e4]])}
+    arena = os.path.join(root, f"arena_{device}.pkl")
+    proj.save_arena_data(arena, params, rois, scales, res)
+    return proj.create(force=True, arena_path=arena, verbose=False)
+
+
+def _call_getter(coords, method, kw):
+    """{key: (values, columns)} of one getter call."""
+    return {key: (tab.realize(), tab.columns) for key, tab in getattr(coords, method)(**kw).items()}
+
+
+def _getters_phase(torch, card, full, prefix, tables):
+    """Phase 5: the getters on the public project. Each call of
+    GETTER_CALLS card vs CPU (float32 both) on the 2,000-frame copy, then
+    timed on the full project (the second of two calls; the first pays the
+    feature pass of each recording), with the peak device memory of the
+    timed calls. Returns the getters line."""
+    t_phase = time.perf_counter()
+    on_card = _getters_project(prefix, tables, PREFIX, "cuda")
+    on_cpu = _getters_project(prefix, tables, PREFIX, "cpu", precision="float32")
+    errs = {}
+    for name, method, kw, _ in GETTER_CALLS:
+        got, want = _call_getter(on_card, method, kw), _call_getter(on_cpu, method, kw)
+        err = 0.0
+        for key in PUBLIC_KEYS:
+            (a, ca), (b, cb) = got[key], want[key]
+            if ca != cb or a.shape != b.shape or not np.array_equal(np.isnan(a), np.isnan(b)):
+                _fail(f"getter {name} on {key}: columns, shape or NaNs differ between card and CPU")
+            scale = max(1.0, float(np.nanmax(np.abs(b)))) if np.isfinite(b).any() else 1.0
+            diff = float(np.nanmax(np.abs(a - b))) if np.isfinite(b).any() else 0.0
+            err = max(err, diff / scale)
+        _log(f"getter {name} {kw}: card vs CPU on the {PREFIX}-frame copy, max|diff| / max(1, max|cpu|) "
+             f"{err:.3e} (tol {PATH_RTOL:.0e})")
+        if not err <= PATH_RTOL:
+            _fail(f"getter {name}: card and CPU disagree ({err})")
+        errs[name] = err
+
+    t0 = time.perf_counter()
+    coords = _getters_project(full, tables, PUBLIC_FRAMES, "cuda")
+    create_s = time.perf_counter() - t0
+    frames = len(PUBLIC_KEYS) * PUBLIC_FRAMES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = {}
+    for name, method, kw, n_cols in GETTER_CALLS:
+        secs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = _call_getter(coords, method, kw)
+            secs.append(time.perf_counter() - t0)
+        for key in PUBLIC_KEYS:
+            values, columns = out[key]
+            if values.shape != (PUBLIC_FRAMES, n_cols) or len(columns) != n_cols or not np.isfinite(values).any():
+                _fail(f"getter {name} on the full {key}: shape {values.shape}, {len(columns)} columns, "
+                      f"or no finite value")
+        timed[name] = {"s": secs[1], "frames_per_s": frames / secs[1], "first_s": secs[0], "columns": n_cols,
+                       "card_vs_cpu": errs[name]}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    _log(f"getters: {timed}")
+    return {
+        "path": "getters", "frames": frames, "recordings": len(PUBLIC_KEYS), "getters": timed,
+        "peak_mem_gib": peak_gib, "store_entries": len(coords._derived._cache), "create_s": create_s,
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
 
 
 def _gru_train_inputs(torch, g, dev, b, t, f, h, d, mask_kind, full=False):
@@ -784,7 +892,7 @@ def _gru_train_inputs(torch, g, dev, b, t, f, h, d, mask_kind, full=False):
 
 
 def _check_backward(torch):
-    """Phase 5a: the GRU backward kernel (through ``gru_scan_backward``, the
+    """Phase 6a: the GRU backward kernel (through ``gru_scan_backward``, the
     kernel and the wrapper's gradient products) against
     ``gru_scan_backward_plain`` on the card, from the carries the forward
     kernel stored, at every training shape, a ragged B with one reverse
@@ -898,7 +1006,7 @@ def _time_backward(torch, g, b, f, h, outputs, kind):
 
 
 def _training_phase(torch, card, root):
-    """Phase 5: the training path on the card. The backward kernel against
+    """Phase 6: the training path on the card. The backward kernel against
     its plain version and timed at the training shapes; one train step card
     vs CPU from the same weights and batch; the steps' GRU launches, time
     and peak memory at batch 256; then ``deep_unsupervised_embedding`` on
@@ -1107,16 +1215,18 @@ def main() -> int:
             _fail(f"kernel {name} was not launched on the main path")
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
-    # Phases 4 and 5: the public path, then training on its project.
+    # Phases 4-6: the public path, the getters and training on its project.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
     try:
-        public_line, public_launches, full = _public_phase(torch, card, tmp)
+        public_line, public_launches, full, tables = _public_phase(torch, card, tmp)
+        getters_line = _getters_phase(torch, card, full, os.path.join(tmp, "prefix"), tables)
         train_line, bwd_err, bwd_t, train_launches = _training_phase(torch, card, full)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     print(card, flush=True)
     print(json.dumps(public_line), flush=True)
+    print(json.dumps(getters_line), flush=True)
     print(json.dumps(train_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,

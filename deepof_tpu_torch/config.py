@@ -1,6 +1,7 @@
 """Constants the public path reads (port of the parts of
 ``deepof_tpu/config.py`` it needs): distance units, the very-large-project
-thresholds and the version string stored with a project.
+thresholds, the version string stored with a project and the default
+supervised-annotation parameters.
 """
 
 from __future__ import annotations
@@ -29,3 +30,21 @@ class DistanceUnit(Enum):
 # Out-of-core switch: frames in one video / total frames across videos.
 VERY_LARGE_VIDEO_FRAMES = 360_000
 VERY_LARGE_TOTAL_FRAMES = 900_000
+
+
+def default_supervised_parameters(frame_rate: float) -> dict:
+    """Default supervised-annotation parameters: tolerances in mm, frame
+    counts from the frame rate (deepof_tpu/config.py:179)."""
+    return {
+        "close_contact_tol": 25,
+        "side_contact_tol": 50,
+        "median_filter_width": int(frame_rate / 2),
+        "follow_frames": int(frame_rate / 2),
+        "min_follow_frames": int(frame_rate / 4),
+        "follow_tol": 25,
+        "climb_tol": 0.15,
+        "sniff_arena_tol": 12.5,
+        "min_immobility": int(frame_rate),
+        "stationary_threshold": 40,
+        "nose_likelihood": 0.85,
+    }

@@ -1,25 +1,31 @@
 """The public pipeline of the port: ``Project`` (pose tables on disk ->
 preprocessed keypoints of every recording) and ``Coordinates`` (the
 processed project, and the merged graph-dataset frames built from it on the
-device), with the two per-recording programs they run as plain functions
+device), with the per-recording programs they run as plain functions
 (port of ``deepof_tpu/data.py`` ``Project``, ``Coordinates``,
-``_preprocess_positions`` and ``_merged_features_program``).
+``_preprocess_positions``, ``_merged_features_program`` and
+``_feature_pass``).
 
 The programs take numpy arrays or tensors and a ``device``; they run in
 float64 on the CPU when given float64 and in float32 otherwise. ``Project``
-and ``Coordinates`` hold host numpy arrays only, so a project pickles; the
-JAX package's pandas getters are not ported yet, and tables are numpy
-arrays with their column lists beside them. Videos are never opened (the
+and ``Coordinates`` hold host numpy arrays (and a cache of device tables
+that a pickle drops), so a project pickles. The getters (``get_coords``,
+``get_distances``, ``get_angles``, ``get_areas``) compute on the device and
+return a ``TableDict`` of ``LazyFrame``s: float64 (T, C) arrays with the JAX
+package's column labels and no time index. Videos are never opened (the
 machine with the card has no cv2): the frame rate is given or 25 fps, and
 frame counts come from the tables.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import pickle
 import re
+import shutil
 import warnings
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -28,17 +34,24 @@ import torch
 from deepof_tpu_torch import config
 from deepof_tpu_torch.arena import fixture_arenas
 from deepof_tpu_torch.core.graph import BodyGraph, build_body_graph, connect_mouse
+from deepof_tpu_torch.core.storage import LazyFrame, save_dt
+from deepof_tpu_torch.core.table_dict import TableDict
 from deepof_tpu_torch.device import resolve_device, to_device, working_dtype
 from deepof_tpu_torch.io.readers import RawTable, load_table, natural_sorted
+from deepof_tpu_torch.ops.alignment import align_trajectories
+from deepof_tpu_torch.ops.geometry import point_in_polygon
 from deepof_tpu_torch.ops.interp import masked_linear_interpolate
 from deepof_tpu_torch.ops.kinematics import (
     all_pair_indices,
     bridge_angles,
     pairwise_distances,
+    polygon_areas,
     rolling_speed,
+    to_polar,
 )
 from deepof_tpu_torch.ops.outliers import remove_outliers
 from deepof_tpu_torch.ops.smoothing import savgol_edges_host, savgol_smooth
+from deepof_tpu_torch.utils import filter_columns
 
 
 def _median(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -205,6 +218,94 @@ def merged_feature_layout(
                 parts = list(c)
             owner[ai, j] = all(str(p).startswith(aid) for p in parts)
     return cols, pairs, bridges, owner
+
+
+def area_polygons(graph: BodyGraph, animal_ids: Sequence[str]):
+    """(vertex index tuples, area names) of every animal's body-area
+    polygons, in the order of the areas table's columns."""
+    polys, names = [], []
+    for aid in animal_ids:
+        for area, poly in graph.area_polys.get(aid, {}).items():
+            polys.append(tuple(int(i) for i in poly))
+            names.append(f"{aid}_{area}" if aid else area)
+    return tuple(polys), names
+
+
+def _feature_pass(pos, pairs, bridges, polys, device="cuda"):
+    """All-pairs distances, bridge angles and body-area polygon areas of one
+    recording in one device pass (deepof_tpu/data.py:159).
+
+    Args:
+        pos: (T, B, 2) mm positions.
+        pairs / bridges / polys: index tuples into the node axis.
+
+    Returns:
+        (distances (T, P), angles (T, A), areas (T, n_areas)) on ``device``.
+    """
+    dev = resolve_device(device)
+    pos = to_device(pos, dev, working_dtype(dev, pos.dtype))
+    t = pos.shape[0]
+    dists = pairwise_distances(pos, np.asarray(pairs, np.int32).reshape(-1, 2))
+    angles = (bridge_angles(pos, np.asarray(bridges, np.int32).reshape(-1, 3)) if len(bridges)
+              else pos.new_zeros((t, 0)))
+    areas = (torch.stack([polygon_areas(pos, np.asarray(p, np.int32)) for p in polys], dim=1) if polys
+             else pos.new_zeros((t, 0)))
+    return dists, angles, areas
+
+
+class _DerivedKinematics:
+    """Distances, angles and areas of each recording, computed on the device
+    on first access (``_feature_pass``) and kept in a small LRU of device
+    triples; only the columns a getter keeps cross to the host. ``tables``
+    is the project's own positions dict, so a pickle stores it once; the
+    device cache is dropped (deepof_tpu/data.py:231)."""
+
+    def __init__(self, tables, pairs, bridges, polys, device="cuda", cache_size: int = 4):
+        self._tables = tables
+        self._pairs = tuple(map(tuple, pairs))
+        self._bridges = tuple(map(tuple, bridges))
+        self._polys = tuple(tuple(int(i) for i in p) for p in polys)
+        self._device = device
+        self._cache_size = int(cache_size)
+        self._cache = OrderedDict()
+
+    def parts(self, key):
+        trip = self._cache.pop(key, None)
+        if trip is None:
+            trip = _feature_pass(self._tables[key], self._pairs, self._bridges, self._polys, self._device)
+        self._cache[key] = trip
+        while len(self._cache) > self._cache_size:
+            self._cache.popitem(last=False)
+        return trip
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_cache"] = OrderedDict()
+        return state
+
+
+def _gather_columns_device(arr: torch.Tensor, keep_idx, n_cols: int) -> torch.Tensor:
+    """The kept columns of a (T, C) device table, gathered on the device
+    (deepof_tpu/data.py:302)."""
+    if len(keep_idx) == n_cols:
+        return arr
+    return arr.index_select(1, torch.as_tensor(np.asarray(keep_idx, np.int64), device=arr.device))
+
+
+def _host_f64(x: torch.Tensor) -> np.ndarray:
+    """A writable float64 host copy of a device table."""
+    return np.array(x.cpu().numpy(), dtype=np.float64)
+
+
+def _frame(arr: np.ndarray, columns) -> LazyFrame:
+    return LazyFrame(lambda: arr, columns, len(arr))
+
+
+def _first_value(table, name):
+    """The first value of column ``name`` of a condition or start-marker
+    table (a DataFrame or a mapping of sequences)."""
+    column = table[name]
+    return column.iloc[0] if hasattr(column, "iloc") else np.asarray(column).ravel()[0]
 
 
 # --------------------------------------------------------------------------- #
@@ -538,11 +639,7 @@ class Project:
             tab_dict[key] = tab_dict[key] * (scales[key][3] / scales[key][2])
 
         nodes = list(self.body_graph.nodes)
-        area_names = [
-            f"{aid}_{area}" if aid else area
-            for aid in self.animal_ids
-            for area in self.body_graph.area_polys.get(aid, {})
-        ]
+        _, area_names = area_polygons(self.body_graph, self.animal_ids)
         if any(len(self.body_graph.area_polys.get(aid, {})) != 4 for aid in self.animal_ids):
             warnings.warn("Not all areas could be computed with the available bodyparts.")
 
@@ -562,10 +659,89 @@ class Project:
             very_large_project=self.very_large_project, ego=self.ego, version=self.version,
             device=self.device,
         )
+        coordinates.reset_supervised_parameters(save=False)
         coordinates.save(timestamp=False)
         if verbose:
             print("Done!")
         return coordinates
+
+    def extend(self, project_to_extend: str, video_path: str = None, table_path: str = None,
+               verbose: bool = True, debug: bool = False, test: bool = False) -> "Coordinates":
+        """Extend a saved project with this project's new recordings
+        (deepof_tpu/data.py:1108): only the keys absent from the saved
+        Coordinates are processed, then merged into it and saved. Their
+        videos and tables are copied into the saved project's folders."""
+        previous = load_project(project_to_extend)
+        if previous._number_of_rois != self.number_of_rois:
+            raise ValueError("Cannot extend: the number of ROIs must match.")
+        new_keys = sorted(set(self.videos) - set(previous._videos))
+        if verbose:
+            print(f"Processing data from {len(new_keys)} new experiments...")
+        if not new_keys:
+            return previous
+        self.videos = {k: self.videos[k] for k in new_keys}
+        self.tables = {k: self.tables[k] for k in new_keys}
+        video_path = self.video_path if video_path is None else video_path
+        table_path = self.source_table_path if table_path is None else table_path
+        for src, dst, files in ((video_path, previous._video_path, self.videos.values()),
+                                (table_path, previous._source_table_path, self.tables.values())):
+            if os.path.abspath(src) != os.path.abspath(dst):
+                for name in files:
+                    shutil.copy2(os.path.join(src, name), os.path.join(dst, name))
+        self.video_path = previous._video_path
+        self.source_table_path = previous._source_table_path
+
+        new_coords = self.create(verbose=verbose, force=True, debug=debug, test=test)
+        for attr in ("_tables", "_quality", "_presence", "_scales", "_arena_params", "_videos",
+                     "_video_resolution"):
+            getattr(previous, attr).update(getattr(new_coords, attr))
+        if previous._roi_dicts is not None and new_coords._roi_dicts is not None:
+            previous._roi_dicts.update(new_coords._roi_dicts)
+        if new_coords._exp_conditions:
+            previous._exp_conditions = {**(previous._exp_conditions or {}), **new_coords._exp_conditions}
+        previous.save(timestamp=False)
+        return previous
+
+    # -- the kinematic tables of any position tables ------------------- #
+
+    def _as_tensor(self, tab) -> np.ndarray:
+        """(T, B, 2) float64 positions from an array or from a coordinates
+        LazyFrame with (bodypart, "x"|"y") columns."""
+        if isinstance(tab, LazyFrame):
+            cols = {c: i for i, c in enumerate(tab.columns)}
+            idx = [[cols[(node, ax)] for ax in ("x", "y")] for node in self.body_graph.nodes]
+            return np.asarray(tab.realize()[:, idx], np.float64)
+        return np.asarray(tab, np.float64)
+
+    def _derived_parts(self, tab_dict):
+        """(store, pair names, bridge names, area names) over ``tab_dict``."""
+        nodes = list(self.body_graph.nodes)
+        polys, area_names = area_polygons(self.body_graph, self.animal_ids)
+        tensors = {k: self._as_tensor(v) for k, v in tab_dict.items()}
+        store = _DerivedKinematics(tensors, all_pair_indices(len(nodes)), self.body_graph.bridges, polys,
+                                   self.device)
+        return store, pair_names_of(nodes), [tuple(b) for b in self.body_graph.bridge_names], area_names
+
+    def _derived_tables(self, tab_dict, part: int) -> dict:
+        store, *names = self._derived_parts(tab_dict)
+        return {key: _frame(_host_f64(store.parts(key)[part]), names[part]) for key in tab_dict}
+
+    def get_distances(self, tab_dict) -> dict:
+        """All-pairs bodypart distances of each table, {key: LazyFrame}
+        (deepof_tpu/data.py:960)."""
+        return self._derived_tables(tab_dict, 0)
+
+    def get_distances_tab(self, tab) -> LazyFrame:
+        """:meth:`get_distances` of one table."""
+        return self.get_distances({"__tab__": tab})["__tab__"]
+
+    def get_angles(self, tab_dict) -> dict:
+        """Bridge angles (radians) of each table (deepof_tpu/data.py:976)."""
+        return self._derived_tables(tab_dict, 1)
+
+    def get_areas(self, tab_dict) -> dict:
+        """Body-area polygon areas of each table (deepof_tpu/data.py:986)."""
+        return self._derived_tables(tab_dict, 2)
 
 
 # --------------------------------------------------------------------------- #
@@ -636,6 +812,74 @@ class Coordinates:
     def _table_path(self):
         return os.path.join(self._project_path, self._project_name, "Tables")
 
+    # ------------------------------------------------------------------ #
+    # Metadata getters
+    # ------------------------------------------------------------------ #
+
+    def get_table_keys(self):
+        return self._tables.keys()
+
+    def get_start_times(self, start_marker: Optional[str] = None) -> Dict[str, str]:
+        """Start time of each recording as "HH:MM:SS(.sss)": the given start
+        marker's, else "00:00:00.000"."""
+        if start_marker and self._start_markers:
+            return {key: str(_first_value(self._start_markers[key], start_marker)) for key in self._tables}
+        return {key: "00:00:00.000" for key in self._tables}
+
+    @property
+    def get_exp_conditions(self):
+        """The experimental conditions of each recording, as given."""
+        return self._exp_conditions
+
+    def get_condition_values(self, exp_cond) -> list:
+        """Sorted unique values of one experimental condition."""
+        conditions = [
+            _first_value(table, exp_cond) for table in (self._exp_conditions or {}).values()
+            if exp_cond in getattr(table, "columns", table)
+        ]
+        if not conditions:
+            raise ValueError(f"Given experiment condition {exp_cond} not in experiment conditions!")
+        return list(np.unique(conditions))
+
+    @property
+    def get_start_markers(self):
+        """The start markers of each recording, as given."""
+        return self._start_markers
+
+    def get_quality(self) -> TableDict:
+        """Tracking likelihood of each bodypart, a (T, N) frame a recording."""
+        tabs = {key: _frame(np.asarray(lik, np.float64), self._nodes) for key, lik in self._quality.items()}
+        return TableDict(tabs, typ="quality", table_path=self._table_path, animal_ids=self._animal_ids)
+
+    def get_arenas(self):
+        return self._arena, [self._arena_dims], self._arena_params
+
+    def get_rois(self) -> dict:
+        """ROI polygons: {key: {roi_number: (V, 2) array}}."""
+        if not self._roi_dicts:
+            return {}
+        return {key: {n: np.asarray(poly) for n, poly in rois.items()} for key, rois in self._roi_dicts.items()}
+
+    def get_supervised_parameters(self) -> dict:
+        if not hasattr(self, "_supervised_parameters"):
+            self.reset_supervised_parameters()
+        return copy.copy(self._supervised_parameters)
+
+    def reset_supervised_parameters(self, save: bool = True):
+        self._supervised_parameters = config.default_supervised_parameters(self._frame_rate)
+        if save:
+            self.save(timestamp=False)
+
+    def set_supervised_parameters(self, hparams: dict = None):
+        params = self.get_supervised_parameters()
+        for k, v in (hparams or {}).items():
+            if k in params:
+                params[k] = v
+            else:
+                warnings.warn("At least one parameter name does not match any supervised parameter name.")
+        self._supervised_parameters = params
+        self.save(timestamp=False)
+
     def get_table_lengths(self, tab_dict_for_binning=None) -> Dict[str, int]:
         """Frame count per experiment, of this project or of a TableDict."""
         if tab_dict_for_binning is None:
@@ -659,6 +903,328 @@ class Coordinates:
             name += datetime.now().strftime("%Y%m%d-%H%M%S")
         with open(os.path.join(out_dir, f"{name}.pkl"), "wb") as f:
             pickle.dump(self, f, protocol=5)
+
+    # ------------------------------------------------------------------ #
+    # Kinematic getters
+    # ------------------------------------------------------------------ #
+
+    @property
+    def _derived(self) -> _DerivedKinematics:
+        """The derived-kinematics store, built on first use (projects saved
+        before it existed have none)."""
+        store = self.__dict__.get("_derived_store")
+        if store is None:
+            polys, _ = area_polygons(self._body_graph, self._animal_ids)
+            store = _DerivedKinematics(self._tables, all_pair_indices(len(self._nodes)),
+                                       self._body_graph.bridges, polys, self._device)
+            self._derived_store = store
+        return store
+
+    def _positions(self, key: str) -> torch.Tensor:
+        """One recording's (T, B, 2) mm positions on the device."""
+        dev = resolve_device(self._device)
+        pos = self._tables[key]
+        return to_device(pos, dev, working_dtype(dev, pos.dtype))
+
+    def _table_dict(self, tabs, typ, **meta) -> TableDict:
+        return TableDict(tabs, typ=typ, table_path=self._table_path, animal_ids=self._animal_ids,
+                         connectivity=self._connectivity, exp_conditions=self._exp_conditions, **meta)
+
+    def _own_columns(self, nodes, aid) -> List[int]:
+        return [i for i, bp in enumerate(nodes) if (bp.startswith(aid) if aid else True)]
+
+    def get_coords_at_key(
+        self, key: str, scale=None, quality=None, center: Union[bool, str] = False, polar: bool = False,
+        speed: int = 0, align: Union[bool, str] = False, align_group: bool = False, align_inplace: bool = True,
+        to_video: bool = False, selected_id: str = None, roi_number: int = None, animals_in_roi=None,
+        in_roi_criterion: str = "Center", invert_roi: bool = False, _finalize: bool = True,
+    ):
+        """Coordinates of one recording (deepof_tpu/data.py:1520), on the
+        device: ROI filter -> animal selection -> polar -> centre (the
+        arena's, or a bodypart's) -> ``to_video`` -> alignment -> speed;
+        then on the host the missing-animal NaN.
+
+        Returns a LazyFrame with (bodypart, "x"|"y"|"rho"|"phi") columns, or
+        bodypart columns with ``speed``; with ``_finalize=False`` the
+        device result and its bodypart order."""
+        if scale is None:
+            scale = self._scales[key]
+        pos = self._positions(key)
+        nodes = self._nodes
+        if roi_number is not None:
+            pos = self._apply_roi_mask(pos, key, roi_number, animals_in_roi, in_roi_criterion, invert_roi)
+
+        animal_ids = [selected_id] if selected_id else list(self._animal_ids)
+        if selected_id:
+            node_idx = [i for i, bp in enumerate(nodes) if bp.startswith(selected_id)]
+            pos = pos[:, node_idx]
+            nodes = [nodes[i] for i in node_idx]
+
+        def const(values):
+            return torch.as_tensor(np.asarray(values, np.float64), dtype=pos.dtype, device=pos.device)
+
+        if polar:
+            work = to_polar(pos)
+            if center == "arena":
+                work = work - const([np.hypot(scale[0], scale[1]), np.arctan2(scale[1], scale[0])])
+            elif isinstance(center, str) and center:
+                work = self._center_on_bodypart(work, nodes, animal_ids, center)
+        else:
+            work = pos
+            if center == "arena":
+                work = work - const(scale[:2])
+            elif isinstance(center, str) and center:
+                work = self._center_on_bodypart(work, nodes, animal_ids, center)
+            if to_video:
+                work = work * (scale[2] / scale[3])
+
+        col_order = nodes
+        if align and align_inplace and not polar:
+            work, col_order = self._align(work, nodes, animal_ids, align, align_group)
+        out = rolling_speed(work, frame_rate=self._frame_rate, deriv=speed) if speed else work
+        if not _finalize:
+            return out, col_order
+        return self._coords_finalize(key, out, col_order, polar, speed)
+
+    def _coords_finalize(self, key, out, col_order, polar, speed) -> LazyFrame:
+        arr = _host_f64(out)
+        if speed:
+            columns = list(col_order)
+        else:
+            axes = ("rho", "phi") if polar else ("x", "y")
+            columns = [(bp, ax) for bp in col_order for ax in axes]
+            arr = arr.reshape(arr.shape[0], -1)
+        return _frame(self._set_missing_animals(arr, columns, key), columns)
+
+    def get_coords(
+        self, center: Union[bool, str] = False, polar: bool = False, speed: int = 0,
+        align: Union[bool, str] = False, align_group: bool = False, align_inplace: bool = True,
+        to_video: bool = False, selected_id: str = None, roi_number: int = None, animals_in_roi=None,
+        in_roi_criterion: str = "Center", invert_roi: bool = False, file_name: str = "coords",
+        return_path: bool = False,
+    ) -> TableDict:
+        """Coordinates of every recording (see :meth:`get_coords_at_key`):
+        every recording's device work is queued before the first copy back."""
+        pending = {
+            key: self.get_coords_at_key(
+                key, center=center, polar=polar, speed=speed, align=align, align_group=align_group,
+                align_inplace=align_inplace, to_video=to_video, selected_id=selected_id,
+                roi_number=roi_number, animals_in_roi=animals_in_roi, in_roi_criterion=in_roi_criterion,
+                invert_roi=invert_roi, _finalize=False,
+            )
+            for key in self._tables
+        }
+        tabs = {}
+        for key, (out, col_order) in pending.items():
+            tab = self._coords_finalize(key, out, col_order, polar, speed)
+            tabs[key] = save_dt(tab, os.path.join(self._table_path, key, f"{key}_{file_name}"), return_path)
+        return self._table_dict(tabs, "coords", arena=self._arena, arena_dims=self._scales, center=center,
+                                polar=polar)
+
+    def _center_on_bodypart(self, work, nodes, animal_ids, center):
+        """Each animal's positions minus its ``center`` bodypart's."""
+        out = work.clone()
+        for aid in animal_ids:
+            bp_name = f"{aid}{'_' if aid else ''}{center}"
+            if bp_name not in nodes:
+                continue
+            ci = nodes.index(bp_name)
+            cols = self._own_columns(nodes, aid)
+            out[:, cols, :] = out[:, cols, :] - out[:, ci:ci + 1, :]
+        return out
+
+    def _align(self, pos, nodes, animal_ids, align, align_group):
+        """Each animal rotated so that its ``align`` bodypart lies on +y,
+        that bodypart's columns first (deepof_tpu/data.py:1706). With
+        ``align_group`` the other animals keep their column order and
+        rotate about their first column (a reference quirk, kept). Entries
+        under 1e-5 in magnitude snap to 0."""
+        if len(animal_ids) <= 1:
+            align_group = False
+        first = animal_ids[0]
+        blocks, col_order = [], []
+        for aid in animal_ids:
+            prefix = f"{aid}_" if aid else ""
+            bp_name = f"{first}{'_' if first else ''}{align}" if align_group else f"{prefix}{align}"
+            own = [bp for bp in nodes if (bp.startswith(prefix) if prefix else True)]
+            ordered = [bp for bp in own if bp != bp_name]
+            if aid == first or not align_group:
+                ordered = [bp_name] + ordered
+            aligned = align_trajectories(pos[:, [nodes.index(bp) for bp in ordered]], mode="all")
+            blocks.append(torch.where(aligned.abs() < 1e-5, 0.0, aligned))
+            col_order.extend(ordered)
+        return torch.cat(blocks, dim=1), col_order
+
+    def _roi_outside(self, base, key, roi_number, animals_in_roi, invert_roi, criterion="Center"):
+        """{animal: (T,) bool device mask of the frames whose ``criterion``
+        bodypart, in the device positions ``base``, lies outside ROI
+        ``roi_number`` (inside with ``invert_roi``)}."""
+        if isinstance(animals_in_roi, str):
+            check = [animals_in_roi]
+        else:
+            check = animals_in_roi or self._animal_ids
+        polygon = np.asarray(self._roi_dicts[key][roi_number])
+        out = {}
+        for aid in check:
+            crit = f"{aid}{'_' if aid else ''}{criterion}"
+            if crit not in self._nodes:
+                continue
+            inside = point_in_polygon(base[:, self._nodes.index(crit)], polygon)
+            out[aid] = inside if invert_roi else ~inside
+        return out
+
+    def _apply_roi_mask(self, pos, key, roi_number, animals_in_roi, in_roi_criterion, invert_roi):
+        """NaN each checked animal's bodyparts on the frames where its
+        ``in_roi_criterion`` bodypart is outside the ROI."""
+        outside = self._roi_outside(pos, key, roi_number, animals_in_roi, invert_roi, in_roi_criterion)
+        pos = pos.clone()
+        for aid, rows in outside.items():
+            cols = self._own_columns(self._nodes, aid)
+            pos[:, cols] = torch.where(rows[:, None, None], torch.nan, pos[:, cols])
+        return pos
+
+    def _roi_row_mask(self, key, roi_number, animals_in_roi, invert_roi) -> dict:
+        """{animal: (T,) bool device mask of the frames whose Center lies
+        outside the ROI} (deepof_tpu/data.py:2058)."""
+        return self._roi_outside(self._positions(key), key, roi_number, animals_in_roi, invert_roi)
+
+    def _set_missing_animals(self, arr: np.ndarray, columns, key: str) -> np.ndarray:
+        """NaN, in place, each animal's columns (``filter_columns``) on the
+        frames where it is absent; columns of no animal (inter-animal
+        distances) are left."""
+        presence = self._presence[key]
+        n = min(len(arr), len(presence))
+        where = {c: i for i, c in enumerate(columns)}
+        for ai, aid in enumerate(self._animal_ids):
+            absent = np.flatnonzero(np.asarray(presence[:n, ai]) == 0)
+            cols = [where[c] for c in (filter_columns(columns, aid) if aid else columns)]
+            if cols and absent.size:
+                arr[np.ix_(absent, cols)] = np.nan
+        return arr
+
+    def _distance_keep_idx(self, selected_id, filter_on_graph, pairs=None) -> list:
+        """Kept distance columns: ego -> ``selected_id`` -> skeleton edges ->
+        explicit ``pairs`` (deepof_tpu/data.py:1782)."""
+        pair_cols = list(self._pair_names)
+        if filter_on_graph:  # every filter keeps a column by itself, so they commute
+            keep = distance_keep_idx(pair_cols, self._body_graph.edge_names, self._ego)
+        else:
+            keep = [i for i, c in enumerate(pair_cols) if not self._ego or any(self._ego in str(x) for x in c)]
+        if selected_id:
+            sel = set(filter_columns([pair_cols[i] for i in keep], selected_id))
+            keep = [i for i in keep if pair_cols[i] in sel]
+        if pairs is not None:
+            wanted = {tuple(sorted(map(str, p))) for p in pairs}
+            keep = [i for i in keep if tuple(sorted(map(str, pair_cols[i]))) in wanted]
+        return keep
+
+    def _angle_keep_idx(self, selected_id) -> list:
+        angle_cols = [tuple(b) for b in self._bridge_names]
+        if selected_id:
+            sel = set(filter_columns(angle_cols, selected_id))
+            return [i for i, c in enumerate(angle_cols) if c in sel]
+        return list(range(len(angle_cols)))
+
+    def _scalar_speed(self, arr: torch.Tensor, speed: int) -> torch.Tensor:
+        """The (speed + 1)-th derivative of scalar columns, as the JAX
+        package takes it for distances, angles and areas."""
+        return rolling_speed(arr, frame_rate=self._frame_rate, deriv=speed + 1, is_coords=False)
+
+    def get_distances_at_key(
+        self, key: str, quality=None, speed: int = 0, selected_id: str = None, roi_number: int = None,
+        animals_in_roi=None, invert_roi: bool = False, filter_on_graph: bool = True, pairs=None,
+    ) -> LazyFrame:
+        """Bodypart distances of one recording (deepof_tpu/data.py:1824):
+        the kept columns gathered on the device, NaN where an animal's
+        Center is outside the ROI (its own pairs), differentiated with
+        ``speed``; then the missing-animal NaN on the host. ``pairs`` keeps
+        only the given (bodypart, bodypart) pairs."""
+        keep = self._distance_keep_idx(selected_id, filter_on_graph, pairs)
+        columns = [self._pair_names[i] for i in keep]
+        arr = _gather_columns_device(self._derived.parts(key)[0], keep, len(self._pair_names))
+        if roi_number is not None:
+            arr = arr.clone()
+            for aid, rows in self._roi_row_mask(key, roi_number, animals_in_roi, invert_roi).items():
+                cols = [j for j, c in enumerate(columns) if all(str(x).startswith(aid) for x in c)] if aid \
+                    else list(range(len(columns)))
+                arr[:, cols] = torch.where(rows[:, None], torch.nan, arr[:, cols])
+        if speed:
+            arr = self._scalar_speed(arr, speed)
+        return _frame(self._set_missing_animals(_host_f64(arr), columns, key), columns)
+
+    def get_distances(
+        self, speed: int = 0, selected_id: str = None, roi_number: int = None, animals_in_roi=None,
+        invert_roi: bool = False, filter_on_graph: bool = True, file_name: str = "got_distances",
+        return_path: bool = False,
+    ) -> TableDict:
+        """Bodypart distances of every recording; with ``filter_on_graph``
+        only the skeleton's edges (see :meth:`get_distances_at_key`)."""
+        tabs = {}
+        for key in self._tables:
+            tab = self.get_distances_at_key(
+                key, speed=speed, selected_id=selected_id, roi_number=roi_number,
+                animals_in_roi=animals_in_roi, invert_roi=invert_roi, filter_on_graph=filter_on_graph,
+            )
+            tabs[key] = save_dt(tab, os.path.join(self._table_path, key, f"{key}_{file_name}"), return_path)
+        return self._table_dict(tabs, "dists")
+
+    def get_angles_at_key(
+        self, key: str, quality=None, degrees: bool = False, speed: int = 0, selected_id: str = None,
+        roi_number: int = None, animals_in_roi=None, invert_roi: bool = False,
+    ) -> LazyFrame:
+        """Bridge angles of one recording in radians (degrees with
+        ``degrees``), differentiated with ``speed`` (deepof_tpu/data.py:1920).
+        The ROI arguments are accepted and unused, as in the JAX package."""
+        keep = self._angle_keep_idx(selected_id)
+        columns = [tuple(self._bridge_names[i]) for i in keep]
+        arr = _gather_columns_device(self._derived.parts(key)[1], keep, len(self._bridge_names))
+        if degrees:
+            arr = torch.rad2deg(arr)
+        if speed:
+            arr = self._scalar_speed(arr, speed)
+        return _frame(self._set_missing_animals(_host_f64(arr), columns, key), columns)
+
+    def get_angles(
+        self, degrees: bool = False, speed: int = 0, selected_id: str = None, roi_number: int = None,
+        animals_in_roi=None, invert_roi: bool = False, file_name: str = "got_angles", return_path: bool = False,
+    ) -> TableDict:
+        """Bridge angles of every recording (see :meth:`get_angles_at_key`)."""
+        tabs = {}
+        for key in self._tables:
+            tab = self.get_angles_at_key(key, degrees=degrees, speed=speed, selected_id=selected_id,
+                                         roi_number=roi_number, animals_in_roi=animals_in_roi,
+                                         invert_roi=invert_roi)
+            tabs[key] = save_dt(tab, os.path.join(self._table_path, key, f"{key}_{file_name}"), return_path)
+        return self._table_dict(tabs, "angles")
+
+    def get_areas_at_key(
+        self, key: str, quality=None, speed: int = 0, selected_id: str = "all", roi_number: int = None,
+        animals_in_roi=None, invert_roi: bool = False,
+    ) -> LazyFrame:
+        """Body-area polygon areas of one recording, one animal's or "all"
+        (deepof_tpu/data.py:1992). The ROI arguments are accepted and
+        unused, as in the JAX package."""
+        keep = list(range(len(self._area_names)))
+        if selected_id and selected_id != "all":
+            keep = [i for i in keep if self._area_names[i].startswith(selected_id)]
+        columns = [self._area_names[i] for i in keep]
+        arr = _gather_columns_device(self._derived.parts(key)[2], keep, len(self._area_names))
+        if speed:
+            arr = self._scalar_speed(arr, speed)
+        return _frame(self._set_missing_animals(_host_f64(arr), columns, key), columns)
+
+    def get_areas(
+        self, speed: int = 0, selected_id: str = "all", roi_number: int = None, animals_in_roi=None,
+        invert_roi: bool = False, file_name: str = "got_areas", return_path: bool = False,
+    ) -> TableDict:
+        """Body-area polygon areas of every recording (see
+        :meth:`get_areas_at_key`)."""
+        tabs = {}
+        for key in self._tables:
+            tab = self.get_areas_at_key(key, speed=speed, selected_id=selected_id, roi_number=roi_number,
+                                        animals_in_roi=animals_in_roi, invert_roi=invert_roi)
+            tabs[key] = save_dt(tab, os.path.join(self._table_path, key, f"{key}_{file_name}"), return_path)
+        return self._table_dict(tabs, "areas")
 
     def get_graph_dataset(self, *args, **kwargs):
         """See :func:`deepof_tpu_torch.graph_dataset.get_graph_dataset`."""

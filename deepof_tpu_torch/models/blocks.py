@@ -13,6 +13,7 @@ weights keep the flax GRUCell form the kernel consumes: ``wi`` (F, 3H) and
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -22,8 +23,20 @@ from torch import nn
 from deepof_tpu_torch.ops.gru_kernels import gru_scan
 
 
+# Standard deviation of a unit normal truncated at +-2: flax's variance
+# scaling divides by it so that the truncated draw keeps the variance asked.
+_TRUNC_STD = 0.87962566103423978
+
+
 def lecun_normal(shape, fan_in: int, generator: Optional[torch.Generator]) -> torch.Tensor:
-    return torch.randn(shape, generator=generator) * (1.0 / max(fan_in, 1)) ** 0.5
+    """Flax's ``lecun_normal``: a normal truncated at +-2 standard deviations
+    and rescaled by 1 / 0.8796, std fan_in**-0.5. Drawn by inverse CDF, as
+    ``jax.random.truncated_normal`` draws it: a uniform between erf(-2/sqrt2)
+    and erf(2/sqrt2), mapped through sqrt(2) erfinv."""
+    bound = math.erf(2.0 / math.sqrt(2.0))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64) * (2.0 * bound) - bound
+    z = (math.sqrt(2.0) * torch.erfinv(u)).clamp(-2.0, 2.0)
+    return (z * ((1.0 / max(fan_in, 1)) ** 0.5 / _TRUNC_STD)).float()
 
 
 def orthogonal(rows: int, cols: int, generator: Optional[torch.Generator]) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Kinematic features: distances, bridge angles, speeds
-(port of deepof_tpu/ops/kinematics.py).
+"""Kinematic features: distances, bridge angles, polygon areas, polar
+coordinates, speeds (port of deepof_tpu/ops/kinematics.py).
 
 Positions are (T, N, 2) tensors; index arrays are static numpy arrays.
 """
@@ -50,6 +50,21 @@ def bridge_angles(x: torch.Tensor, bridges: np.ndarray) -> torch.Tensor:
     return torch.arccos(cos.clamp(-1.0, 1.0))
 
 
+def polygon_areas(x: torch.Tensor, poly: np.ndarray) -> torch.Tensor:
+    """(..., T, N, 2) -> (..., T) shoelace area of the polygon over the
+    vertex indices ``poly``; a NaN vertex gives a NaN area."""
+    v = _take(x, poly)
+    nxt = torch.roll(v, -1, dims=-2)
+    cross = v[..., 0] * nxt[..., 1] - nxt[..., 0] * v[..., 1]
+    return cross.sum(dim=-1).abs() / 2.0
+
+
+def to_polar(x: torch.Tensor) -> torch.Tensor:
+    """Cartesian (..., 2) -> polar (..., 2) as (rho, phi), phi the argument
+    of x + iy."""
+    return torch.stack([torch.hypot(x[..., 0], x[..., 1]), torch.atan2(x[..., 1], x[..., 0])], dim=-1)
+
+
 def _windowed_mean_nan(d: torch.Tensor, window: int) -> torch.Tensor:
     """Trailing rolling mean along dim 0 (pandas min_periods=window).
 
@@ -96,5 +111,9 @@ def rolling_speed(
         dist = torch.cat([dist.new_full((shift, b), torch.nan), dist], dim=0)
         rolled = _windowed_mean_nan(dist, window)
         scale = 10.0 ** rounds
-        cur = torch.round(rolled * scale) / scale
+        # Divided by a device tensor: PyTorch's CUDA division by a Python
+        # scalar multiplies by its reciprocal, which is one ulp off the
+        # quotient on about half the entries, and at deriv >= 2 the next
+        # order's rounding then flips between card and CPU.
+        cur = torch.round(rolled * scale) / rolled.new_full((), scale)
     return cur * frame_rate

@@ -380,6 +380,8 @@ def train_deepof_model(
     ``save_weights`` the bundle (and its best-validation twin,
     ``_best.ckpt``) is written under ``output_path/models``.
     """
+    if pretrained:  # before any raise, as the JAX package returns it
+        return ModelBundle.load(pretrained, device), None, None, {}
     if model_name not in ("VQVAE", "vqvae"):
         raise NotImplementedError(f"model {model_name!r}: VaDE and Contrastive come with ROADMAP queue 1 item 8")
     if use_amp:
@@ -389,8 +391,6 @@ def train_deepof_model(
     unread = sorted(k for k, default in UNREAD_COMMON_FIELDS.items() if kwargs.get(k, default) != default)
     if unread:
         raise ValueError(f"{unread}: the VQ-VAE fit reads no such setting")
-    if pretrained:
-        return ModelBundle.load(pretrained, device), None, None, {}
     train_part, test_part = preprocessed_object[0], preprocessed_object[1]
     if isinstance(preprocessed_object, tuple) and len(preprocessed_object) >= 2 and \
             isinstance(preprocessed_object[0], tuple):

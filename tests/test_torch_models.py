@@ -218,3 +218,19 @@ def test_rms_stabilize_and_group_reshape():
     _close(pblocks.rms_stabilize(torch.as_tensor(x)), jblocks.rms_stabilize(jnp.asarray(x)))
     y = rng.normal(size=(2, 3, 4, 5)).astype(np.float32)
     _close(pblocks.tf_style_group_reshape(torch.as_tensor(y)), jblocks.tf_style_group_reshape(jnp.asarray(y)))
+
+
+def test_lecun_normal_is_flax_truncated_normal():
+    """1M draws at fan_in 80: none beyond flax's truncation bound
+    2 fan_in^-0.5 / 0.87962566, and mean and standard deviation within 1% of
+    those of ``jax.nn.initializers.lecun_normal()``'s draws."""
+    fan_in, n = 80, 1_000_000
+    got = pblocks.lecun_normal((n // fan_in, fan_in), fan_in, torch.Generator().manual_seed(0)).double().numpy()
+    want = np.asarray(jax.nn.initializers.lecun_normal()(jax.random.PRNGKey(0), (fan_in, n // fan_in), jnp.float32),
+                      np.float64)
+    bound = 2.0 * fan_in ** -0.5 / 0.87962566
+    assert np.abs(got).max() <= bound * (1 + 1e-6)
+    assert np.abs(want).max() <= bound * (1 + 1e-6)
+    scale = fan_in ** -0.5
+    assert abs(got.mean() - want.mean()) <= 0.01 * scale
+    assert abs(got.std() / want.std() - 1.0) <= 0.01

@@ -463,6 +463,10 @@ def test_bundle_save_load_and_what_raises(tmp_path):
         pharness.train_deepof_model(ds, ADJ, model_name="VQVAE", checkpoint_dir=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="use_amp"):
         pharness.train_deepof_model(ds, ADJ, model_name="VQVAE", use_amp=True, device="cpu")
+    # ``pretrained`` returns the loaded bundle before any of these raises.
+    got, score, part, summary = pharness.train_deepof_model(ds, ADJ, model_name="VQVAE", pretrained=path,
+                                                            use_amp=True, num_workers=4, device="cpu")
+    assert (score, part, summary) == (None, None, {}) and got.rebuild_spec == spec
     with pytest.raises(ValueError, match="num_workers"):
         pharness.train_deepof_model(ds, ADJ, model_name="VQVAE", num_workers=4, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
