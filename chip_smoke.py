@@ -62,7 +62,15 @@
    Each held card vs CPU (float32 both) on the 2,000-frame copy at 1e-4 of
    max(1, max |value|), then timed on the full project (the second of two
    calls), with the peak device memory.
-6. Training: the GRU layer's backward kernel (csrc/gru_scan_bwd.cu, through
+6. Supervised: ``Coordinates.supervised_annotation(verbose=False,
+   rng=np.random.RandomState(0))`` (the rule battery, the smoothing cascade
+   and the immobility classifier, on the card) on the getters' projects:
+   card vs CPU (float32 both) on the 2,000-frame copy, each column's count
+   of differing frames printed, a binary column failing above 0.1% of its
+   frames and a continuous one above 1e-4 of max(1, max |value|); then two
+   calls on the full project, the second timed, with its peak device
+   memory, its host reads and its 33 columns checked.
+7. Training: the GRU layer's backward kernel (csrc/gru_scan_bwd.cu, through
    ``gru_scan_backward``) held against ``gru_scan_backward_plain`` from the
    carries the forward kernel stores, at every GRU shape of a training step
    at batch 256 (the encoder's node and edge layers, the decoder's two under
@@ -75,7 +83,7 @@
    50 train and 5 val batches, checking finite losses and the launches,
    and the saved bundle read back with ``ModelBundle.load`` and served with
    ``embedding_per_video``, its soft counts equal to the trained bundle's.
-7. Prints a stage line of each path, a kernels line, and last
+8. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -872,9 +880,82 @@ def _getters_phase(torch, card, full, prefix, tables):
                        "card_vs_cpu": errs[name]}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     _log(f"getters: {timed}")
-    return {
+    line = {
         "path": "getters", "frames": frames, "recordings": len(PUBLIC_KEYS), "getters": timed,
         "peak_mem_gib": peak_gib, "store_entries": len(coords._derived._cache), "create_s": create_s,
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    return line, {"full": coords, "card": on_card, "cpu": on_cpu}
+
+
+SUPERVISED_COLUMNS = 33
+SUPERVISED_BINARY_SHARE = 1e-3
+
+
+def _supervised(coords):
+    """{key: (values, columns)} of one seeded supervised_annotation call."""
+    tabs = coords.supervised_annotation(verbose=False, rng=np.random.RandomState(0))
+    return {key: (tab.realize(), tab.columns) for key, tab in tabs.items()}
+
+
+def _supervised_phase(torch, card, projects):
+    """Phase 6: supervised annotation on the getters' projects. Card vs CPU
+    (float32 both) on the 2,000-frame copy, each column's differing frames
+    printed; then two calls on the full project, the second timed with its
+    peak device memory and host reads. Returns the supervised line."""
+    from deepof_tpu_torch.annotate import supervised_annotation
+
+    t_phase = time.perf_counter()
+    got, want = _supervised(projects["card"]), _supervised(projects["cpu"])
+    differing, worst_share, cont_err = {}, 0.0, 0.0
+    for key in PUBLIC_KEYS:
+        (a, ca), (b, cb) = got[key], want[key]
+        if ca != cb or a.shape != (PREFIX, SUPERVISED_COLUMNS):
+            _fail(f"supervised {key}: columns or shape differ between card and CPU ({a.shape})")
+        for j, col in enumerate(ca):
+            if col.endswith(("distance", "speed")):
+                err = float(np.abs(a[:, j] - b[:, j]).max()) / max(1.0, float(np.abs(b[:, j]).max()))
+                _log(f"supervised {key} {col}: card vs CPU max|diff| / max(1, max|cpu|) {err:.3e} "
+                     f"(tol {PATH_RTOL:.0e})")
+                if not err <= PATH_RTOL:
+                    _fail(f"supervised {key} {col}: card and CPU disagree ({err})")
+                cont_err = max(cont_err, err)
+                continue
+            n = int((a[:, j] != b[:, j]).sum())
+            differing[f"{key}/{col}"] = n
+            if not set(np.unique(a[:, j])) <= {0.0, 1.0} or n > SUPERVISED_BINARY_SHARE * PREFIX:
+                _fail(f"supervised {key} {col}: {n} of {PREFIX} frames differ between card and CPU, or not 0/1")
+            worst_share = max(worst_share, n / PREFIX)
+    _log(f"supervised card vs CPU on the {PREFIX}-frame copy, differing frames per binary column: {differing}")
+
+    coords = projects["full"]
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        supervised_annotation.host_reads.clear()
+        t0 = time.perf_counter()
+        out = _supervised(coords)
+        secs.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    reads = dict(supervised_annotation.host_reads)
+    if reads != {"mouse_lens_rows": len(ANIMALS) * len(PUBLIC_KEYS), "tag_table": len(PUBLIC_KEYS)}:
+        _fail(f"supervised: host reads {reads}")
+    shares = {}
+    for key in PUBLIC_KEYS:
+        values, columns = out[key]
+        if values.shape != (PUBLIC_FRAMES, SUPERVISED_COLUMNS) or not np.isfinite(values).all():
+            _fail(f"supervised {key}: shape {values.shape} or non-finite tags")
+        shares[key] = {c: float(values[:, j].mean()) for j, c in enumerate(columns)
+                       if not c.endswith(("distance", "speed"))}
+    frames = len(PUBLIC_KEYS) * PUBLIC_FRAMES
+    _log(f"supervised: {secs[1]:.4f} s ({frames / secs[1]:.0f} frames/s), first {secs[0]:.4f} s, "
+         f"peak {peak_gib:.3f} GiB, host reads {reads}, shares of frames tagged {shares}")
+    return {
+        "path": "supervised", "frames": frames, "recordings": len(PUBLIC_KEYS), "columns": SUPERVISED_COLUMNS,
+        "s": secs[1], "frames_per_s": frames / secs[1], "first_s": secs[0], "peak_mem_gib": peak_gib,
+        "host_reads": reads, "card_vs_cpu": {"binary_max_share": worst_share, "continuous_max_rel_err": cont_err,
+                                             "differing_frames": differing},
         "phase_s": time.perf_counter() - t_phase, "card": card,
     }
 
@@ -892,7 +973,7 @@ def _gru_train_inputs(torch, g, dev, b, t, f, h, d, mask_kind, full=False):
 
 
 def _check_backward(torch):
-    """Phase 6a: the GRU backward kernel (through ``gru_scan_backward``, the
+    """Phase 7a: the GRU backward kernel (through ``gru_scan_backward``, the
     kernel and the wrapper's gradient products) against
     ``gru_scan_backward_plain`` on the card, from the carries the forward
     kernel stored, at every training shape, a ragged B with one reverse
@@ -1006,7 +1087,7 @@ def _time_backward(torch, g, b, f, h, outputs, kind):
 
 
 def _training_phase(torch, card, root):
-    """Phase 6: the training path on the card. The backward kernel against
+    """Phase 7: the training path on the card. The backward kernel against
     its plain version and timed at the training shapes; one train step card
     vs CPU from the same weights and batch; the steps' GRU launches, time
     and peak memory at batch 256; then ``deep_unsupervised_embedding`` on
@@ -1215,11 +1296,14 @@ def main() -> int:
             _fail(f"kernel {name} was not launched on the main path")
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
-    # Phases 4-6: the public path, the getters and training on its project.
+    # Phases 4-7: the public path, the getters, supervised annotation and
+    # training on its project.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
     try:
         public_line, public_launches, full, tables = _public_phase(torch, card, tmp)
-        getters_line = _getters_phase(torch, card, full, os.path.join(tmp, "prefix"), tables)
+        getters_line, projects = _getters_phase(torch, card, full, os.path.join(tmp, "prefix"), tables)
+        supervised_line = _supervised_phase(torch, card, projects)
+        del projects
         train_line, bwd_err, bwd_t, train_launches = _training_phase(torch, card, full)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1227,6 +1311,7 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps(public_line), flush=True)
     print(json.dumps(getters_line), flush=True)
+    print(json.dumps(supervised_line), flush=True)
     print(json.dumps(train_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,

@@ -15,6 +15,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from deepof_tpu_torch.ops.geometry import ellipse_to_polygon
+
 # Fixed synthetic user inputs substituted in test mode (arena.py:716-732).
 _TEST_POLY_SCALES = {"test2": [279.5, 213.5, 420.12, 380], "test": [279.5, 213.5, 420.12, 380]}
 _TEST_POLY_ARENAS = {
@@ -48,15 +50,7 @@ def extract_corners_from_arena(arena_params: Tuple = None, num_points: int = 100
     )
     if not is_ellipse:
         return np.asarray(p, float)
-    center, axes, angle = p
-    theta = np.linspace(0, 2 * np.pi, num_points, endpoint=False)
-    ang = np.deg2rad(angle)
-    x = axes[0] * np.cos(theta)
-    y = axes[1] * np.sin(theta)
-    return np.stack(
-        [x * np.cos(ang) - y * np.sin(ang) + center[0], x * np.sin(ang) + y * np.cos(ang) + center[1]],
-        axis=1,
-    )
+    return ellipse_to_polygon(*p, n_points=num_points)
 
 
 def scale_arenas_to_mm(arena_params: Dict, scales: Dict) -> Dict:

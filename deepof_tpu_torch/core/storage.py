@@ -1,5 +1,6 @@
 """Table storage of a TableDict value (port of ``deepof_tpu/core/storage.py``,
-in-memory mode).
+in-memory mode), and the column-addressed device tables of the supervised
+rules.
 
 A TableDict value is the object itself, a :class:`LazyFrame` (a frame whose
 values still live on the device, realised on first access) or a
@@ -86,6 +87,50 @@ class LazyWindows:
         self._realize_fn = lambda: windows
         self._shapes = tuple(np.shape(w) for w in windows)
         self._cache = windows
+
+
+class DeviceTable:
+    """A (T, C) tensor whose columns are addressed by label, kept on its
+    device: the tables the supervised rules read, in place of the JAX
+    package's DataFrames. ``table[label]`` is a (T,) column; for
+    coordinate tables, ``table[bodypart]`` is the (T, 2) block of its
+    (bodypart, axis) columns, as a DataFrame's first column level gives it."""
+
+    __slots__ = ("values", "columns", "_index", "_groups")
+
+    _AXES = ("x", "y", "rho", "phi")
+
+    def __init__(self, values, columns):
+        self.values = values
+        self.columns = list(columns)
+        self._index = {c: i for i, c in enumerate(self.columns)}
+        self._groups = {}
+        for i, c in enumerate(self.columns):
+            if isinstance(c, tuple) and len(c) == 2 and c[1] in self._AXES:
+                self._groups.setdefault(c[0], []).append(i)
+
+    def __len__(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def bodyparts(self) -> list:
+        """First labels of the (bodypart, axis) columns, in order."""
+        return list(self._groups)
+
+    def __contains__(self, label) -> bool:
+        return label in self._index or label in self._groups
+
+    def __getitem__(self, label):
+        if label in self._index:
+            return self.values[:, self._index[label]]
+        if label in self._groups:
+            return self.values[:, self._groups[label]]
+        raise KeyError(label)
+
+    def select(self, labels) -> "DeviceTable":
+        """The table of the given column labels, in their order."""
+        labels = list(labels)
+        return DeviceTable(self.values[:, [self._index[c] for c in labels]], labels)
 
 
 def save_dt(dt: Any, path: Optional[str] = None, return_path: bool = False):

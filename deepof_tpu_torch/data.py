@@ -937,16 +937,16 @@ class Coordinates:
         self, key: str, scale=None, quality=None, center: Union[bool, str] = False, polar: bool = False,
         speed: int = 0, align: Union[bool, str] = False, align_group: bool = False, align_inplace: bool = True,
         to_video: bool = False, selected_id: str = None, roi_number: int = None, animals_in_roi=None,
-        in_roi_criterion: str = "Center", invert_roi: bool = False, _finalize: bool = True,
+        in_roi_criterion: str = "Center", invert_roi: bool = False, _device: bool = False,
     ):
         """Coordinates of one recording (deepof_tpu/data.py:1520), on the
         device: ROI filter -> animal selection -> polar -> centre (the
-        arena's, or a bodypart's) -> ``to_video`` -> alignment -> speed;
-        then on the host the missing-animal NaN.
+        arena's, or a bodypart's) -> ``to_video`` -> alignment -> speed ->
+        the missing-animal NaN.
 
         Returns a LazyFrame with (bodypart, "x"|"y"|"rho"|"phi") columns, or
-        bodypart columns with ``speed``; with ``_finalize=False`` the
-        device result and its bodypart order."""
+        bodypart columns with ``speed``; with ``_device=True`` the (T, C)
+        device table and its column labels."""
         if scale is None:
             scale = self._scales[key]
         pos = self._positions(key)
@@ -982,19 +982,19 @@ class Coordinates:
         if align and align_inplace and not polar:
             work, col_order = self._align(work, nodes, animal_ids, align, align_group)
         out = rolling_speed(work, frame_rate=self._frame_rate, deriv=speed) if speed else work
-        if not _finalize:
-            return out, col_order
-        return self._coords_finalize(key, out, col_order, polar, speed)
-
-    def _coords_finalize(self, key, out, col_order, polar, speed) -> LazyFrame:
-        arr = _host_f64(out)
         if speed:
             columns = list(col_order)
         else:
             axes = ("rho", "phi") if polar else ("x", "y")
             columns = [(bp, ax) for bp in col_order for ax in axes]
-            arr = arr.reshape(arr.shape[0], -1)
-        return _frame(self._set_missing_animals(arr, columns, key), columns)
+            out = out.reshape(out.shape[0], -1)
+        return self._table(key, out, columns, _device)
+
+    def _table(self, key, arr: torch.Tensor, columns, device: bool):
+        """A getter's (T, C) device result with the missing-animal NaN: as
+        (tensor, columns) when ``device``, else as a host LazyFrame."""
+        arr = self._set_missing_animals(arr, columns, key)
+        return (arr, columns) if device else _frame(_host_f64(arr), columns)
 
     def get_coords(
         self, center: Union[bool, str] = False, polar: bool = False, speed: int = 0,
@@ -1010,13 +1010,13 @@ class Coordinates:
                 key, center=center, polar=polar, speed=speed, align=align, align_group=align_group,
                 align_inplace=align_inplace, to_video=to_video, selected_id=selected_id,
                 roi_number=roi_number, animals_in_roi=animals_in_roi, in_roi_criterion=in_roi_criterion,
-                invert_roi=invert_roi, _finalize=False,
+                invert_roi=invert_roi, _device=True,
             )
             for key in self._tables
         }
         tabs = {}
-        for key, (out, col_order) in pending.items():
-            tab = self._coords_finalize(key, out, col_order, polar, speed)
+        for key, (arr, columns) in pending.items():
+            tab = _frame(_host_f64(arr), columns)
             tabs[key] = save_dt(tab, os.path.join(self._table_path, key, f"{key}_{file_name}"), return_path)
         return self._table_dict(tabs, "coords", arena=self._arena, arena_dims=self._scales, center=center,
                                 polar=polar)
@@ -1088,18 +1088,24 @@ class Coordinates:
         outside the ROI} (deepof_tpu/data.py:2058)."""
         return self._roi_outside(self._positions(key), key, roi_number, animals_in_roi, invert_roi)
 
-    def _set_missing_animals(self, arr: np.ndarray, columns, key: str) -> np.ndarray:
-        """NaN, in place, each animal's columns (``filter_columns``) on the
-        frames where it is absent; columns of no animal (inter-animal
-        distances) are left."""
-        presence = self._presence[key]
+    def _set_missing_animals(self, arr: torch.Tensor, columns, key: str) -> torch.Tensor:
+        """A (T, C) table with each animal's columns (``filter_columns``) NaN
+        on the frames where it is absent, on the table's device; columns of
+        no animal (inter-animal distances) are left."""
+        presence = np.asarray(self._presence[key])
         n = min(len(arr), len(presence))
         where = {c: i for i, c in enumerate(columns)}
         for ai, aid in enumerate(self._animal_ids):
-            absent = np.flatnonzero(np.asarray(presence[:n, ai]) == 0)
+            absent = presence[:n, ai] == 0
             cols = [where[c] for c in (filter_columns(columns, aid) if aid else columns)]
-            if cols and absent.size:
-                arr[np.ix_(absent, cols)] = np.nan
+            if not (cols and absent.any()):
+                continue
+            rows = np.zeros(len(arr), bool)
+            rows[:n] = absent
+            hit = np.zeros(len(columns), bool)
+            hit[cols] = True
+            rows, hit = (torch.as_tensor(m, device=arr.device) for m in (rows, hit))
+            arr = torch.where(rows[:, None] & hit[None, :], torch.nan, arr)
         return arr
 
     def _distance_keep_idx(self, selected_id, filter_on_graph, pairs=None) -> list:
@@ -1133,12 +1139,14 @@ class Coordinates:
     def get_distances_at_key(
         self, key: str, quality=None, speed: int = 0, selected_id: str = None, roi_number: int = None,
         animals_in_roi=None, invert_roi: bool = False, filter_on_graph: bool = True, pairs=None,
+        _device: bool = False,
     ) -> LazyFrame:
         """Bodypart distances of one recording (deepof_tpu/data.py:1824):
         the kept columns gathered on the device, NaN where an animal's
         Center is outside the ROI (its own pairs), differentiated with
-        ``speed``; then the missing-animal NaN on the host. ``pairs`` keeps
-        only the given (bodypart, bodypart) pairs."""
+        ``speed``, then the missing-animal NaN. ``pairs`` keeps only the
+        given (bodypart, bodypart) pairs; ``_device`` as in
+        :meth:`get_coords_at_key`."""
         keep = self._distance_keep_idx(selected_id, filter_on_graph, pairs)
         columns = [self._pair_names[i] for i in keep]
         arr = _gather_columns_device(self._derived.parts(key)[0], keep, len(self._pair_names))
@@ -1150,7 +1158,7 @@ class Coordinates:
                 arr[:, cols] = torch.where(rows[:, None], torch.nan, arr[:, cols])
         if speed:
             arr = self._scalar_speed(arr, speed)
-        return _frame(self._set_missing_animals(_host_f64(arr), columns, key), columns)
+        return self._table(key, arr, columns, _device)
 
     def get_distances(
         self, speed: int = 0, selected_id: str = None, roi_number: int = None, animals_in_roi=None,
@@ -1170,7 +1178,7 @@ class Coordinates:
 
     def get_angles_at_key(
         self, key: str, quality=None, degrees: bool = False, speed: int = 0, selected_id: str = None,
-        roi_number: int = None, animals_in_roi=None, invert_roi: bool = False,
+        roi_number: int = None, animals_in_roi=None, invert_roi: bool = False, _device: bool = False,
     ) -> LazyFrame:
         """Bridge angles of one recording in radians (degrees with
         ``degrees``), differentiated with ``speed`` (deepof_tpu/data.py:1920).
@@ -1182,7 +1190,7 @@ class Coordinates:
             arr = torch.rad2deg(arr)
         if speed:
             arr = self._scalar_speed(arr, speed)
-        return _frame(self._set_missing_animals(_host_f64(arr), columns, key), columns)
+        return self._table(key, arr, columns, _device)
 
     def get_angles(
         self, degrees: bool = False, speed: int = 0, selected_id: str = None, roi_number: int = None,
@@ -1199,7 +1207,7 @@ class Coordinates:
 
     def get_areas_at_key(
         self, key: str, quality=None, speed: int = 0, selected_id: str = "all", roi_number: int = None,
-        animals_in_roi=None, invert_roi: bool = False,
+        animals_in_roi=None, invert_roi: bool = False, _device: bool = False,
     ) -> LazyFrame:
         """Body-area polygon areas of one recording, one animal's or "all"
         (deepof_tpu/data.py:1992). The ROI arguments are accepted and
@@ -1211,7 +1219,7 @@ class Coordinates:
         arr = _gather_columns_device(self._derived.parts(key)[2], keep, len(self._area_names))
         if speed:
             arr = self._scalar_speed(arr, speed)
-        return _frame(self._set_missing_animals(_host_f64(arr), columns, key), columns)
+        return self._table(key, arr, columns, _device)
 
     def get_areas(
         self, speed: int = 0, selected_id: str = "all", roi_number: int = None, animals_in_roi=None,
@@ -1231,6 +1239,12 @@ class Coordinates:
         from deepof_tpu_torch.graph_dataset import get_graph_dataset
 
         return get_graph_dataset(self, *args, **kwargs)
+
+    def supervised_annotation(self, *args, **kwargs):
+        """See :func:`deepof_tpu_torch.annotate.supervised_annotation`."""
+        from deepof_tpu_torch.annotate import supervised_annotation
+
+        return supervised_annotation(self, *args, **kwargs)
 
     def deep_unsupervised_embedding(self, *args, **kwargs):
         """See :func:`deepof_tpu_torch.train.harness.deep_unsupervised_embedding`."""

@@ -1,6 +1,8 @@
 """Arena and ROI geometry (port of the parts of
-``deepof_tpu/ops/geometry.py`` the ROI filters read: ``_close_polygon``
-and ``point_in_polygon``)."""
+``deepof_tpu/ops/geometry.py`` that the ROI filters and the supervised
+rules read: ``_close_polygon``, ``point_in_polygon``, the fused distance
+and inside test ``point_polygon_host`` :89 (with its twins :111, :135 and
+``deepof_tpu/native/kernels.cpp:97``) and ``ellipse_to_polygon`` :166)."""
 
 from __future__ import annotations
 
@@ -32,3 +34,34 @@ def point_in_polygon(points: torch.Tensor, polygon) -> torch.Tensor:
     xinters = torch.where(dy != 0, (y - y1) * (x2 - x1) / torch.where(dy == 0, 1.0, dy) + x1, x1)
     crosses = y_in_range & x_ok & ((x1 == x2) | (x <= xinters))
     return crosses.sum(dim=-1) % 2 == 1
+
+
+def point_polygon(points: torch.Tensor, polygon):
+    """(distance to the boundary, inside) of (T, 2) points against a (V, 2)
+    polygon, in float64 on the points' device: the minimum over edges of
+    the point-to-segment distance, and :func:`point_in_polygon`'s crossing
+    rule. A non-finite point gets distance NaN and is outside."""
+    poly = _close_polygon(polygon)
+    pts = points.to(torch.float64)
+    a = torch.as_tensor(poly, device=pts.device)
+    v = torch.as_tensor(np.roll(poly, -1, axis=0), device=pts.device) - a
+    x, y = pts[:, 0:1], pts[:, 1:2]
+    ax, ay, vx, vy = a[:, 0], a[:, 1], v[:, 0], v[:, 1]
+    c1 = (x - ax) * vx + (y - ay) * vy
+    c2 = vx * vx + vy * vy
+    t = torch.where(c2 > 0, c1 / torch.where(c2 == 0, 1.0, c2), 0.0).clamp(0.0, 1.0)
+    dx = x - (ax + t * vx)
+    dy = y - (ay + t * vy)
+    dist = torch.sqrt((dx * dx + dy * dy).amin(dim=1))
+    dist = torch.where(torch.isfinite(pts).all(dim=1), dist, torch.nan)
+    return dist, point_in_polygon(pts, poly)
+
+
+def ellipse_to_polygon(center, axes, angle_deg: float, n_points: int = 100) -> np.ndarray:
+    """A ((cx, cy), (ax, ay), angle) ellipse as an (n_points, 2) polygon."""
+    theta = np.linspace(0, 2 * np.pi, n_points, endpoint=False)
+    ang = np.deg2rad(angle_deg)
+    x = axes[0] * np.cos(theta)
+    y = axes[1] * np.sin(theta)
+    return np.stack([x * np.cos(ang) - y * np.sin(ang) + center[0], x * np.sin(ang) + y * np.cos(ang) + center[1]],
+                    axis=1)

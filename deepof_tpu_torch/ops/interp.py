@@ -1,5 +1,6 @@
-"""Gap filling: forward/backward fill indices and presence-masked linear
-interpolation with a pandas-style limit (port of deepof_tpu/ops/interp.py).
+"""Gap filling: forward/backward fill indices, presence-masked linear
+interpolation with a pandas-style limit (port of deepof_tpu/ops/interp.py)
+and pandas' linear ``interpolate`` as the supervised rules call it.
 
 Every function works along dim 0 and broadcasts over trailing dims, so one
 call fills every (bodypart, coordinate) column of a recording.
@@ -95,3 +96,25 @@ def masked_linear_interpolate(
         dr_i = torch.where(has_right, v_right - vidx, _BIG)
         fillable = fillable & ((dl_i <= limit) | (dr_i <= limit))
     return torch.where(finite, x, torch.where(fillable, interp, torch.nan))
+
+
+def interpolate_linear(x: torch.Tensor, limit_direction: str = "forward") -> torch.Tensor:
+    """pandas ``interpolate(method="linear")`` of each column along dim 0:
+    a NaN between two values takes ``np.interp``'s
+    ``slope * (i - left) + y_left``; trailing NaNs take the last value;
+    leading NaNs stay NaN, or take the first value with
+    ``limit_direction="both"``."""
+    if limit_direction not in ("forward", "both"):
+        raise ValueError(f"limit_direction must be 'forward' or 'both', got {limit_direction!r}")
+    t = x.shape[0]
+    valid = ~torch.isnan(x)
+    li = ffill_indices(valid)
+    ri = bfill_indices(valid)
+    has_left, has_right = li >= 0, ri < t
+    li_c, ri_c = li.clamp(0, t - 1), ri.clamp(0, t - 1)
+    y_left, y_right = torch.gather(x, 0, li_c), torch.gather(x, 0, ri_c)
+    slope = (y_right - y_left) / (ri_c - li_c).to(x.dtype)
+    inner = slope * (_positions(valid) - li_c).to(x.dtype) + y_left
+    lead = y_right if limit_direction == "both" else torch.full_like(x, torch.nan)
+    fill = torch.where(has_left & has_right, inner, torch.where(has_left, y_left, lead))
+    return torch.where(valid, x, fill)

@@ -2,6 +2,7 @@
 
     python3 scripts/torch_profile_path.py [--root ROOT] [--animals B]
     python3 scripts/torch_profile_path.py --train [--batch 256] [--steps 20]
+    python3 scripts/torch_profile_path.py --supervised
 
 Drives the same 1-hour, 2-animal serving path as chip_smoke.py (warm: one
 untimed 2,000-frame and one untimed 1-hour run first, as chip_smoke.py
@@ -35,6 +36,15 @@ that no call waits for the device; PyTorch's synchronising calls in a step;
 then five steps under the profiler: the device's busy share, kernel launches
 a step, the kernels ranked by device time and the host operators by their
 own CPU time. Its chrome trace is chiprun_out/torch_profile_train.json.
+
+With ``--supervised``, ``Coordinates.supervised_annotation`` on chip_smoke.py's
+public project (2 x 45,000 frames, two deepof_14 animals, the test arenas,
+ROI 1), as its supervised phase calls it: one warm call, one timed
+call, then one under the profiler. It prints the card; the timed call's
+wall time; the profiled call's wall time, device busy share and kernel
+launches; the kernels ranked by device time, and the host operators (CUDA
+runtime calls among them: launches, copies, synchronisations) by their own
+CPU time. Its chrome trace is chiprun_out/torch_profile_supervised.json.
 """
 
 from __future__ import annotations
@@ -242,6 +252,46 @@ def _profile_train(torch, chip_smoke, batch: int, steps: int) -> None:
     prof.export_chrome_trace(os.path.join(out_dir, "torch_profile_train.json"))
 
 
+def _profile_supervised(torch, chip_smoke) -> None:
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    card = _card()
+    tmp = tempfile.mkdtemp(prefix="torch_profile_supervised_")
+    try:
+        tables = chip_smoke._public_tables(chip_smoke.PUBLIC_FRAMES)
+        root = chip_smoke._write_public_project(os.path.join(tmp, "full"), tables, chip_smoke.PUBLIC_FRAMES)
+        coords = chip_smoke._getters_project(root, tables, chip_smoke.PUBLIC_FRAMES, "cuda")
+        chip_smoke._supervised(coords)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chip_smoke._supervised(coords)
+        timed_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            chip_smoke._supervised(coords)
+            wall_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = _kernels(torch, prof)
+    host = _host_ops(torch, prof)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    runtime = {key: count for _, count, key in host if key.startswith("cuda")}
+    print(card)
+    print(json.dumps({
+        "card": card, "frames": 2 * chip_smoke.PUBLIC_FRAMES, "timed_s": timed_s, "profiled_wall_s": wall_s,
+        "device_busy_s": busy_s, "device_busy_share": busy_s / wall_s,
+        "kernel_launches": sum(r[1] for r in rows), "cuda_runtime_calls": runtime,
+    }))
+    _print_table(rows, 20)
+    _print_table(host, 25, what="host operator")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "torch_profile_supervised.json"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", help="checkout of the port to profile (default: this one)")
@@ -249,6 +299,8 @@ def main() -> int:
     ap.add_argument("--train", action="store_true", help="profile one VQ-VAE train step instead of the path")
     ap.add_argument("--batch", type=int, default=256, help="--train: windows a step")
     ap.add_argument("--steps", type=int, default=20, help="--train: timed steps")
+    ap.add_argument("--supervised", action="store_true",
+                    help="profile supervised_annotation on the public project instead of the path")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root or REPO))
     import chip_smoke  # the serving-path setup lives there
@@ -264,6 +316,9 @@ def main() -> int:
         return 2
     if args.train:
         _profile_train(torch, chip_smoke, args.batch, args.steps)
+        return 0
+    if args.supervised:
+        _profile_supervised(torch, chip_smoke)
         return 0
     card = _card()
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]

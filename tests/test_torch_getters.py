@@ -156,7 +156,7 @@ def test_absent_animal_and_roi_rows(sides):
         b = [tab.columns.index(c) for c in jfilter_columns(tab.columns, "B")]
         assert w and np.isnan(arr[rows][:, w]).all() and not np.isnan(arr[rows][:, b]).all()
     cols = [("B_Nose", "W_Nose"), ("W_Nose", "W_Tail_base"), "W_head_area", ("W_Nose", "x")]
-    masked = coords._set_missing_animals(np.ones((300, 4)), cols, "test")
+    masked = coords._set_missing_animals(torch.ones((300, 4), dtype=torch.float64), cols, "test").numpy()
     assert not np.isnan(masked[:, 0]).any() and np.isnan(masked[rows, 1:]).all()
     assert np.isnan(masked[:, 1:]).sum() == 3 * 12
     roi = coords.get_coords(roi_number=1)["test"].realize()
