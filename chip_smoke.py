@@ -83,7 +83,18 @@
    50 train and 5 val batches, checking finite losses and the launches,
    and the saved bundle read back with ``ModelBundle.load`` and served with
    ``embedding_per_video``, its soft counts equal to the trained bundle's.
-8. Prints a stage line of each path, a kernels line, and last
+8. VaDE, the default model, on the training phase's project: one train
+   step card vs CPU in pretrain and in main mode (loss and every gradient,
+   same weights, batch and noise); the step's GRU launches (6 forward, 6
+   backward), the time of each mode's step and the peak memory; then
+   ``Coordinates.deep_unsupervised_embedding`` with no ``embedding_model``
+   (pretrain, extract_latents + GMM init, main, each timed) for one
+   pretrain and one main epoch of 50 + 5 batches, checking the history
+   keys, finite losses and the launches; the saved bundle read back with
+   ``ModelBundle.load``, both bundles served by ``embedding_per_video``
+   (equal soft counts summing to 1, one window launch a block), and the
+   trained bundle served card vs CPU on the 2,000-frame copy.
+9. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -733,7 +744,7 @@ def _public_phase(torch, card, tmp):
     root, the recordings' tables)."""
     from deepof_tpu_torch.core.storage import get_dt
     from deepof_tpu_torch.io.readers import load_table
-    from deepof_tpu_torch.ops.gru_kernels import gru_scan
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_backward
     from deepof_tpu_torch.ops.window_kernels import window_streams
 
     t_write = time.perf_counter()
@@ -773,14 +784,16 @@ def _public_phase(torch, card, tmp):
     first_s = time.perf_counter() - t0
     runs = {}
     for name, pass_bundles, gru_per_block in (("public", bundles[:1], 4), ("public_angles", bundles[1:], 6)):
-        window_streams.launches = 0
-        gru_scan.launches = 0
+        window_streams.launches = gru_scan.launches = gru_scan_backward.launches = 0
         stages = {}
         t0 = time.perf_counter()
         _, _, _, outs = _run_public(torch, full, pass_bundles, "cuda", stages)
         total_s = time.perf_counter() - t0
-        launches = {"window_streams": window_streams.launches, "gru_scan": gru_scan.launches}
+        launches = {"window_streams": window_streams.launches, "gru_scan": gru_scan.launches,
+                    "gru_scan_bwd": gru_scan_backward.launches}
         _check_public_outputs(outs, PUBLIC_FRAMES)
+        if launches["gru_scan_bwd"] != 0:
+            _fail(f"{name}: serving launched the GRU backward kernel {launches['gru_scan_bwd']} times")
         if launches["window_streams"] != n_blocks:
             _fail(f"{name}: the window kernel launched {launches['window_streams']} times for {n_blocks} blocks")
         if launches["gru_scan"] != gru_per_block * n_blocks:
@@ -1086,7 +1099,64 @@ def _time_backward(torch, g, b, f, h, outputs, kind):
     return res
 
 
-def _training_phase(torch, card, root):
+def _training_data(root):
+    """The training phases' data: the public project on the card (one
+    recording held out), its graph dataset, the seconds both took, the
+    first TRAIN_BATCH training windows (x, a) and the training windows'
+    count."""
+    from deepof_tpu_torch.core.storage import get_dt
+    from deepof_tpu_torch.data import Project
+    from deepof_tpu_torch.graph_dataset import reorder_and_reshape
+
+    t0 = time.perf_counter()
+    coords = Project(
+        project_path=root, project_name="public", video_path=f"{root}/Videos", table_path=f"{root}/Tables",
+        arena="circular-autodetect", video_scale="380 mm", table_format="csv", frame_rate=FPS,
+        animal_ids=ANIMALS, device="cuda",
+    ).create(force=True, test=True, verbose=False)
+    ggd = coords.get_graph_dataset(window_size=WINDOW, test_videos=1)
+    (train, test), *_ = ggd
+    prep_s = time.perf_counter() - t0
+    if len(train) != 1 or len(test) != 1:
+        _fail(f"training split: {list(train)} / {list(test)}, not one recording each")
+    nodes, edges, _ = get_dt(train, list(train)[0])
+    x = reorder_and_reshape(np.asarray(nodes[:TRAIN_BATCH], np.float32))
+    a = np.asarray(edges[:TRAIN_BATCH], np.float32)[..., None]
+    return {"coords": coords, "ggd": ggd, "prep_s": prep_s, "x": x, "a": a, "n_train": int(nodes.shape[0])}
+
+
+def _step_grads_vs_cpu(torch, loss_fn, cpu_model, card_model, label):
+    """One step's loss and every parameter gradient, card vs CPU, from the
+    same weights and inputs: ``loss_fn(model, device)`` -> total. Fails
+    beyond STEP_RTOL / STEP_GRAD_RTOL. Returns (loss rel error, gradient
+    rel error, smallest max |g_cpu|)."""
+    loss = {}
+    for dev, m in (("cpu", cpu_model), ("cuda", card_model)):
+        m.zero_grad(set_to_none=True)
+        total = loss_fn(m, dev)
+        total.backward()
+        loss[dev] = total.item()
+    loss_err = abs(loss["cuda"] - loss["cpu"]) / max(1.0, abs(loss["cpu"]))
+    grads = {}  # name -> (max |g_cpu|, max |g_card - g_cpu| / max |g_cpu|)
+    for (name, pc), (_, pg) in zip(cpu_model.named_parameters(), card_model.named_parameters()):
+        if pc.grad is None or pg.grad is None:
+            _fail(f"{label} left {name} without a gradient")
+        scale, diff = pc.grad.abs().max().item(), (pg.grad.cpu() - pc.grad).abs().max().item()
+        grads[name] = (scale, diff / scale if scale > 0 else (0.0 if diff == 0 else np.inf))
+    _log(f"{label}, per parameter max|g_cpu| and max|diff| / max|g_cpu|: "
+         + ", ".join(f"{k} {v[0]:.2e} {v[1]:.1e}" for k, v in grads.items()))
+    grad_err = max(v[1] for v in grads.values())
+    worst = max(grads, key=lambda k: grads[k][1])
+    smallest = min(grads, key=lambda k: grads[k][0])
+    _log(f"{label}, card vs CPU: loss {loss['cuda']:.6f} vs {loss['cpu']:.6f}, rel {loss_err:.3e} "
+         f"(tol {STEP_RTOL:.0e}); gradients max|diff| / max|g_cpu| {grad_err:.3e} at {worst} "
+         f"(tol {STEP_GRAD_RTOL:.0e}); smallest max|g_cpu| {grads[smallest][0]:.3e} at {smallest}")
+    if not (loss_err <= STEP_RTOL and grad_err <= STEP_GRAD_RTOL):
+        _fail(f"{label}: card and CPU disagree (loss {loss_err}, gradients {grad_err} at {worst})")
+    return loss_err, grad_err, grads[smallest][0]
+
+
+def _training_phase(torch, card, data):
     """Phase 7: the training path on the card. The backward kernel against
     its plain version and timed at the training shapes; one train step card
     vs CPU from the same weights and batch; the steps' GRU launches, time
@@ -1096,9 +1166,6 @@ def _training_phase(torch, card, root):
     back with ``ModelBundle.load`` and served with ``embedding_per_video``.
     Returns (stage line, backward errors, backward times, launches of the
     training path)."""
-    from deepof_tpu_torch.core.storage import get_dt
-    from deepof_tpu_torch.data import Project
-    from deepof_tpu_torch.graph_dataset import reorder_and_reshape
     from deepof_tpu_torch.models import build_model
     from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_backward
     from deepof_tpu_torch.ops.window_kernels import window_streams
@@ -1110,49 +1177,16 @@ def _training_phase(torch, card, root):
     g = torch.Generator().manual_seed(3)
     bwd_t = [_time_backward(torch, g, *shape) for shape in GRU_TRAIN_SHAPES]
 
-    t0 = time.perf_counter()
-    coords = Project(
-        project_path=root, project_name="public", video_path=f"{root}/Videos", table_path=f"{root}/Tables",
-        arena="circular-autodetect", video_scale="380 mm", table_format="csv", frame_rate=FPS,
-        animal_ids=ANIMALS, device="cuda",
-    ).create(force=True, test=True, verbose=False)
-    ggd = coords.get_graph_dataset(window_size=WINDOW, test_videos=1)
-    (train, test), meta, adjacency, tab_dict, scaler = ggd
-    prep_s = time.perf_counter() - t0
-    if len(train) != 1 or len(test) != 1:
-        _fail(f"training split: {list(train)} / {list(test)}, not one recording each")
-
-    # One batch: the first TRAIN_BATCH training windows.
-    nodes, edges, _ = get_dt(train, list(train)[0])
-    x = reorder_and_reshape(np.asarray(nodes[:TRAIN_BATCH], np.float32))
-    a = np.asarray(edges[:TRAIN_BATCH], np.float32)[..., None]
+    coords, ggd, prep_s, x, a = (data[k] for k in ("coords", "ggd", "prep_s", "x", "a"))
+    _, meta, adjacency, tab_dict, scaler = ggd
 
     # Card vs CPU: one step's loss and every gradient, same weights, same batch.
     cpu_model = build_model("VQVAE", x.shape[1:], a.shape[1:], adjacency, LATENT, N_COMPONENTS,
                             generator=torch.Generator().manual_seed(0), device="cpu")
     card_model = copy.deepcopy(cpu_model).to("cuda")
-    loss = {}
-    for dev, m in (("cpu", cpu_model), ("cuda", card_model)):
-        total, _ = vqvae_loss(m, torch.as_tensor(x, device=dev), torch.as_tensor(a, device=dev))
-        total.backward()
-        loss[dev] = total.item()
-    loss_err = abs(loss["cuda"] - loss["cpu"]) / max(1.0, abs(loss["cpu"]))
-    grads = {}  # name -> (max |g_cpu|, max |g_card - g_cpu| / max |g_cpu|)
-    for (name, pc), (_, pg) in zip(cpu_model.named_parameters(), card_model.named_parameters()):
-        if pc.grad is None or pg.grad is None:
-            _fail(f"one train step left {name} without a gradient")
-        scale, diff = pc.grad.abs().max().item(), (pg.grad.cpu() - pc.grad).abs().max().item()
-        grads[name] = (scale, diff / scale if scale > 0 else (0.0 if diff == 0 else np.inf))
-    _log("one train step, per parameter max|g_cpu| and max|diff| / max|g_cpu|: "
-         + ", ".join(f"{k} {v[0]:.2e} {v[1]:.1e}" for k, v in grads.items()))
-    grad_err = max(v[1] for v in grads.values())
-    worst = max(grads, key=lambda k: grads[k][1])
-    smallest = min(grads, key=lambda k: grads[k][0])
-    _log(f"one train step, card vs CPU: loss {loss['cuda']:.6f} vs {loss['cpu']:.6f}, rel {loss_err:.3e} "
-         f"(tol {STEP_RTOL:.0e}); gradients max|diff| / max|g_cpu| {grad_err:.3e} at {worst} "
-         f"(tol {STEP_GRAD_RTOL:.0e}); smallest max|g_cpu| {grads[smallest][0]:.3e} at {smallest}")
-    if not (loss_err <= STEP_RTOL and grad_err <= STEP_GRAD_RTOL):
-        _fail(f"one train step: card and CPU disagree (loss {loss_err}, gradients {grad_err} at {worst})")
+    loss_err, grad_err, grad_min_scale = _step_grads_vs_cpu(
+        torch, lambda m, dev: vqvae_loss(m, torch.as_tensor(x, device=dev), torch.as_tensor(a, device=dev))[0],
+        cpu_model, card_model, "one train step")
 
     # The step on the card: its GRU launches, then TIMED_STEPS timed steps.
     model = build_model("VQVAE", x.shape[1:], a.shape[1:], adjacency, LATENT, N_COMPONENTS,
@@ -1193,7 +1227,7 @@ def _training_phase(torch, card, root):
         _fail(f"one epoch of {TRAIN_BATCHES} + {VAL_BATCHES} batches launched the GRU kernels {fit_launches} times")
     if not ({"total_loss", "val_total_loss"} <= set(summary) and all(np.isfinite(v) for v in summary.values())):
         _fail(f"training losses: {summary}")
-    path = os.path.join(root, "public", "Trained_models", "models",
+    path = os.path.join(coords._project_path, coords._project_name, "Trained_models", "models",
                         f"VQVAE_recurrent_latent{LATENT}_k{N_COMPONENTS}_run0.ckpt")
     t0 = time.perf_counter()
     loaded = ModelBundle.load(path)
@@ -1214,10 +1248,180 @@ def _training_phase(torch, card, root):
         "gru_launches_per_step": per_step, "peak_mem_gib": peak_gib, "timed_steps": TIMED_STEPS,
         "prep_s": prep_s, "fit_s": fit_s, "fit_batches": [TRAIN_BATCHES, VAL_BATCHES], "serve_s": serve_s,
         "losses": summary, "step_loss_rel_err": loss_err, "step_grad_rel_err": grad_err,
-        "step_grad_min_scale": grads[smallest][0],
+        "step_grad_min_scale": grad_min_scale,
         "bwd_max_rel_err": bwd_err[1], "phase_s": time.perf_counter() - t_phase, "card": card,
     }
     return line, bwd_err, bwd_t, launches
+
+
+VADE_LOSS_KEYS = {"total_loss", "reconstruct_loss", "kl_div", "kl_weight", "tf_clust_loss", "prior_loss",
+                  "kmeans_loss", "activity_l1", "cat_clust_loss", "distill_loss", "nonempty_loss",
+                  "temporal_loss", "scatter_loss", "repel_loss"}
+
+
+def _vade_phase(torch, card, data, prefix):
+    """Phase 8: VaDE, the default model, on the training phase's project.
+    One train step card vs CPU in pretrain and in main mode (same weights,
+    batch and noise); the step's GRU launches (6 forward: encoder 4,
+    decoder 2; 6 backward), TIMED_STEPS timed steps of each mode and the
+    peak memory; ``deep_unsupervised_embedding`` with no
+    ``embedding_model`` for one pretrain and one main epoch, each capped at
+    TRAIN_BATCHES + VAL_BATCHES batches, its phases timed (pretrain,
+    extract_latents + GMM init, main); the saved bundle read back with
+    ``ModelBundle.load`` and both bundles served by
+    ``embedding_per_video``; the trained bundle served card vs CPU on the
+    2,000-frame copy ``prefix``. Returns (stage line, launches of the
+    training and the serving path)."""
+    from deepof_tpu_torch.models import build_model
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_backward
+    from deepof_tpu_torch.ops.window_kernels import window_streams
+    from deepof_tpu_torch.train import harness
+    from deepof_tpu_torch.train.config import CommonFitCfg, TurtleTeacherCfg, VaDECfg
+    from deepof_tpu_torch.train.inference import embedding_per_video
+    from deepof_tpu_torch.train.losses import vade_params_from_cfg
+
+    t_phase = time.perf_counter()
+    coords, ggd, x, a = (data[k] for k in ("coords", "ggd", "x", "a"))
+    _, meta, adjacency, tab_dict, scaler = ggd
+    common = CommonFitCfg(n_components=N_COMPONENTS)
+    loss_params = {mode: vade_params_from_cfg(common, VaDECfg(), TurtleTeacherCfg(), mode == "pretrain")
+                   for mode in ("pretrain", "main")}
+
+    # Card vs CPU: one step of each mode, same weights, batch and noise.
+    g = torch.Generator().manual_seed(5)
+    eps_z = torch.randn(TRAIN_BATCH, LATENT, generator=g)
+    eps_kl = torch.randn(32, TRAIN_BATCH, LATENT, generator=g)
+    cpu_model = build_model("VaDE", x.shape[1:], a.shape[1:], adjacency, LATENT, N_COMPONENTS,
+                            generator=torch.Generator().manual_seed(0), device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    step_errs = {}
+    for mode, params in loss_params.items():
+        def loss_fn(m, dev, params=params):
+            return harness.vade_step_loss(
+                m, torch.as_tensor(x, device=dev), torch.as_tensor(a, device=dev), None, params, 0.5,
+                eps_z.to(dev), eps_kl.to(dev))[0]
+        step_errs[mode] = _step_grads_vs_cpu(torch, loss_fn, cpu_model, card_model, f"one VaDE {mode} step")
+    del cpu_model, card_model
+
+    # The steps on the card: GRU launches, then TIMED_STEPS timed steps a mode.
+    xb, ab = torch.as_tensor(x, device="cuda"), torch.as_tensor(a, device="cuda")
+    step_ms, per_step = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mode, params in loss_params.items():
+        model = build_model("VaDE", x.shape[1:], a.shape[1:], adjacency, LATENT, N_COMPONENTS,
+                            generator=torch.Generator().manual_seed(0), device="cuda")
+        opt = harness._make_optimizer(model.named_parameters(), 3e-4, gmm_lr=1e-3)
+        step = harness.make_vade_step(model, opt, params, torch.Generator(device="cuda").manual_seed(0))
+        step(xb, ab, kl_weight=0.5)
+        gru_scan.launches = gru_scan_backward.launches = 0
+        step(xb, ab, kl_weight=0.5)
+        per_step[mode] = {"forward": gru_scan.launches, "backward": gru_scan_backward.launches}
+        if per_step[mode] != {"forward": 6, "backward": 6}:
+            _fail(f"one VaDE {mode} step launched the GRU kernels {per_step[mode]} times, not 6 forward "
+                  "(4 encoder, 2 decoder) and 6 backward")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            logs = step(xb, ab, kl_weight=0.5)
+        torch.cuda.synchronize()
+        step_ms[mode] = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        if not all(np.isfinite(v.item()) for v in logs.values()):
+            _fail(f"non-finite VaDE {mode} losses after {TIMED_STEPS + 2} steps: {logs}")
+        del model, opt, step
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # The default call, its phases timed at the fit's calls of
+    # extract_latents and fit_gmm_init.
+    marks = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            marks[f"{name}_start"] = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            marks[f"{name}_end"] = time.perf_counter()
+            return out
+        return wrapper
+
+    originals = harness.extract_latents, harness.fit_gmm_init
+    harness.extract_latents = timed("latents", originals[0])
+    harness.fit_gmm_init = timed("gmm", originals[1])
+    window_streams.launches = gru_scan.launches = gru_scan_backward.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle, score, _, summary = coords.deep_unsupervised_embedding(
+            ggd[:3], adjacency_matrix=adjacency, batch_size=TRAIN_BATCH, latent_dim=LATENT,
+            n_clusters=N_COMPONENTS, epochs=1, pretrain_epochs=1, save_checkpoints=True, verbose=False,
+            limit_train_batches=TRAIN_BATCHES, limit_val_batches=VAL_BATCHES,
+        )
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        harness.extract_latents, harness.fit_gmm_init = originals
+    train_launches = {"window_streams": window_streams.launches, "gru_scan": gru_scan.launches,
+                      "gru_scan_bwd": gru_scan_backward.launches}
+    phases_s = {"pretrain": marks["latents_start"] - t0, "latents": marks["latents_end"] - marks["latents_start"],
+                "gmm_init": marks["gmm_end"] - marks["gmm_start"], "main": t_end - marks["gmm_end"],
+                "fit": t_end - t0}
+    latent_batches = -(-data["n_train"] // TRAIN_BATCH)
+    want = {"window_streams": 0, "gru_scan": 2 * 6 * (TRAIN_BATCHES + VAL_BATCHES) + 4 * latent_batches,
+            "gru_scan_bwd": 2 * 6 * TRAIN_BATCHES}
+    if train_launches != want:
+        _fail(f"the default call launched {train_launches}, not {want} (two phases of {TRAIN_BATCHES} + "
+              f"{VAL_BATCHES} batches, {latent_batches} latent batches)")
+    if bundle.rebuild_spec["model"] != "VaDE" or score is not None:
+        _fail(f"the default call trained a {bundle.rebuild_spec['model']} (score {score})")
+    want_keys = {f"{ph}{val}{k}" for ph in ("pretrain/", "") for val in ("", "val_") for k in VADE_LOSS_KEYS}
+    if set(summary) != want_keys or not all(np.isfinite(v) for v in summary.values()):
+        _fail(f"VaDE history keys or losses: {summary}")
+    _log(f"VaDE default call: phases {phases_s}, launches {train_launches}, losses {summary}")
+
+    # Serving: the trained and the reloaded bundle, then card vs CPU.
+    path = os.path.join(coords._project_path, coords._project_name, "Trained_models", "models",
+                        f"VaDE_recurrent_latent{LATENT}_k{N_COMPONENTS}_run0.ckpt")
+    loaded = harness.ModelBundle.load(path)
+    window_streams.launches = gru_scan.launches = gru_scan_backward.launches = 0
+    t0 = time.perf_counter()
+    outs = [embedding_per_video(coords, tab_dict, b, meta, global_scaler=scaler, batch_size=BLOCK)
+            for b in (bundle, loaded)]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = {"window_streams": window_streams.launches, "gru_scan": gru_scan.launches,
+                      "gru_scan_bwd": gru_scan_backward.launches}
+    n_blocks = 2 * len(PUBLIC_KEYS) * -(-(PUBLIC_FRAMES - WINDOW + 1) // BLOCK)
+    if serve_launches != {"window_streams": n_blocks, "gru_scan": 4 * n_blocks, "gru_scan_bwd": 0}:
+        _fail(f"serving two VaDE bundles launched {serve_launches} for {n_blocks} blocks")
+    _check_public_outputs(outs, PUBLIC_FRAMES)
+    for key in PUBLIC_KEYS:
+        if not np.array_equal(outs[0][1][key], outs[1][1][key]):
+            _fail(f"the reloaded VaDE bundle's soft counts differ from the trained bundle's on {key}")
+    on_card = _run_public(torch, prefix, [bundle], "cuda")[3][0]
+    on_cpu = _run_public(torch, prefix, [bundle], "cpu", precision="float32")[3][0]
+    serve_err = 0.0
+    for key in PUBLIC_KEYS:
+        for name, got, want_ in (("embeddings", on_card[0][key], on_cpu[0][key]),
+                                 ("soft counts", on_card[1][key], on_cpu[1][key])):
+            err = float(np.abs(got - want_).max()) / max(1.0, float(np.abs(want_).max()))
+            _log(f"VaDE served on the {PREFIX}-frame copy, {key}, {name}, card vs CPU plain: "
+                 f"max|diff| / max(1, max|cpu|) {err:.3e} (tol {PATH_RTOL:.0e})")
+            if not err <= PATH_RTOL:
+                _fail(f"card and CPU disagree on the VaDE {name} of {key}: {err}")
+            serve_err = max(serve_err, err)
+    line = {
+        "path": "vade", "batch": TRAIN_BATCH, "latent": LATENT, "n_components": N_COMPONENTS, "window": WINDOW,
+        "ms_per_step": step_ms["main"], "steps_per_s": 1e3 / step_ms["main"],
+        "windows_per_s": TRAIN_BATCH * 1e3 / step_ms["main"], "pretrain_ms_per_step": step_ms["pretrain"],
+        "gru_launches_per_step": per_step["main"], "peak_mem_gib": peak_gib, "timed_steps": TIMED_STEPS,
+        "phases_s": phases_s, "fit_batches": [TRAIN_BATCHES, VAL_BATCHES], "latent_batches": latent_batches,
+        "serve_s": serve_s, "losses": summary,
+        "step_loss_rel_err": {m: e[0] for m, e in step_errs.items()},
+        "step_grad_rel_err": {m: e[1] for m, e in step_errs.items()},
+        "serve_max_rel_err": serve_err, "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    return line, {"vade_training": train_launches, "vade_serving": serve_launches}
 
 
 def main() -> int:
@@ -1227,7 +1431,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from deepof_tpu_torch.ops import cuda_build
-    from deepof_tpu_torch.ops.gru_kernels import gru_scan
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_backward
     from deepof_tpu_torch.ops.window_kernels import window_streams
 
     t_start = time.perf_counter()
@@ -1274,10 +1478,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     first_stages, first_run_s, first_mallocs, _, _ = _timed_run(torch, setup, pos, lik)
     torch.cuda.reset_peak_memory_stats()
-    window_streams.launches = 0
-    gru_scan.launches = 0
+    window_streams.launches = gru_scan.launches = gru_scan_backward.launches = 0
     stages, total_s, mallocs, emb, sc = _timed_run(torch, setup, pos, lik)
     launches = {"window_streams": window_streams.launches, "gru_scan": gru_scan.launches}
+    bwd_launches = gru_scan_backward.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     n_windows = T_FRAMES - WINDOW + 1
@@ -1294,6 +1498,9 @@ def main() -> int:
     for name, count in launches.items():
         if count <= 0:
             _fail(f"kernel {name} was not launched on the main path")
+    if bwd_launches != 0:
+        _fail(f"serving launched the GRU backward kernel {bwd_launches} times")
+    launches["gru_scan_bwd"] = bwd_launches
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
     # Phases 4-7: the public path, the getters, supervised annotation and
@@ -1304,7 +1511,9 @@ def main() -> int:
         getters_line, projects = _getters_phase(torch, card, full, os.path.join(tmp, "prefix"), tables)
         supervised_line = _supervised_phase(torch, card, projects)
         del projects
-        train_line, bwd_err, bwd_t, train_launches = _training_phase(torch, card, full)
+        data = _training_data(full)
+        train_line, bwd_err, bwd_t, train_launches = _training_phase(torch, card, data)
+        vade_line, vade_launches = _vade_phase(torch, card, data, os.path.join(tmp, "prefix"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1313,6 +1522,7 @@ def main() -> int:
     print(json.dumps(getters_line), flush=True)
     print(json.dumps(supervised_line), flush=True)
     print(json.dumps(train_line), flush=True)
+    print(json.dumps(vade_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,
         "first_stages_s": first_stages, "first_run_s": first_run_s,
@@ -1325,8 +1535,8 @@ def main() -> int:
     # the training path for the backward kernel; every path's count is
     # beside it.
     by_path = {name: {"raw_keypoints": launches[name], **{p: c[name] for p, c in public_launches.items()},
-                      "training": train_launches[name]}
-               for name in launches}
+                      "training": train_launches[name], **{p: c[name] for p, c in vade_launches.items()}}
+               for name in ("window_streams", "gru_scan", "gru_scan_bwd")}
     kernels = [
         {"name": "window_streams", "route": "cuda",
          "source": "deepof_tpu_torch/csrc/window_gather.cu",
@@ -1341,7 +1551,7 @@ def main() -> int:
         {"name": "gru_scan_bwd", "route": "cuda",
          "source": "deepof_tpu_torch/csrc/gru_scan_bwd.cu",
          "replaces": "deepof_tpu/models/blocks.py:78 (no TPU kernel: XLA's derivative of flax nn.scan)",
-         "launches": train_launches["gru_scan_bwd"], "launches_by_path": {"training": train_launches["gru_scan_bwd"]},
+         "launches": train_launches["gru_scan_bwd"], "launches_by_path": by_path["gru_scan_bwd"],
          "max_abs_err": bwd_err[0], "max_rel_err": bwd_err[1], **bwd_t[0], "at_shapes": bwd_t},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,5 @@
-"""Serving-path models: the recurrent (+ CensNet) VQ-VAE encoder and head."""
+"""The port's models: the recurrent (+ CensNet) VQ-VAE and VaDE."""
 
-from deepof_tpu_torch.models.zoo import VQVAE, build_model
+from deepof_tpu_torch.models.zoo import VQVAE, VaDE, build_model
 
-__all__ = ["VQVAE", "build_model"]
+__all__ = ["VQVAE", "VaDE", "build_model"]

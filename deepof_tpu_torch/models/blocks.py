@@ -39,6 +39,13 @@ def lecun_normal(shape, fan_in: int, generator: Optional[torch.Generator]) -> to
     return (z * ((1.0 / max(fan_in, 1)) ** 0.5 / _TRUNC_STD)).float()
 
 
+def xavier_normal(shape, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax's ``xavier_normal`` on a 2-D (fan_in, fan_out) parameter:
+    ``variance_scaling(1, "fan_avg", "truncated_normal")``, the same
+    truncated draw as :func:`lecun_normal` at variance 2 / (fan_in + fan_out)."""
+    return lecun_normal(shape, (shape[0] + shape[1]) / 2.0, generator)
+
+
 def orthogonal(rows: int, cols: int, generator: Optional[torch.Generator]) -> torch.Tensor:
     q, r = torch.linalg.qr(torch.randn(max(rows, cols), min(rows, cols), generator=generator))
     q = q * torch.sign(torch.diagonal(r))

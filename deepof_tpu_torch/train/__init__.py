@@ -1,1 +1,1 @@
-"""Training of the VQ-VAE (``harness``) and inference over recordings (``inference``)."""
+"""Training of the VaDE and the VQ-VAE (``harness``, with ``losses``, ``schedules`` and ``gmm``) and inference over recordings (``inference``)."""

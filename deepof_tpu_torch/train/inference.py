@@ -1,6 +1,9 @@
 """Embeddings and soft counts for every stride-1 window of every recording
 (port of deepof_tpu/train/inference.py:204 ``scanned_windowed_forward`` and
-:287 ``embedding_per_video``, its model-head branch).
+:287 ``embedding_per_video``, its model-head branch, with the VQ-VAE's and
+VaDE's outputs as ``_model_forward_fn`` :96-110 picks them: the VQ-VAE's
+encoder output and soft counts, VaDE's latent (z_mean) and categorical
+posterior).
 
 Windows never exist on the host: the scaled (T, F) frame is on the device,
 and for each block of ``block`` windows one launch of the window kernel
@@ -23,6 +26,7 @@ import torch
 from deepof_tpu_torch.core.storage import get_dt
 from deepof_tpu_torch.core.table_dict import TableDict
 from deepof_tpu_torch.device import resolve_device, to_device
+from deepof_tpu_torch.models.zoo import SERVING_KEYS
 from deepof_tpu_torch.ops.window_kernels import window_streams
 from deepof_tpu_torch.train.harness import ModelBundle
 
@@ -61,7 +65,7 @@ def scanned_windowed_forward(
             indices into F; node indices in x-block, y-block, speed-block
             order.
         window: model window size.
-        model_name: "VQVAE" (the serving model of this slice).
+        model_name: "VQVAE" or "VaDE".
         block: windows per encoder call (compute / memory granularity).
         fetch: False leaves the results on the device.
 
@@ -69,10 +73,9 @@ def scanned_windowed_forward(
         (embeddings (W, D), soft_counts (W, K)) float32, numpy (or tensors
         on the device without ``fetch``), W = T - window + 1.
     """
-    if model_name != "VQVAE":
-        raise NotImplementedError(
-            f"model {model_name!r}: VaDE and Contrastive come with ROADMAP queue 1 item 8"
-        )
+    if model_name not in SERVING_KEYS:
+        raise NotImplementedError(f"model {model_name!r}: Contrastive comes with ROADMAP queue 1 item 8")
+    emb_key, sc_key = SERVING_KEYS[model_name]
     dev = resolve_device(device)
     model = bundle.model
     for p in model.parameters():
@@ -105,8 +108,8 @@ def scanned_windowed_forward(
             xg, ag = (streams[0], streams[1]) if use_gnn else (streams[0], None)
             ang = streams[len(tables) - 1] if layout.get("angle") is not None else None
             out = model.forward_streams(xg, ag, ang)
-            embs.append(out["encoder_output"])
-            scs.append(out["soft_counts"])
+            embs.append(out[emb_key])
+            scs.append(out[sc_key])
     embs = torch.cat(embs)[:n_windows]
     scs = torch.cat(scs)[:n_windows]
     if not fetch:
@@ -164,8 +167,8 @@ def embedding_per_video(
         arrays per experiment.
     """
     model_name = model.rebuild_spec["model"]
-    if model_name in ("VaDE", "Contrastive"):
-        raise NotImplementedError(f"model {model_name!r}: VaDE and Contrastive come with ROADMAP queue 1 item 8")
+    if model_name not in SERVING_KEYS:
+        raise NotImplementedError(f"model {model_name!r}: Contrastive comes with ROADMAP queue 1 item 8")
     if softcounts_extraction_method is not None:
         raise NotImplementedError(
             f"softcounts_extraction_method={softcounts_extraction_method!r}: the gated GMM / "

@@ -9,10 +9,12 @@ dicts of numpy arrays, onto the state-dict names of the port's modules
 - LayerNorm scale / bias -> weight / bias;
 - GRUCell ir/iz/in/hr/hz/hn -> ``wi`` (F, 3H), ``bi`` (3H,), ``wh`` (H, 3H),
   ``bhn`` (H,), the flax form the GRU kernel consumes;
-- CensNet leaves and the (D, K) codebook as they are.
+- CensNet leaves, the (D, K) codebook and the GMM prior's (K, D) means and
+  log-variances as they are.
 
 Unknown or missing keys raise, so a whole JAX VQ-VAE (encoder, codebook
-and decoder) crosses over or nothing does.
+and decoder) or VaDE (encoder, latent head and decoder) crosses over or
+nothing does.
 """
 
 from __future__ import annotations
@@ -156,8 +158,29 @@ def _vqvae(p: dict, where: str) -> State:
     }
 
 
+def _gaussian_mixture_latent(p: dict, where: str) -> State:
+    _keys(p, where, ("gmm_means", "gmm_log_vars", "encoder_mean", "encoder_log_var"))
+    return {
+        "gmm_means": _t(p["gmm_means"]),
+        "gmm_log_vars": _t(p["gmm_log_vars"]),
+        **_nest("encoder_mean", _dense(p["encoder_mean"], f"{where}/encoder_mean")),
+        **_nest("encoder_log_var", _dense(p["encoder_log_var"], f"{where}/encoder_log_var")),
+    }
+
+
+def _vade(p: dict, where: str) -> State:
+    _keys(p, where, ("encoder", "latent_space", "decoder"))
+    return {
+        **_nest("encoder", _recurrent_encoder(p["encoder"], f"{where}/encoder")),
+        **_nest("latent_space", _gaussian_mixture_latent(p["latent_space"], f"{where}/latent_space")),
+        **_nest("decoder", _recurrent_decoder(p["decoder"], f"{where}/decoder")),
+    }
+
+
 _CONVERTERS: Dict[str, Callable[[dict, str], State]] = {
     "VQVAE": _vqvae,
+    "VaDE": _vade,
+    "GaussianMixtureLatent": _gaussian_mixture_latent,
     "RecurrentEncoder": _recurrent_encoder,
     "RecurrentDecoder": _recurrent_decoder,
     "RecurrentBlock": _recurrent_block,

@@ -1,7 +1,7 @@
 """Where the time of the port's serving path, or of one train step, goes on one CUDA GPU.
 
     python3 scripts/torch_profile_path.py [--root ROOT] [--animals B]
-    python3 scripts/torch_profile_path.py --train [--batch 256] [--steps 20]
+    python3 scripts/torch_profile_path.py --train [--model VaDE] [--batch 256] [--steps 20]
     python3 scripts/torch_profile_path.py --supervised
 
 Drives the same 1-hour, 2-animal serving path as chip_smoke.py (warm: one
@@ -36,6 +36,10 @@ that no call waits for the device; PyTorch's synchronising calls in a step;
 then five steps under the profiler: the device's busy share, kernel launches
 a step, the kernels ranked by device time and the host operators by their
 own CPU time. Its chrome trace is chiprun_out/torch_profile_train.json.
+``--model VaDE`` takes VaDE's main-phase step instead of the VQ-VAE's (the
+default ``VaDECfg`` weights, KL weight 0.5, its noise from a generator on
+the card, the GMM's own Adam group), as chip_smoke.py's VaDE phase times
+it; its trace is chiprun_out/torch_profile_train_vade.json.
 
 With ``--supervised``, ``Coordinates.supervised_annotation`` on chip_smoke.py's
 public project (2 x 45,000 frames, two deepof_14 animals, the test arenas,
@@ -128,7 +132,28 @@ def _conv_probe(torch, profile, activities, block, window):
     return out
 
 
-def _profile_train(torch, chip_smoke, batch: int, steps: int) -> None:
+def _train_step(torch, model_name, model, x, a):
+    """(optimiser, step(), loss()) of ``model_name``'s train step on one
+    batch: the VQ-VAE's, or VaDE's main-phase step."""
+    from deepof_tpu_torch.train import harness
+
+    if model_name == "VQVAE":
+        opt = harness.ClippedAdam(model.parameters(), 3e-4)
+        step = harness.make_vqvae_step(model, opt)
+        return opt, lambda: step(x, a), lambda: harness.vqvae_loss(model, x, a)[0]
+    from deepof_tpu_torch.train.config import CommonFitCfg, TurtleTeacherCfg, VaDECfg
+    from deepof_tpu_torch.train.losses import vade_params_from_cfg
+
+    params = vade_params_from_cfg(CommonFitCfg(n_components=model.latent_space.n_components), VaDECfg(),
+                                  TurtleTeacherCfg(), pretrain=False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    opt = harness._make_optimizer(model.named_parameters(), 3e-4, gmm_lr=1e-3)
+    step = harness.make_vade_step(model, opt, params, gen)
+    return (opt, lambda: step(x, a, kl_weight=0.5),
+            lambda: harness.vade_step_loss(model, x, a, None, params, 0.5, generator=gen)[0])
+
+
+def _profile_train(torch, chip_smoke, batch: int, steps: int, model_name: str = "VQVAE") -> None:
     """The ``--train`` mode (see the module's docstring)."""
     import warnings
 
@@ -136,7 +161,6 @@ def _profile_train(torch, chip_smoke, batch: int, steps: int) -> None:
 
     from deepof_tpu_torch.models import build_model
     from deepof_tpu_torch.ops import gru_kernels as gk
-    from deepof_tpu_torch.train.harness import ClippedAdam, make_vqvae_step, vqvae_loss
 
     card = _card()
     graph, *_ = chip_smoke._frame_layout(chip_smoke.ANIMALS)
@@ -144,24 +168,23 @@ def _profile_train(torch, chip_smoke, batch: int, steps: int) -> None:
     g = torch.Generator().manual_seed(0)
     x = torch.randn(batch, w, n, 3, generator=g).to("cuda")
     a = torch.randn(batch, w, e, 1, generator=g).to("cuda")
-    model = build_model("VQVAE", (w, n, 3), (w, e, 1), graph.adjacency, chip_smoke.LATENT,
+    model = build_model(model_name, (w, n, 3), (w, e, 1), graph.adjacency, chip_smoke.LATENT,
                         chip_smoke.N_COMPONENTS, generator=torch.Generator().manual_seed(0), device="cuda")
-    opt = ClippedAdam(model.parameters(), 3e-4)
-    step = make_vqvae_step(model, opt)
+    opt, step, loss = _train_step(torch, model_name, model, x, a)
     for _ in range(3):
-        step(x, a)
+        step()
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
     for _ in range(steps):
-        step(x, a)
+        step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
 
     phases = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
     for _ in range(steps):
         t0 = time.perf_counter()
-        total, _ = vqvae_loss(model, x, a)
+        total = loss()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         opt.zero_grad(set_to_none=False)
@@ -206,9 +229,8 @@ def _profile_train(torch, chip_smoke, batch: int, steps: int) -> None:
         opt.zero_grad(set_to_none=False)
         losses.pop().backward()
 
-    enqueue = {"step": enqueue_ms(lambda: step(x, a), 1),
-               "forward": enqueue_ms(lambda: losses.append(vqvae_loss(model, x, a)[0]), 1)}
-    losses[:] = [vqvae_loss(model, x, a)[0], vqvae_loss(model, x, a)[0]]
+    enqueue = {"step": enqueue_ms(step, 1), "forward": enqueue_ms(lambda: losses.append(loss()), 1)}
+    losses[:] = [loss(), loss()]
     enqueue["backward"] = enqueue_ms(backward, 1)
     enqueue["optimizer"] = enqueue_ms(opt.step, 1)
     # PyTorch's own synchronising calls within one step (device-to-host
@@ -217,7 +239,7 @@ def _profile_train(torch, chip_smoke, batch: int, steps: int) -> None:
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
-        step(x, a)
+        step()
         torch.cuda.set_sync_debug_mode("default")
     sync_points = sorted({str(c.message)[:160] for c in caught if "synchroniz" in str(c.message)})
     with torch.no_grad():
@@ -232,14 +254,14 @@ def _profile_train(torch, chip_smoke, batch: int, steps: int) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_prof):
-            step(x, a)
+            step()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     kernels, host = _kernels(torch, prof), _host_ops(torch, prof)
     busy_s = sum(k[0] for k in kernels) / 1e6
     print(card)
     print(json.dumps({
-        "card": card, "batch": batch, "steps": steps, "ms_per_step": step_ms,
+        "card": card, "model": model_name, "batch": batch, "steps": steps, "ms_per_step": step_ms,
         "phases_ms_synchronised": phases, "host_enqueue_ms": enqueue, "torch_sync_points": sync_points,
         "profiled_steps": n_prof, "profiled_ms_per_step": wall_s / n_prof * 1e3,
         "device_busy_ms_per_step": busy_s / n_prof * 1e3, "device_busy_share": busy_s / wall_s,
@@ -249,7 +271,8 @@ def _profile_train(torch, chip_smoke, batch: int, steps: int) -> None:
     _print_table(host, 25, n_prof, "host operator (self CPU time)")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "torch_profile_train.json"))
+    suffix = "" if model_name == "VQVAE" else "_" + model_name.lower()
+    prof.export_chrome_trace(os.path.join(out_dir, f"torch_profile_train{suffix}.json"))
 
 
 def _profile_supervised(torch, chip_smoke) -> None:
@@ -296,7 +319,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", help="checkout of the port to profile (default: this one)")
     ap.add_argument("--animals", nargs="+", help="animal ids of the recording (default: chip_smoke.py's two)")
-    ap.add_argument("--train", action="store_true", help="profile one VQ-VAE train step instead of the path")
+    ap.add_argument("--train", action="store_true", help="profile one train step instead of the path")
+    ap.add_argument("--model", default="VQVAE", choices=("VQVAE", "VaDE"), help="--train: the model")
     ap.add_argument("--batch", type=int, default=256, help="--train: windows a step")
     ap.add_argument("--steps", type=int, default=20, help="--train: timed steps")
     ap.add_argument("--supervised", action="store_true",
@@ -315,7 +339,7 @@ def main() -> int:
         print("torch_profile_path: no CUDA device is available", file=sys.stderr)
         return 2
     if args.train:
-        _profile_train(torch, chip_smoke, args.batch, args.steps)
+        _profile_train(torch, chip_smoke, args.batch, args.steps, args.model)
         return 0
     if args.supervised:
         _profile_supervised(torch, chip_smoke)

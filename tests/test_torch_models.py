@@ -208,7 +208,7 @@ def test_vqvae_encode_group_and_weight_keys():
     with pytest.raises(KeyError, match="missing"):  # the decoder is converted, not skipped
         from_flax_params({"encoder": params["encoder"], "vq_layer": params["vq_layer"]}, kind="VQVAE")
     with pytest.raises(NotImplementedError, match="queue 1"):
-        pzoo.build_model("VaDE", (8, N, 3), (8, E, 1), ADJ, latent_dim=4, device="cpu")
+        pzoo.build_model("Contrastive", (8, N, 3), (8, E, 1), ADJ, latent_dim=4, device="cpu")
 
 
 def test_rms_stabilize_and_group_reshape():
