@@ -94,7 +94,24 @@
    ``ModelBundle.load``, both bundles served by ``embedding_per_video``
    (equal soft counts summing to 1, one window launch a block), and the
    trained bundle served card vs CPU on the 2,000-frame copy.
-9. Prints a stage line of each path, a kernels line, and last
+9. Cohort: deepof's unsupervised tutorial on three csv recordings of
+   unequal length (45,000, 36,000 and 27,000 frames of two deepof_14
+   animals, "test3" reading "test"'s arena from an arena file):
+   ``get_graph_dataset(animal_id="B", center="Center", align="Spine_1",
+   window_size=25, test_videos=1)`` (animal B's getter tables merged on the
+   card and cut to the shortest recording: the float32 device route on the
+   taken rows) -> ``deep_unsupervised_embedding`` at its default model (one
+   pretrain and one main epoch of 50 + 5 batches) ->
+   ``embedding_per_video``, each stage and the scaling pass timed, the
+   kernels' launches counted from a reset (the window kernel one launch a
+   block, on one animal's tables) and the peak memory read; then
+   ``get_graph_dataset`` on the general route (robust scaling, groupwise
+   sections, the second 600 s bin), its scaling pass timed; then card vs
+   CPU on a prefix copy (2,000, 1,600 and 1,200 frames): the tutorial's
+   scaled frames (float32 both, 1e-4 of max(1, max |value|)), the general
+   route from the same merged values (float64, 1e-8) and the trained
+   bundle's embeddings and soft counts (1e-4).
+10. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -622,16 +639,17 @@ def _timed_run(torch, setup, pos, lik):
     return stages, total_s, mallocs, emb, sc
 
 
-def _public_tables(t: int, seed: int = 0):
+def _public_tables(t: int, seed: int = 0, lengths=None):
     """{key: (values (t, C), DLC column tuples)} of the public path's two
     recordings: two deepof_14 animals' seeded random walks with jittered
-    bodyparts and likelihoods (the JAX package's bench.py:624-644)."""
+    bodyparts and likelihoods (the JAX package's bench.py:624-644); with
+    ``lengths`` ({key: frames}), those recordings instead."""
     from deepof_tpu_torch.core.graph import connect_mouse
 
     bodyparts = sorted(connect_mouse(graph_preset="deepof_14").nodes)
     rng = np.random.default_rng(seed)
     out = {}
-    for key in PUBLIC_KEYS:
+    for key, t in (lengths or {k: t for k in PUBLIC_KEYS}).items():
         cols, data = [], []
         for aid in ANIMALS:
             base = rng.normal(size=(t, 2)).cumsum(axis=0) * 0.5 + 300.0
@@ -646,17 +664,17 @@ def _public_tables(t: int, seed: int = 0):
     return out
 
 
-def _write_public_project(root: str, tables, rows: int) -> str:
-    """A DeepLabCut csv project of the first ``rows`` frames of ``tables``
-    under ``root``: Tables/ with one csv a recording (the column levels as
-    rows led by their names, then rows led by the frame index) and Videos/
-    with a placeholder video each."""
+def _write_public_project(root: str, tables, rows) -> str:
+    """A DeepLabCut csv project of the first ``rows`` frames (an int, or
+    {key: int}) of ``tables`` under ``root``: Tables/ with one csv a
+    recording (the column levels as rows led by their names, then rows led
+    by the frame index) and Videos/ with a placeholder video each."""
     os.makedirs(f"{root}/Tables")
     os.makedirs(f"{root}/Videos")
     names = ["scorer", "individuals", "bodyparts", "coords"]
     for key, (values, cols) in tables.items():
         header = "\n".join(",".join([names[lvl]] + [c[lvl] for c in cols]) for lvl in range(4))
-        v = values[:rows]
+        v = values[:rows if isinstance(rows, int) else rows[key]]
         np.savetxt(f"{root}/Tables/{key}DLC_chip_smoke.csv", np.column_stack([np.arange(len(v)), v]),
                    fmt=["%d"] + ["%.6f"] * v.shape[1], delimiter=",", header=header, comments="")
         with open(f"{root}/Videos/{key}DLC_video.mp4", "wb") as f:
@@ -1424,6 +1442,238 @@ def _vade_phase(torch, card, data, prefix):
     return line, {"vade_training": train_launches, "vade_serving": serve_launches}
 
 
+COHORT_KEYS = ("test", "test2", "test3")
+COHORT_FRAMES = (45_000, 36_000, 27_000)  # 30, 24 and 18 minutes at 25 fps
+COHORT_PREFIX = (2_000, 1_600, 1_200)
+# deepof's unsupervised tutorial: one animal, aligned, one recording held out.
+TUTORIAL = dict(animal_id="B", center="Center", align="Spine_1", window_size=WINDOW, window_step=1,
+                test_videos=1, scale="standard")
+# The general route: robust scaling, groupwise sections, the second 600 s bin.
+GENERAL = dict(window_size=WINDOW, scale="robust", dist_standardize="groupwise",
+               speed_standardize="groupwise", coord_standardize="groupwise", bin_size=600, bin_index=1)
+GENERAL_RTOL = 1e-8
+PREFIX_BIN_S = 16  # the general route's bin on the prefix copy: frames 400-799
+
+
+def _cohort_project(root, device, precision="auto"):
+    """The cohort's csv project under ``root``, created with the test arenas
+    ("test3" taking "test"'s) read back from an arena file."""
+    from deepof_tpu_torch.data import Project
+
+    proj = Project(
+        project_path=root, project_name="cohort", video_path=f"{root}/Videos", table_path=f"{root}/Tables",
+        arena="circular-autodetect", video_scale="380 mm", table_format="csv", frame_rate=FPS,
+        animal_ids=ANIMALS, precision=precision, device=device,
+    )
+    scales, params, rois, res = proj.get_arena(test=True)
+    for table in (scales, params, rois, res):
+        table["test3"] = table["test"]
+    arena = os.path.join(root, f"arena_{device}.pkl")
+    proj.save_arena_data(arena, params, rois, scales, res)
+    return proj.create(force=True, arena_path=arena, verbose=False)
+
+
+def _scaling_timed(torch, fn):
+    """(fn(), [seconds of each TableDict.preprocess call inside it, synchronised])."""
+    from deepof_tpu_torch.core.table_dict import TableDict
+
+    secs = []
+    original = TableDict.preprocess
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    TableDict.preprocess = timed
+    try:
+        return fn(), secs
+    finally:
+        TableDict.preprocess = original
+
+
+def _rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        _fail(f"shapes differ: {got.shape} vs {want.shape}")
+    return float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+
+
+def _cohort_checks(torch, prefix, bundle):
+    """Card vs CPU on the cohort's prefix copy, the scaling passes from the
+    same merged values on both devices (the card's merged getter tables,
+    copied to the host): the tutorial's device route (float32 both,
+    PATH_RTOL), the general route (float64 both, GENERAL_RTOL), and
+    ``bundle`` served from both, the CPU rescaling with the card's fitted
+    scaler (PATH_RTOL). Also reports, unchecked, the tutorial's scaled
+    frames of a CPU project in float32, getters included: the aligned
+    bodypart's x is float32 rounding noise that the column's own tiny
+    deviation scales up, so the two devices' getters part there. Returns
+    {check: max relative error}."""
+    from deepof_tpu_torch.core.storage import get_dt
+    from deepof_tpu_torch.train.inference import ModelBundle, embedding_per_video
+
+    on_card = _cohort_project(prefix, "cuda")
+    card = on_card.get_graph_dataset(**TUTORIAL)
+    merged, meta, scaler = card[3], card[1], card[4]
+    on_host = merged.filter_videos(list(merged))
+    on_host._device_frames = {k: v.cpu() for k, v in merged._device_frames.items()}
+
+    def scaled(tab, **kw):
+        parts, _, sc = tab.preprocess(coordinates=on_card, window_size=WINDOW, return_windows=False, **kw)
+        return {k: get_dt(part, k) for part in parts for k in part}, sc
+
+    device_kw = dict(scale="standard", test_videos=1, dist_standardize="per_column",
+                     speed_standardize="per_column", coord_standardize="per_column")
+    d_cpu, _ = scaled(on_host, **device_kw)
+    errs = {"device_route": max(_rel_err(get_dt(merged._scaled_frames, k), d_cpu[k]) for k in COHORT_KEYS)}
+    general_kw = {k: v for k, v in GENERAL.items() if k != "window_size"} | {"bin_size": PREFIX_BIN_S}
+    (g_card, g_sc), (g_cpu, _) = scaled(merged, **general_kw), scaled(on_host, **general_kw)
+    if g_sc["kind"] != "robust" or g_card[COHORT_KEYS[0]].dtype != np.float64:
+        _fail("the cohort's robust groupwise scaling did not take the float64 general route")
+    errs["general_route"] = max(_rel_err(g_card[k], g_cpu[k]) for k in COHORT_KEYS)
+    cpu_bundle = ModelBundle(copy.deepcopy(bundle.model).to("cpu"), bundle.rebuild_spec)
+    served = [embedding_per_video(on_card, tab, b, meta, animal_id="B", global_scaler=scaler, batch_size=BLOCK,
+                                  device=dev)
+              for tab, b, dev in ((merged, bundle, None), (on_host, cpu_bundle, "cpu"))]
+    errs["embeddings"] = max(_rel_err(served[0][0][k], served[1][0][k]) for k in COHORT_KEYS)
+    errs["soft_counts"] = max(_rel_err(served[0][1][k], served[1][1][k]) for k in COHORT_KEYS)
+    for name, err in errs.items():
+        tol = GENERAL_RTOL if name == "general_route" else PATH_RTOL
+        _log(f"cohort copy ({COHORT_PREFIX} frames), {name}, card vs CPU: max|diff| / max(1, max|cpu|) "
+             f"{err:.3e} (tol {tol:.0e})")
+        if not err <= tol:
+            _fail(f"card and CPU disagree on the cohort copy's {name}: {err}")
+
+    own = _cohort_project(prefix, "cpu", precision="float32").get_graph_dataset(**TUTORIAL)[3]
+    worst = (0.0, None)
+    for k in COHORT_KEYS:
+        got, want = get_dt(merged._scaled_frames, k), get_dt(own._scaled_frames, k)
+        col = np.abs(got - want).max(axis=0)
+        worst = max(worst, (float(col.max()) / max(1.0, float(np.abs(want).max())),
+                            str(merged[k].columns[int(col.argmax())])), key=lambda w: w[0])
+    errs["device_route_own_getters"] = {"max_rel_err": worst[0], "column": worst[1]}
+    _log(f"cohort copy, the tutorial's scaled frames from each device's own float32 getters (not checked): "
+         f"{errs['device_route_own_getters']}")
+    return errs
+
+
+def _cohort_phase(torch, card, tmp):
+    """Phase 9: deepof's unsupervised tutorial on a cohort of recordings of
+    unequal length (COHORT_FRAMES of two deepof_14 animals, csv): create ->
+    get_graph_dataset(**TUTORIAL) (animal B's getter tables merged on the
+    card, cut to the shortest recording, the float32 device route on the
+    taken rows) -> deep_unsupervised_embedding at its default model (one
+    pretrain and one main epoch of TRAIN_BATCHES + VAL_BATCHES batches) ->
+    embedding_per_video, each stage timed, the kernels' launches counted
+    from a reset and the peak memory read; then get_graph_dataset(**GENERAL)
+    (the float64 general route) timed on the same project; then the card
+    against the CPU on a prefix copy (:func:`_cohort_checks`). Returns (the
+    cohort line, the launches of the tutorial's pipeline)."""
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_backward
+    from deepof_tpu_torch.ops.window_kernels import window_streams, window_streams_config
+    from deepof_tpu_torch.train.inference import embedding_per_video, stream_tables
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tables = _public_tables(0, seed=1, lengths=dict(zip(COHORT_KEYS, COHORT_FRAMES)))
+    full = _write_public_project(os.path.join(tmp, "cohort"), tables, max(COHORT_FRAMES))
+    prefix = _write_public_project(os.path.join(tmp, "cohort_prefix"), tables,
+                                   dict(zip(COHORT_KEYS, COHORT_PREFIX)))
+    write_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    window_streams.launches = gru_scan.launches = gru_scan_backward.launches = 0
+    stages = {}
+    t0 = time.perf_counter()
+    coords = _cohort_project(full, "cuda")
+    stages["create"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ggd, scaling = _scaling_timed(torch, lambda: coords.get_graph_dataset(**TUTORIAL))
+    stages["graph_dataset"] = time.perf_counter() - t0
+    stages["scaling"] = scaling[0]
+    (train, test), meta, adjacency, tab_dict, scaler = ggd
+    t0 = time.perf_counter()
+    bundle, _, _, summary = coords.deep_unsupervised_embedding(
+        ggd[:3], adjacency_matrix=adjacency, batch_size=TRAIN_BATCH, latent_dim=LATENT,
+        n_clusters=N_COMPONENTS, epochs=1, pretrain_epochs=1, verbose=False,
+        limit_train_batches=TRAIN_BATCHES, limit_val_batches=VAL_BATCHES,
+    )
+    torch.cuda.synchronize()
+    stages["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emb, counts = embedding_per_video(coords, tab_dict, bundle, meta, animal_id="B", global_scaler=scaler,
+                                      batch_size=BLOCK)
+    stages["embed"] = time.perf_counter() - t0
+    launches = {"window_streams": window_streams.launches, "gru_scan": gru_scan.launches,
+                "gru_scan_bwd": gru_scan_backward.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    rows = min(COHORT_FRAMES)  # every recording is cut to the shortest
+    n_windows = rows - WINDOW + 1
+    n_blocks = len(COHORT_KEYS) * -(-n_windows // BLOCK)
+    n_train = sum(int(train[k].shapes[0][0]) for k in train)
+    want = {"window_streams": n_blocks,
+            "gru_scan": 2 * 6 * (TRAIN_BATCHES + VAL_BATCHES) + 4 * -(-n_train // TRAIN_BATCH) + 4 * n_blocks,
+            "gru_scan_bwd": 2 * 6 * TRAIN_BATCHES}
+    if len(test) != 1 or n_train != 2 * n_windows or launches != want:
+        _fail(f"the cohort's tutorial pipeline: split {list(train)} / {list(test)}, {n_train} training "
+              f"windows, launches {launches}, not {want}")
+    for name, count in launches.items():
+        if count <= 0:
+            _fail(f"kernel {name} was not launched on the cohort's path")
+    if len(meta["node_columns"]) != 3 * 14 or not all(c[0].startswith("B_") for c in meta["edge_columns"]):
+        _fail(f"the tutorial's dataset is not animal B's: {meta['node_columns'][:3]}, {meta['edge_columns'][:3]}")
+    for key in COHORT_KEYS:
+        if emb[key].shape != (n_windows, LATENT) or counts[key].shape != (n_windows, N_COMPONENTS):
+            _fail(f"cohort {key}: shapes {emb[key].shape}, {counts[key].shape}")
+        if not (np.isfinite(emb[key]).all() and np.abs(counts[key].sum(axis=1) - 1.0).max() <= 1e-4):
+            _fail(f"cohort {key}: non-finite embeddings or soft counts not summing to 1")
+    if not all(np.isfinite(v) for v in summary.values()):
+        _fail(f"cohort training losses: {summary}")
+    f = len(tab_dict[COHORT_KEYS[0]].columns)
+    use_angles = bundle.rebuild_spec.get("use_angles")
+    layout_tables = stream_tables({name: list(range(len(meta[f"{name}_columns"])))
+                                   for name in ("node", "edge")} | {
+        "angle": list(range(len(meta["angle_columns"]))) if use_angles else None})
+    mode = window_streams_config(BLOCK + WINDOW - 1, f, WINDOW, [t.shape for t in layout_tables])["mode"]
+    _log(f"cohort tutorial pipeline: stages {stages}, launches {launches}, window_streams store mode {mode}")
+
+    # The general route on the same project.
+    t0 = time.perf_counter()
+    gen, gen_scaling = _scaling_timed(torch, lambda: coords.get_graph_dataset(**GENERAL))
+    general_s = time.perf_counter() - t0
+    lo = GENERAL["bin_size"] * int(FPS) * GENERAL["bin_index"]
+    gen_rows = min(min(n, lo + GENERAL["bin_size"] * int(FPS)) - lo for n in COHORT_FRAMES)
+    for part in gen[0]:
+        for key, frame in part._device_frames.items():
+            holder = part._deferred_f32[key]
+            if tuple(frame.shape) != (gen_rows, len(gen[3][key].columns)):
+                _fail(f"general route {key}: frame {tuple(frame.shape)}, not {gen_rows} rows")
+            if holder.dev64 is None or not bool(torch.isfinite(frame).all()):
+                _fail(f"general route {key}: not a finite float64-route frame")
+    if gen[4]["kind"] != "robust" or gen[4]["dist_inner"] is None:
+        _fail(f"general route scaler: {gen[4]}")
+    _log(f"cohort general route: {general_s:.3f} s, scaling {gen_scaling}")
+
+    errs = _cohort_checks(torch, prefix, bundle)
+    line = {
+        "path": "cohort", "recordings": len(COHORT_KEYS), "frames": list(COHORT_FRAMES),
+        "rows_per_recording": rows, "frame_columns": f, "stages_s": stages,
+        "total_s": sum(stages.values()), "scaling_s": {"device_route": scaling[0], "general_route": gen_scaling[0]},
+        "general_graph_dataset_s": general_s, "general_rows_per_recording": gen_rows,
+        "launches": launches, "window_streams_mode": mode, "peak_mem_gib": peak_gib,
+        "fit_batches": [TRAIN_BATCHES, VAL_BATCHES], "losses": summary, "card_vs_cpu": errs,
+        "write_csv_s": write_s, "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    return line, launches
+
+
 def main() -> int:
     import torch
 
@@ -1503,8 +1753,8 @@ def main() -> int:
     launches["gru_scan_bwd"] = bwd_launches
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
-    # Phases 4-7: the public path, the getters, supervised annotation and
-    # training on its project.
+    # Phases 4-9: the public path, the getters, supervised annotation,
+    # training and VaDE on its project, then the cohort.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
     try:
         public_line, public_launches, full, tables = _public_phase(torch, card, tmp)
@@ -1514,6 +1764,8 @@ def main() -> int:
         data = _training_data(full)
         train_line, bwd_err, bwd_t, train_launches = _training_phase(torch, card, data)
         vade_line, vade_launches = _vade_phase(torch, card, data, os.path.join(tmp, "prefix"))
+        del data
+        cohort_line, cohort_launches = _cohort_phase(torch, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1523,6 +1775,7 @@ def main() -> int:
     print(json.dumps(supervised_line), flush=True)
     print(json.dumps(train_line), flush=True)
     print(json.dumps(vade_line), flush=True)
+    print(json.dumps(cohort_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,
         "first_stages_s": first_stages, "first_run_s": first_run_s,
@@ -1535,7 +1788,8 @@ def main() -> int:
     # the training path for the backward kernel; every path's count is
     # beside it.
     by_path = {name: {"raw_keypoints": launches[name], **{p: c[name] for p, c in public_launches.items()},
-                      "training": train_launches[name], **{p: c[name] for p, c in vade_launches.items()}}
+                      "training": train_launches[name], **{p: c[name] for p, c in vade_launches.items()},
+                      "cohort": cohort_launches[name]}
                for name in ("window_streams", "gru_scan", "gru_scan_bwd")}
     kernels = [
         {"name": "window_streams", "route": "cuda",

@@ -1,39 +1,69 @@
 """TableDict: the dataset container that travels between layers (port of
-``deepof_tpu/core/table_dict.py``: ``TableDict`` with its split and its
-device scaling pass, and the full-range case of
+``deepof_tpu/core/table_dict.py``: ``TableDict`` with its filters, merge,
+split, preprocess and window sampling, and of
 ``deepof_tpu/visuals_utils.py`` ``preprocess_time_bins``).
 
-``preprocess`` runs the device branch of the JAX package, over merged frames
-that already live on the device (the fused lane of ``get_graph_dataset``):
-per recording one size-normalisation + local-standardisation pass, a
-cohort-wide standard-scaler fit combined in float64 on the host (or a
-pretrained scaler), and one finishing pass; the scaled frames stay on the
-device (the section scalers it returns are ``ops.scaling._StandardScalerLite``).
-Where the JAX package drops to its host pandas passes (binning,
-recordings of unequal length, more rows than ``samples_max``, groupwise
-modes, other scalers, the residency budgets), the port raises.
+A table is a :class:`LazyFrame` (a (T, F) frame and its column labels); a
+TableDict may hold its frames on the device in ``_device_frames`` (the
+getters' device route, ``merge`` of such tables, the fused lane of
+``get_graph_dataset``), and ``preprocess`` then scales them where they lie.
+
+``preprocess`` takes the JAX package's two routes, chosen as it chooses
+them:
+
+* the float32 device formulation (``_preprocess_scale_device``): the
+  standard scaler with per-column (or disabled) modes, where every
+  fused-lane frame keeps its full row range, or every other table's taken
+  rows number at most ``samples_max``. Per recording one size-normalisation
+  + local-standardisation pass, a cohort-wide standard fit combined in
+  float64 on the host (or a pretrained scaler), one finishing pass;
+* the general route (``_preprocess_scale_general``, the JAX package's host
+  passes), in float64 on the tables' device: every scaler, groupwise modes,
+  ``filter_low_variance``, trimmed or subsampled fused-lane frames.
+
+Either way each scaled frame ends as float32 on the device, in
+``_device_frames`` / ``_deferred_f32``, for the window kernel and the
+encoder. The global fit uses every taken row: the JAX package draws a
+``RandomState(2)`` permutation of them, which leaves the fit unchanged but
+for summation order (ROADMAP queue 3).
 """
 
 from __future__ import annotations
 
+import re
+import warnings
+from functools import reduce
 from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from deepof_tpu_torch.core.storage import PATHS_MODE, LazyFrame, get_dt
+from deepof_tpu_torch.core.storage import PATHS_MODE, LazyFrame, get_dt, save_dt
+from deepof_tpu_torch.device import resolve_device
 from deepof_tpu_torch.ops.scaling import (
+    SCALERS,
     _global_scaler_vectors,
+    apply_global_sections,
+    clip_interp,
     column_totals,
     finish,
+    finish_general,
     fit_global_scaler,
+    fit_standard_lite,
+    infer_column_types,
+    make_scaler,
+    sanitize,
     scale_plan,
+    scale_table,
     stage12,
 )
+from deepof_tpu_torch.ops.windows import aggregate_windows, aggregate_windows_labels, rolling_windows_host
+from deepof_tpu_torch.utils import filter_columns
 
-HOST_SCALING = "ROADMAP queue 1 item 4 (the host scaling passes of TableDict.preprocess)"
+BUDGETS = "ROADMAP queue 1 item 4 (scaling past the device residency budgets)"
+PROJECTIONS = "the random, PCA and UMAP projections are not ported yet: ROADMAP queue 1 item 4"
 
-# Device residency budgets of the scaling pass (table_dict.py:557,747): the
+# Device residency budgets of the scaling passes (table_dict.py:557,747): the
 # inputs and scaled frames held at once, and the scaled frames kept.
 DEVICE_SCALE_BUDGET_BYTES = 8_000_000_000
 DEVICE_FRAMES_BYTES = 4_000_000_000
@@ -75,22 +105,108 @@ class TableDict(dict):
             exp_conditions=self._exp_conditions,
         )
 
+    def _keep_frames(self, out: "TableDict") -> "TableDict":
+        """``out`` with this dict's device frames (and fused-lane mark) of
+        its keys."""
+        for name in ("_device_frames", "_deferred_f32"):
+            frames = getattr(self, name, None)
+            if frames is not None:
+                setattr(out, name, {k: v for k, v in frames.items() if k in out})
+        if getattr(self, "_fused_lane", False):
+            out._fused_lane = True
+        return out
+
+    # ------------------------------------------------------------------ #
+    # Filters, projections, merge, split
+    # ------------------------------------------------------------------ #
+
     def filter_videos(self, keys: list) -> "TableDict":
         """Subset to the given experiment keys."""
         if not all(k in self.keys() for k in keys):
             raise KeyError("Invalid keys selected")
-        return self.new_dict_same_header({k: v for k, v in self.items() if k in keys})
+        return self._keep_frames(self.new_dict_same_header({k: v for k, v in self.items() if k in keys}))
+
+    def filter_condition(self, exp_filters: dict) -> "TableDict":
+        """Subset to the videos whose in-memory experimental conditions
+        match every ``{condition: value}`` given."""
+        table = self
+        for cond, value in exp_filters.items():
+            conds = table._exp_conditions
+            filtered = {
+                k: v for k, v in table.items()
+                if conds is not None and k in conds and np.all(np.asarray(conds[k][cond]) == value)
+            }
+            new = table._keep_frames(table.new_dict_same_header(filtered))
+            new._exp_conditions = {k: v for k, v in (conds or {}).items() if k in filtered}
+            table = new
+        return table
+
+    def filter_id(self, selected_id: str = None) -> "TableDict":
+        """Keep only one animal's columns in every table (on the device
+        where the table is)."""
+        out = self.new_dict_same_header({})
+        frames = {}
+        dev_in = getattr(self, "_device_frames", None) or {}
+        for key in self.keys():
+            columns = _columns_of(self[key], key)
+            keep = set(filter_columns(columns, selected_id, self._type))
+            idx = [i for i, c in enumerate(columns) if c in keep]
+            cols = [columns[i] for i in idx]
+            if key in dev_in:
+                frames[key] = dev_in[key][:, idx]
+                out[key] = _device_lazy(frames[key], cols)
+            else:
+                arr = np.asarray(get_dt(self, key))[:, idx]
+                out[key] = LazyFrame(lambda a=arr: a, cols, len(arr))
+        out._device_frames = frames
+        return out
+
+    def random_projection(self, n_components: int = 2, kernel: str = "linear"):
+        raise NotImplementedError(PROJECTIONS)
+
+    def pca(self, n_components: int = 2, kernel: str = "linear"):
+        raise NotImplementedError(PROJECTIONS)
+
+    def umap(self, n_components: int = 2):
+        raise NotImplementedError(PROJECTIONS)
+
+    def merge(self, *args, ignore_index=False, file_name="merged", save_as_paths=False) -> "TableDict":
+        """Concatenate several TableDicts column-wise per experiment. Where
+        every part of a key is on the device, the merged frame is made there
+        (in the parts' promoted dtype) and enters ``_device_frames``;
+        otherwise it is a float64 host frame."""
+        if save_as_paths:
+            raise NotImplementedError(PATHS_MODE)
+        dicts = [self] + list(args)
+        merged, frames = {}, {}
+        for key in self.keys():
+            columns = [c for td in dicts for c in _columns_of(td[key], key)]
+            devs = [(getattr(td, "_device_frames", None) or {}).get(key) for td in dicts]
+            if all(d is not None for d in devs):
+                if len({int(d.shape[0]) for d in devs}) != 1:
+                    raise ValueError(f"table {key!r}: the parts to merge differ in length")
+                dtype = reduce(torch.promote_types, [d.dtype for d in devs])
+                frames[key] = torch.cat([d.to(dtype) for d in devs], dim=1)
+                merged[key] = _device_lazy(frames[key], columns)
+            else:
+                arr = np.hstack([np.asarray(get_dt(td, key), np.float64) for td in dicts])
+                merged[key] = LazyFrame(lambda a=arr: a, columns, len(arr))
+        out = TableDict(merged, typ="merged", table_path=self._table_path, connectivity=self._connectivity)
+        out._animal_ids = self._animal_ids
+        out._device_frames = frames
+        return out
 
     def get_training_set(
         self, current_table_dict: "TableDict", test_videos: Union[int, list] = 0
     ) -> tuple:
         """Video-level train/test split, drawn as the JAX package draws it
-        (``np.random.seed(42)`` then ``choice``), from its own generator."""
+        (``np.random.seed(42)`` then ``choice``)."""
         keys = np.array(list(current_table_dict.keys()))
         if isinstance(test_videos, int):
-            test_keys = keys[np.random.RandomState(42).choice(
-                range(len(current_table_dict)), test_videos, replace=False
-            )]
+            # numpy's global state, seeded as the JAX package seeds it: a
+            # shuffled extract_windows draws from it next.
+            np.random.seed(42)
+            test_keys = keys[np.random.choice(range(len(current_table_dict)), test_videos, replace=False)]
         elif isinstance(test_videos, list) and all(k in keys for k in test_videos):
             test_keys = test_videos
         else:
@@ -104,6 +220,10 @@ class TableDict(dict):
         else:
             x_train = current_table_dict.filter_videos(list(keys))
         return x_train, x_test, test_keys
+
+    # ------------------------------------------------------------------ #
+    # Preprocess: bin -> fit scaler -> scale -> window
+    # ------------------------------------------------------------------ #
 
     def preprocess(
         self,
@@ -119,112 +239,125 @@ class TableDict(dict):
         test_videos: int = 0,
         interpolate_normalized: int = 10,
         filter_low_variance: bool = False,
+        file_name: str = "preprocessed",
         save_as_paths: Optional[bool] = None,
         shuffle: bool = False,
+        quality_to_load=None,
         dist_standardize: str = "groupwise",
         speed_standardize: str = "groupwise",
         coord_standardize: str = "groupwise",
         log_distances: bool = True,
         return_windows: bool = True,
     ) -> tuple:
-        """Scale (two-stage local + global) the merged frames on the device.
+        """Bin, scale (two-stage local + global) and, with
+        ``return_windows``, window the dataset.
 
-        Returns ((X_train, X_test) TableDicts of scaled (T, F) frames,
-        metainfo dict, global_scaler dict) as the JAX package does with
-        ``return_windows=False``.
+        Returns ((X_train, X_test) TableDicts, metainfo dict,
+        global_scaler dict): scaled (T, F) frames without
+        ``return_windows`` (float32 on the device in ``_device_frames``), or
+        (W, window, F) window stacks on the host, as the JAX package does.
         """
+        if window_size is None:
+            window_size = int(np.round(coordinates._frame_rate))
+        if scale and scale not in SCALERS:
+            raise ValueError(f"Invalid scaler: {scale}")
         if save_as_paths is None:
             save_as_paths = bool(getattr(coordinates, "_very_large_project", False))
         if save_as_paths:
             raise NotImplementedError(PATHS_MODE)
-        if return_windows:
-            raise NotImplementedError(
-                "TableDict.preprocess builds no host window stacks yet "
-                "(return_windows=True, training): ROADMAP queue 1 item 9"
-            )
-        if not _device_scale_applicable(
-            scale, filter_low_variance, dist_standardize, speed_standardize, coord_standardize,
-        ):
-            raise NotImplementedError(
-                f"scale={scale!r}, filter_low_variance={filter_low_variance!r} and "
-                f"standardize modes ({dist_standardize!r}, {speed_standardize!r}, "
-                f"{coord_standardize!r}): the port scales with the standard scaler "
-                f"and per-column (or None) modes only; the rest is {HOST_SCALING}"
-            )
+
+        keys_list = sorted(self.keys())
         bin_info = preprocess_time_bins(
             coordinates, bin_size=bin_size, bin_index=bin_index,
             precomputed_bins=precomputed_bins, tab_dict_for_binning=self,
             samples_max=samples_max,
         )
-        table_temp, global_scaler = self._preprocess_scale_device(
-            sorted(self.keys()), bin_info, coordinates._animal_ids, pretrained_scaler,
-            interpolate_normalized, log_distances,
-            dist_standardize, speed_standardize, coord_standardize,
-        )
+        modes = (dist_standardize, speed_standardize, coord_standardize)
+        device = resolve_device(coordinates._device)
+        scaled = None
+        if _device_scale_applicable(scale, filter_low_variance, *modes):
+            scaled = self._preprocess_scale_device(
+                keys_list, bin_info, device, coordinates._animal_ids, pretrained_scaler, samples_max,
+                interpolate_normalized, log_distances, *modes,
+            )
+        if scaled is None:
+            scaled = self._preprocess_scale_general(
+                keys_list, bin_info, device, coordinates._animal_ids, scale, pretrained_scaler,
+                interpolate_normalized, filter_low_variance, log_distances, *modes,
+            )
+        table_temp, global_scaler = scaled
 
-        x_train, x_test, _ = self.get_training_set(table_temp, test_videos)
+        x_train, x_test, test_index = self.get_training_set(table_temp, test_videos)
         for part in (x_train, x_test):
             part._device_frames = {k: table_temp._device_frames[k] for k in part.keys()}
             part._deferred_f32 = {k: table_temp._deferred_f32[k] for k in part.keys()}
-        metainfo = {
-            "shape_train": tuple(
+        metainfo = {"dist_standardize": dist_standardize, "speed_standardize": speed_standardize,
+                    "coord_standardize": coord_standardize}
+        if not return_windows:
+            metainfo["shape_train"] = tuple(
                 tuple(get_dt(x_train, k, only_metainfo=True)["shape"]) for k in x_train.keys()
-            ),
-            "shape_test": (0,),
-            "dist_standardize": dist_standardize,
-            "speed_standardize": speed_standardize,
-            "coord_standardize": coord_standardize,
-        }
-        return (x_train, x_test), metainfo, global_scaler
+            )
+            metainfo["shape_test"] = (0,)
+            return (x_train, x_test), {k: metainfo[k] for k in _META_ORDER}, global_scaler
+        x_train, metainfo["shape_train"] = extract_windows(x_train, window_size, window_step, shuffle=shuffle)
+        if test_videos and len(test_index) > 0:
+            x_test, metainfo["shape_test"] = extract_windows(x_test, window_size, window_step, shuffle=shuffle)
+        else:
+            metainfo["shape_test"] = (0,)
+        return (x_train, x_test), {k: metainfo[k] for k in _META_ORDER}, global_scaler
+
+    def _table(self, key, device):
+        """(tensor, columns) of one table: its device frame, or its host
+        frame uploaded to ``device``."""
+        entry = self[key]
+        columns = _columns_of(entry, key)
+        dev = (getattr(self, "_device_frames", None) or {}).get(key)
+        if dev is None:
+            dev = torch.as_tensor(np.asarray(get_dt(self, key), np.float64), device=device)
+        return dev, columns
 
     def _preprocess_scale_device(
-        self, keys_list, bin_info, animal_ids, pretrained_scaler,
+        self, keys_list, bin_info, device, animal_ids, pretrained_scaler, samples_max,
         interpolate_normalized, log_distances,
         dist_standardize, speed_standardize, coord_standardize,
     ):
-        """The scaling passes on the device (table_dict.py:529-822). Every
-        table must be a merged frame of the fused lane: a LazyFrame whose
-        values are in ``self._device_frames``. Returns (table_temp,
-        global_scaler); all-NaN tables are dropped."""
+        """The float32 device formulation (table_dict.py:529-822). Returns
+        (table_temp, global_scaler), or None where a table falls outside it
+        (the caller then takes the general route): a fused-lane frame whose
+        rows are not its full range, more than ``samples_max`` or no taken
+        rows, repeated or differing columns, or a pretrained scaler it
+        cannot express. All-NaN tables are dropped."""
         plan = None
         pend = {}
         live_bytes = 0
-        dev_in = getattr(self, "_device_frames", None) or {}
+        fused = getattr(self, "_fused_lane", False)
         for key in keys_list:
-            dev, entry = dev_in.get(key), self[key]
-            if dev is None or not isinstance(entry, LazyFrame):
-                raise NotImplementedError(
-                    f"table {key!r} is not a merged frame on the device; host tables "
-                    f"take {HOST_SCALING}"
-                )
-            n_rows = int(dev.shape[0])
-            if n_rows == 0 or not _rows_are_full_range(bin_info[key], n_rows):
-                raise NotImplementedError(
-                    f"table {key!r}: its {n_rows} rows are not the full range of the "
-                    f"time bins ({len(bin_info[key])} rows: recordings of unequal length "
-                    f"are trimmed to the shortest, more than samples_max rows are "
-                    f"subsampled); that takes {HOST_SCALING}"
-                )
-            columns = list(entry.columns)
-            if len(set(columns)) != len(columns):
-                raise NotImplementedError(f"table {key!r} repeats columns; that takes {HOST_SCALING}")
+            x, columns = self._table(key, device)
+            rows = bin_info[key]
+            if fused:
+                if not _rows_are_full_range(rows, int(x.shape[0])):
+                    return None
+                sizes = None
+            else:
+                # The JAX package measures the body sizes on its float64
+                # host table: the taken rows in the table's own precision.
+                x = sizes = _take_rows(x, rows)
+            if x.shape[0] == 0 or x.shape[0] > samples_max or len(set(columns)) != len(columns):
+                return None
             if plan is None:
                 plan = scale_plan(
                     columns, list(animal_ids), log_distances,
-                    dist_standardize, speed_standardize, coord_standardize,
-                    interpolate_normalized,
+                    dist_standardize, speed_standardize, coord_standardize, interpolate_normalized,
                 )
             elif columns != plan["columns"]:
-                raise NotImplementedError(
-                    f"table {key!r} has other columns than the first; that takes {HOST_SCALING}"
-                )
-            live_bytes += 2 * dev.numel() * 4
+                return None
+            live_bytes += 2 * x.numel() * 4
             if live_bytes > DEVICE_SCALE_BUDGET_BYTES:
                 raise NotImplementedError(
                     f"the scaling pass would hold {live_bytes} bytes on the device, over its "
-                    f"{DEVICE_SCALE_BUDGET_BYTES} budget; that takes {HOST_SCALING}"
+                    f"{DEVICE_SCALE_BUDGET_BYTES} budget; that takes {BUDGETS}"
                 )
-            xs, cnt, sm = stage12(dev.to(torch.float32), plan)
+            xs, cnt, sm = stage12(x.to(torch.float32), plan, sizes)
             pend[key] = (xs, *column_totals(cnt, sm))
 
         # All-NaN tables (every column's valid count zero) are dropped.
@@ -237,56 +370,208 @@ class TableDict(dict):
         )
         vectors = _global_scaler_vectors(global_scaler, plan)
         if vectors is None:
-            raise NotImplementedError(
-                f"the global scaler holds groupwise sections or another kind of scaler; "
-                f"that takes {HOST_SCALING}"
-            )
+            return None
+        outs = {key: (finish(pend.pop(key)[0], vectors, plan), plan["columns"]) for key in list(pend)}
+        return self._scaled_dict(outs), global_scaler
 
+    def _preprocess_scale_general(
+        self, keys_list, bin_info, device, animal_ids, scale, pretrained_scaler,
+        interpolate_normalized, filter_low_variance, log_distances,
+        dist_standardize, speed_standardize, coord_standardize,
+    ):
+        """The JAX package's host passes (table_dict.py:284-473), in float64
+        on the tables' device. Pass 1 scales each recording locally and
+        collects the global fit's samples (every taken row); pass 2 fits the
+        global section scalers; pass 3 applies them, clips and
+        re-interpolates. The local scaling of pass 1 is kept for pass 3
+        within the device budget (without ``filter_low_variance``, whose
+        columns pass 3 reinstates as zeros). Returns (table_temp,
+        global_scaler); all-NaN tables are dropped."""
+        modes = dict(dist_standardize=dist_standardize, speed_standardize=speed_standardize)
+        samples = {"speed": [], "dist": [], "coord": [], "inner": [], "intra": []}
+        fit = bool(scale) and pretrained_scaler is None
+        cache, budget = {}, DEVICE_SCALE_BUDGET_BYTES
+        valid = []
+        for key in keys_list:
+            x, columns = self._table(key, device)
+            x = _take_rows(x, bin_info[key]).to(torch.float64)
+            if bool(torch.isnan(x).all()):
+                continue
+            valid.append(key)
+            if not fit:
+                continue
+            x, columns = _filter_low_variance(x, columns, filter_low_variance)
+            local = scale_table(x, columns, scale, animal_ids, coord_standardize=None,
+                                log_distances=log_distances, **modes)
+            if not filter_low_variance and local.numel() * 8 <= budget:
+                cache[key] = local
+                budget -= local.numel() * 8
+            ct = infer_column_types(columns)
+            pos = {c: i for i, c in enumerate(columns)}
+
+            def take(cols, mode, bucket):
+                arr = local[:, [pos[c] for c in cols]]
+                samples[bucket].append(arr if mode == "per_column" else arr.reshape(-1))
+
+            if speed_standardize and ct["speeds"]:
+                take(ct["speeds"], speed_standardize, "speed")
+            if dist_standardize == "per_column" and ct["dists"]:
+                take(ct["dists"], "per_column", "dist")
+            elif dist_standardize and ct["dists"]:
+                if ct["inner_dists"]:
+                    take(ct["inner_dists"], "groupwise", "inner")
+                if ct["intra_dists"]:
+                    take(ct["intra_dists"], "groupwise", "intra")
+            if coord_standardize and ct["coords"]:
+                take(ct["coords"], coord_standardize, "coord")
+        if not valid:
+            raise ValueError("every table is all-NaN: nothing to scale")
+
+        global_scaler = _fit_global_scaler(
+            scale, pretrained_scaler, samples, dist_standardize, speed_standardize, coord_standardize,
+        )
+        finish_args = (global_scaler if scale else None, scale, interpolate_normalized,
+                       speed_standardize, dist_standardize, coord_standardize)
+        outs = {}
+        for key in valid:
+            x, columns = self._table(key, device)
+            local = cache.pop(key, None)
+            if local is None:
+                x = _take_rows(x, bin_info[key]).to(torch.float64)
+                if filter_low_variance:
+                    outs[key] = (_finish_filtered(x, columns, filter_low_variance, animal_ids,
+                                                  log_distances, finish_args), columns)
+                    continue
+                local = scale_table(x, columns, scale, animal_ids, coord_standardize=None,
+                                    log_distances=log_distances, **modes) if scale else x
+            outs[key] = (finish_general(local, columns, *finish_args), columns)
+        return self._scaled_dict(outs, keep64=True), global_scaler
+
+    def _scaled_dict(self, outs: Dict[str, tuple], keep64: bool = False) -> "TableDict":
+        """The scaled frames ({key: (frame, columns)}) as a TableDict of
+        LazyFrames: each frame float32 on the device (``_device_frames``,
+        ``_deferred_f32``), and where ``keep64`` (the general route) also
+        the float64 frame, which the host views read."""
         table_temp = self.new_dict_same_header({})
         dev_frames, deferred = {}, {}
         frames_bytes = 0
-        for key in keys_list:
-            if key not in pend:
-                continue
-            out = finish(pend.pop(key)[0], vectors, plan)
-            frames_bytes += out.numel() * out.element_size()
+        for key, (out, columns) in outs.items():
+            out32 = out.to(torch.float32)
+            frames_bytes += out32.numel() * 4 + (out.numel() * 8 if keep64 else 0)
             if frames_bytes > DEVICE_FRAMES_BYTES:
                 raise NotImplementedError(
                     f"the scaled frames would hold {frames_bytes} bytes on the device, over "
-                    f"their {DEVICE_FRAMES_BYTES} budget; that takes {HOST_SCALING}"
+                    f"their {DEVICE_FRAMES_BYTES} budget; that takes {BUDGETS}"
                 )
-            holder = _DeferredScaledFrame(out)
-            dev_frames[key] = out
+            holder = _DeferredScaledFrame(out32, out if keep64 else None)
+            dev_frames[key] = out32
             deferred[key] = holder
-            table_temp[key] = LazyFrame(holder.f32, plan["columns"], int(out.shape[0]))
+            table_temp[key] = LazyFrame(holder.host, columns, int(out.shape[0]))
         table_temp._device_frames = dev_frames
         table_temp._deferred_f32 = deferred
-        return table_temp, global_scaler
+        return table_temp
+
+    # ------------------------------------------------------------------ #
+    # Window sampling (deepof_tpu/core/table_dict.py:1390-1462)
+    # ------------------------------------------------------------------ #
+
+    def sample_windows_from_data(
+        self,
+        time_bin_info: Dict[str, np.ndarray] = None,
+        n_windows: int = 10000,
+        no_nans: bool = False,
+        return_edges: bool = False,
+        seed: int = 0,
+        N_windows_tab: int = None,
+    ):
+        """A random contiguous block of up to ``n_windows`` rows per
+        experiment (after dropping rows with NaNs when ``no_nans``), or the
+        rows ``time_bin_info`` gives when it covers every key; indices are
+        relative to the original table. ``N_windows_tab`` is the
+        reference's name for ``n_windows``.
+
+        Returns (X (N, ...), [a (N, ...),] per-key index dict).
+        """
+        if N_windows_tab is not None:
+            n_windows = N_windows_tab
+        rng = np.random.default_rng(seed)
+        use_provided = bool(time_bin_info) and set(self.keys()).issubset(time_bin_info.keys())
+        xs, edges, indices = [], [], {}
+        for key in self.keys():
+            main, edge = self._get_data_tables(key)
+            arr = np.asarray(main)
+            if use_provided:
+                take_idx = np.asarray(time_bin_info[key])
+                take_idx = take_idx[take_idx < len(arr)]
+            else:
+                base_idx = np.arange(len(arr))
+                pool = arr
+                if no_nans:
+                    ok = ~np.isnan(arr).any(axis=tuple(range(1, arr.ndim)))
+                    pool = arr[ok]
+                    base_idx = base_idx[ok]
+                take = min(n_windows, len(pool))
+                if take == 0:
+                    indices[key] = np.zeros(0, dtype=int)
+                    continue
+                start = rng.integers(0, max(1, len(pool) - take + 1))
+                take_idx = base_idx[start:start + take]
+            xs.append(arr[take_idx])
+            indices[key] = take_idx
+            edges.append(np.asarray(edge)[take_idx] if edge is not None else np.zeros_like(arr[take_idx]))
+        x = np.concatenate(xs) if xs else np.zeros((0,))
+        a = np.concatenate(edges) if edges else np.zeros((0,))
+        if return_edges:
+            return x, a, indices
+        return x, indices
+
+    def _get_data_tables(self, key):
+        raw = get_dt(self, key)
+        if isinstance(raw, tuple) and len(raw) > 0:
+            return raw[0], raw[1] if len(raw) > 1 else None
+        return raw, None
+
+
+_META_ORDER = ("shape_train", "shape_test", "dist_standardize", "speed_standardize", "coord_standardize")
 
 
 class _DeferredScaledFrame:
-    """A scaled (T, F) float32 frame on the device, fetched to the host once,
-    on first host access; shared by every lazy host view of it."""
+    """A scaled (T, F) frame on the device, float32 (``dev``, what the
+    window kernel and the encoder read), with the float64 frame it was cast
+    from where the general route made it (``dev64``); fetched to the host
+    once, on first host access, in the finer of the two, and shared by every
+    lazy host view of it."""
 
-    __slots__ = ("dev", "_host")
+    __slots__ = ("dev", "dev64", "_host")
 
-    def __init__(self, dev: torch.Tensor):
+    def __init__(self, dev: torch.Tensor, dev64: Optional[torch.Tensor] = None):
         self.dev = dev
+        self.dev64 = dev64
         self._host = None
 
-    def f32(self) -> np.ndarray:
+    def host(self) -> np.ndarray:
         if self._host is None:
-            self._host = self.dev.cpu().numpy()
+            self._host = (self.dev if self.dev64 is None else self.dev64).cpu().numpy()
         return self._host
+
+
+def _device_lazy(frame: torch.Tensor, columns) -> LazyFrame:
+    return LazyFrame(lambda f=frame: f.cpu().numpy(), columns, int(frame.shape[0]))
+
+
+def _columns_of(entry, key) -> list:
+    if not isinstance(entry, LazyFrame):
+        raise TypeError(f"table {key!r} is a {type(entry).__name__}, not a frame with columns (LazyFrame)")
+    return list(entry.columns)
 
 
 def _device_scale_applicable(
     scale, filter_low_variance, dist_standardize, speed_standardize, coord_standardize,
 ) -> bool:
-    """Whether the device scaling formulation covers the call: the standard
+    """Whether the float32 device formulation covers the call: the standard
     scaler, per-column (or disabled) standardize modes and no low-variance
-    filter. (The JAX package also asks for an accelerator backend; the
-    port's device branch is its only branch, on the card and on the CPU.)"""
+    filter. (The JAX package also asks for an accelerator backend; the port
+    takes it on the card and on the CPU alike.)"""
     if scale != "standard" or filter_low_variance:
         return False
     return all(
@@ -302,26 +587,281 @@ def _rows_are_full_range(rows, n: int) -> bool:
     return rows.ndim == 1 and rows.size == n and n > 0 and np.array_equal(rows, np.arange(n))
 
 
+def _take_rows(x: torch.Tensor, rows) -> torch.Tensor:
+    """``x[rows]`` on ``x``'s device: a slice for a contiguous range, one
+    ``index_select`` otherwise (``deepof_tpu/core/table_dict.py:1164``)."""
+    rows = np.asarray(rows)
+    if rows.dtype == bool:
+        rows = np.flatnonzero(rows)
+    rows = rows.astype(np.int64).reshape(-1)
+    if rows.size > 1 and rows[-1] - rows[0] + 1 == rows.size and np.array_equal(
+        rows, np.arange(rows[0], rows[-1] + 1)
+    ):
+        return x[int(rows[0]):int(rows[-1]) + 1]
+    return x.index_select(0, torch.as_tensor(rows, device=x.device))
+
+
+def _filter_low_variance(x: torch.Tensor, columns, threshold):
+    """The columns whose variance (ddof 1, NaNs skipped, as pandas' ``var``)
+    exceeds ``threshold``, and every "pheno" column, in column order
+    (``deepof_tpu/core/table_dict.py:1060``). Returns (x, columns)."""
+    if not threshold:
+        return x, list(columns)
+    ok = ~torch.isnan(x)
+    n = ok.sum(dim=0).to(x.dtype)
+    mean = torch.where(ok, x, 0.0).sum(dim=0) / n
+    d = torch.where(ok, x - mean, 0.0)
+    var = (d * d).sum(dim=0) / (n - 1)
+    keep = set(np.flatnonzero((var > threshold).cpu().numpy()).tolist())
+    keep |= {i for i, c in enumerate(columns) if str(c).lower().startswith("pheno")}
+    idx = sorted(keep)
+    return x[:, idx], [columns[i] for i in idx]
+
+
+def _finish_filtered(x, columns, threshold, animal_ids, log_distances, finish_args):
+    """Pass 3 with ``filter_low_variance`` (the JAX package's label path,
+    table_dict.py:375-460): the angles set aside and interpolated; the rest
+    filtered, scaled, given the global sections (column kinds read on the
+    kept columns) and clipped (on the kept speeds and distances of the whole
+    table, and the kept coordinates); the filtered columns come back as
+    zeros."""
+    scaler, scale, interp, speed_standardize, dist_standardize, coord_standardize = finish_args
+    ct = infer_column_types(columns)
+    angles = set(ct["angles"])
+    rest = [i for i, c in enumerate(columns) if c not in angles]
+    tab, kept = _filter_low_variance(x[:, rest], [columns[i] for i in rest], threshold)
+    if scale:
+        tab = scale_table(tab, kept, scale, animal_ids, dist_standardize=dist_standardize,
+                          speed_standardize=speed_standardize, coord_standardize=None,
+                          log_distances=log_distances)
+        apply_global_sections(tab, kept, scaler, speed_standardize, dist_standardize, coord_standardize)
+        if scale == "standard" and interp:
+            at = {c: i for i, c in enumerate(kept)}
+            clip = [c for c in ct["scalars"] if c in at] + infer_column_types(kept)["coords"]
+            clip_interp(tab, [at[c] for c in dict.fromkeys(clip)], interp)
+    pos = {c: i for i, c in enumerate(columns)}
+    out = torch.full_like(x, torch.nan)
+    out[:, [pos[c] for c in kept]] = tab
+    angle_idx = [pos[c] for c in ct["angles"]]
+    out[:, angle_idx] = x[:, angle_idx]
+    return sanitize(out, angle_idx)
+
+
+def _fit_global_scaler(scale, pretrained_scaler, samples,
+                       dist_standardize, speed_standardize, coord_standardize):
+    """The global section scalers, as the JAX package's dict {"kind",
+    "speed", "dist", "dist_inner", "dist_intra", "coord"}
+    (table_dict.py:1254): standard fits through :func:`fit_standard_lite`,
+    the other kinds through the port's scaler classes."""
+    if pretrained_scaler is not None:
+        return pretrained_scaler
+    if not scale:
+        return None
+
+    def fit(bucket, groupwise):
+        if not bucket:
+            return None
+        if scale == "standard":
+            return fit_standard_lite([b.reshape(-1, 1) for b in bucket] if groupwise else bucket)
+        data = torch.cat(bucket)
+        return make_scaler(scale).fit(data.reshape(-1, 1) if groupwise else data)
+
+    gs = {"kind": scale, "speed": None, "dist": None, "dist_inner": None, "dist_intra": None, "coord": None}
+    for name, mode in (("speed", speed_standardize), ("coord", coord_standardize)):
+        if mode in ("per_column", "groupwise"):
+            gs[name] = fit(samples[name], mode == "groupwise")
+    if dist_standardize == "per_column":
+        gs["dist"] = fit(samples["dist"], False)
+    elif dist_standardize == "groupwise":
+        gs["dist_inner"] = fit(samples["inner"], True)
+        gs["dist_intra"] = fit(samples["intra"], True)
+    if all(v is None for k, v in gs.items() if k != "kind"):
+        return None
+    return gs
+
+
+def extract_windows(
+    to_window: TableDict,
+    window_size: int,
+    window_step: int,
+    save_as_paths: bool = False,
+    shuffle: bool = False,
+    aggregate: str = None,
+):
+    """Slide windows over every table, on the host; returns (windowed dict,
+    total shape) (``deepof_tpu/core/table_dict.py:1342``). ``aggregate``:
+    None, "mid", "mean", or "wta" / "lta" for label tables. Shuffling draws
+    from numpy's global state, as the JAX package does."""
+    out_len, window_len, n_features = 0, 0, 0
+    for key in to_window.keys():
+        windows = rolling_windows_host(np.asarray(get_dt(to_window, key)), window_size, window_step)
+        if aggregate in ("mid", "mean"):
+            windows = aggregate_windows(torch.from_numpy(windows), aggregate).numpy()
+        elif aggregate in ("wta", "lta"):
+            windows = aggregate_windows_labels(windows.astype(int), aggregate)
+        if shuffle:
+            windows = windows[np.random.choice(len(windows), len(windows), replace=False)]
+        out_len += windows.shape[0]
+        window_len = windows.shape[1]
+        n_features = windows.shape[2] if windows.ndim > 2 else 1
+        to_window[key] = save_dt(windows, None, save_as_paths)
+    return to_window, (out_len, window_len, n_features)
+
+
+# --------------------------------------------------------------------------- #
+# Time bins (deepof_tpu/visuals_utils.py:85-228)
+# --------------------------------------------------------------------------- #
+
+_TIME_STR = r"^\d{1,6}:\d{1,6}:\d{1,6}(?:\.\d{1,12})?$"
+_TIME_RE = re.compile(r"(\d{1,6}):(\d{1,6}):(\d{1,6})(\.\d{1,9})?")
+
+
+def time_to_seconds(time_string: str) -> Optional[float]:
+    """"HH:MM:SS(.sss)" -> float seconds at ns resolution (None if
+    malformed; ``deepof_tpu/utils.py:52``)."""
+    m = _TIME_RE.fullmatch(time_string)
+    if m is None:
+        return None
+    h, mi, sec, frac = m.groups()
+    total_ns = (int(h) * 3600 + int(mi) * 60 + int(sec)) * 10**9
+    if frac:
+        total_ns += int(round(float(frac) * 10**9))
+    return total_ns / 10**9
+
+
+def seconds_to_time(seconds: float, cut_milliseconds: bool = True) -> str:
+    """Float seconds -> "HH:MM:SS" or "HH:MM:SS.sssssssss"
+    (``deepof_tpu/utils.py:67``)."""
+    whole = int(seconds)
+    hours, rem = divmod(whole, 3600)
+    minutes, secs = divmod(rem, 60)
+    stamp = f"{hours:02d}:{minutes:02d}:{secs:02d}"
+    if cut_milliseconds:
+        return stamp
+    frac_ns = int(round((seconds - whole) * 10**9))
+    return f"{stamp}.{frac_ns:09d}"[: len(stamp) + 10]
+
+
 def preprocess_time_bins(
     coordinates,
-    bin_size=None,
-    bin_index=None,
-    precomputed_bins=None,
+    bin_size: Optional[Union[int, str]] = None,
+    bin_index: Optional[Union[int, str]] = None,
+    precomputed_bins: Optional[np.ndarray] = None,
     tab_dict_for_binning=None,
+    experiment_id: Optional[str] = None,
+    start_marker: Optional[str] = None,
     samples_max: Optional[int] = 20000,
     down_sample: bool = True,
+    given_in_frames: bool = False,
 ) -> Dict[str, np.ndarray]:
-    """Per-experiment frame indices of the full range (no bins): every
-    recording's rows, trimmed to the shortest recording, then subsampled
-    evenly to ``samples_max`` (visuals_utils.py:182-199,216-228). Binning
-    raises."""
-    if bin_size is not None or bin_index is not None or precomputed_bins is not None:
-        raise NotImplementedError(f"time bins are not ported yet: {HOST_SCALING}")
-    lengths = coordinates.get_table_lengths(tab_dict_for_binning)
-    bin_info = {key: np.arange(n) for key, n in lengths.items()}
+    """Per-experiment frame indices of a time bin.
+
+    Accepted inputs (anything else warns and takes a 60 s bin at 0):
+    ``precomputed_bins``, a boolean array applied to each video from its
+    start; int ``bin_size`` (seconds, or frames with ``given_in_frames``)
+    with int ``bin_index`` (the bin number, or its first frame);
+    "HH:MM:SS(.sss)" ``bin_size`` (a duration) with ``bin_index`` (its
+    absolute start); both None, the full range. Bins shift by each video's
+    start time (its ``start_marker``), are cut to the shortest video's
+    length, checked against each video's length (a bin starting past the
+    end raises, one running past it warns) and subsampled evenly to
+    ``samples_max`` rows (the first ``samples_max`` without
+    ``down_sample``).
+    """
+    if precomputed_bins is not None and (bin_size is not None or bin_index is not None):
+        warnings.warn("precomputed_bins is provided. Ignoring bin_size and bin_index.")
+
+    frame_rate = coordinates._frame_rate
+    start_times = coordinates.get_start_times(start_marker=start_marker)
+    start_frames = {key: int(np.round(time_to_seconds(t) * frame_rate)) for key, t in start_times.items()}
+    table_lengths = coordinates.get_table_lengths(tab_dict_for_binning=tab_dict_for_binning)
+    start_frames = {k: v for k, v in start_frames.items() if k in table_lengths}
+
+    if experiment_id:
+        if experiment_id not in table_lengths:
+            raise KeyError(f"Experiment ID '{experiment_id}' not found.")
+        start_frames = {experiment_id: start_frames[experiment_id]}
+        table_lengths = {experiment_id: table_lengths[experiment_id]}
+
+    bin_info: Dict[str, np.ndarray] = {}
+    start_too_late: Dict[str, bool] = {}
+    end_too_late: Dict[str, bool] = {}
+
+    def windowed(start_frame: int, size_frames: int):
+        for key, length in table_lengths.items():
+            if start_frame >= length:
+                start_too_late[key] = True
+            if start_frame + size_frames > length:
+                end_too_late[key] = True
+            lo = min(length, start_frame + start_frames[key])
+            hi = min(length, start_frame + size_frames + start_frames[key])
+            bin_info[key] = np.arange(lo, hi)
+
+    if precomputed_bins is not None:
+        for key, length in table_lengths.items():
+            arr = np.zeros(length, dtype=bool)
+            eff = min(length - start_frames[key], len(precomputed_bins))
+            if eff <= 0:
+                eff = 0
+                start_too_late[key] = True
+            arr[:eff] = precomputed_bins[:eff]
+            bin_info[key] = np.where(arr)[0] + start_frames[key]
+            if len(precomputed_bins) > length:
+                end_too_late[key] = True
+    elif isinstance(bin_size, int) and isinstance(bin_index, int) and given_in_frames:
+        if bin_size <= 0:
+            raise ValueError("bin_size must be > 0 frames.")
+        windowed(bin_index, bin_size)
+    elif isinstance(bin_size, int) and isinstance(bin_index, int):
+        size_frames = int(round(bin_size * frame_rate))
+        if size_frames <= 0:
+            raise ValueError("bin_size must round to > 0 frames.")
+        windowed(size_frames * bin_index, size_frames)
+    elif (
+        isinstance(bin_size, str) and re.match(_TIME_STR, bin_size)
+        and isinstance(bin_index, str) and re.match(_TIME_STR, bin_index)
+    ):
+        size_frames = int(round(time_to_seconds(bin_size) * frame_rate))
+        if size_frames <= 0:
+            raise ValueError("bin_size must represent a duration > 0.")
+        start = int(round(time_to_seconds(bin_index) * frame_rate))
+        for key, length in table_lengths.items():
+            if start >= length:
+                start_too_late[key] = True
+            lo = int(np.clip(start + start_frames[key], 0, length))
+            hi = int(np.clip(lo + size_frames, 0, length))
+            if lo + size_frames > length:
+                end_too_late[key] = True
+            bin_info[key] = np.arange(lo, hi)
+    elif bin_size is None and bin_index is None:
+        for key in table_lengths:
+            bin_info[key] = np.arange(start_frames[key], table_lengths[key])
+    else:
+        warnings.warn(
+            "Invalid or mismatched bin_size/bin_index format. "
+            "Defaulting to a 60-second bin starting at 0."
+        )
+        return preprocess_time_bins(
+            coordinates, bin_size=60, bin_index=0, tab_dict_for_binning=tab_dict_for_binning,
+            experiment_id=experiment_id, samples_max=samples_max, down_sample=down_sample,
+        )
+
     if bin_info:
         min_len = min(len(v) for v in bin_info.values())
         bin_info = {k: v[:min_len] for k, v in bin_info.items()}
+
+    for key, late in start_too_late.items():
+        if late:
+            max_time = seconds_to_time(table_lengths[key] / frame_rate, False)
+            raise ValueError(f"[Error in {key}]: bin_index is out of range (max {max_time}).")
+    for key, truncated in end_too_late.items():
+        if truncated:
+            warnings.warn(
+                f"[For {key} and possibly others]: chosen time range exceeds "
+                "signal length; bin was truncated."
+            )
+            break
+
     if samples_max is not None:
         for key, idx in bin_info.items():
             if len(idx) > samples_max:

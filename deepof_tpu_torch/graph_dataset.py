@@ -1,14 +1,16 @@
 """Graph-dataset build: merged per-frame features -> scaled frames on the
 device, the node / edge / angle column layout, the body graph's adjacency,
-and the windowed training tensors (port of ``deepof_tpu/graph_dataset.py``,
-its fused device lane).
+and the windowed training tensors (port of ``deepof_tpu/graph_dataset.py``).
 
-The merged frame is built by one device program per recording
-(``Coordinates.merged_graph_features_device``) and scaled where it lies
-(``TableDict.preprocess``); windows exist on the host only when a caller
-reads the returned training tensors. The JAX package's other lanes (an
-animal selection, alignment, polar coordinates, time bins, a precomputed
-table dict, paths mode) run its host getters and are not ported.
+Two lanes, as in the JAX package. The fused lane (no animal selection,
+alignment, polar coordinates or time bins; the standard scaler with
+per-column modes) builds each recording's merged frame in one device
+program (``Coordinates.merged_graph_features_device``). The other lane runs
+the getters' device route (arena-centred, aligned coordinates, speeds,
+angles, skeleton-edge distances, for the selected animal) and merges their
+tables on the device. Either way ``TableDict.preprocess`` scales the frames
+where they lie, and windows exist on the host only when a caller reads the
+returned training tensors.
 """
 
 from __future__ import annotations
@@ -16,9 +18,12 @@ from __future__ import annotations
 import numpy as np
 
 from deepof_tpu_torch.core.graph import connect_mouse
-from deepof_tpu_torch.core.storage import LazyFrame, LazyWindows
-from deepof_tpu_torch.core.table_dict import TableDict, _device_scale_applicable
+from deepof_tpu_torch.core.storage import PATHS_MODE, LazyWindows
+from deepof_tpu_torch.core.table_dict import TableDict, _device_lazy, _device_scale_applicable
+from deepof_tpu_torch.device import resolve_device
 from deepof_tpu_torch.ops.windows import rolling_windows_host
+
+PRECOMPUTED = "precomputed_tab_dict graph datasets are not ported yet: ROADMAP queue 1 item 4"
 
 
 def reorder_and_reshape(data: np.ndarray) -> np.ndarray:
@@ -47,6 +52,39 @@ def feature_graph(coordinates, animal_id=None):
     for a, b in edges:
         adjacency[idx[a], idx[b]] = adjacency[idx[b], idx[a]] = 1
     return graph, nodes, edges, adjacency
+
+
+def _getter_tables(coordinates, animal_id, align, polar, include_angles, device):
+    """The non-fused lane's merged TableDict (graph_dataset.py:116-146):
+    per recording, the getters' device tables of ``animal_id`` (every
+    animal for None) -- arena-centred coordinates aligned on ``align`` (the
+    group aligned on the first animal's), speeds at 1, bridge angles (with
+    ``include_angles``) and skeleton-edge distances -- merged on the device
+    in that order. Returns (merged TableDict, the selected animal's angle
+    column labels)."""
+    dev = resolve_device(coordinates._device if device is None else device)
+    getters = {
+        "coords": lambda key: coordinates.get_coords_at_key(
+            key, selected_id=animal_id, center="arena", align=align, align_group=True, polar=polar,
+            _device=True),
+        "speeds": lambda key: coordinates.get_coords_at_key(key, selected_id=animal_id, speed=1, _device=True),
+        "angles": lambda key: coordinates.get_angles_at_key(key, selected_id=animal_id, _device=True),
+        "dists": lambda key: coordinates.get_distances_at_key(key, selected_id=animal_id, _device=True),
+    }
+    parts = {}
+    for name in ("coords", "speeds", "angles", "dists") if include_angles else ("coords", "speeds", "dists"):
+        td = TableDict({}, typ=name, table_path=coordinates._table_path)
+        td._device_frames = {}
+        for key in coordinates._tables:
+            arr, columns = getters[name](key)
+            td._device_frames[key] = arr = arr.to(dev)
+            td[key] = _device_lazy(arr, columns)
+        parts[name] = td
+    coords = parts.pop("coords")
+    coords._animal_ids, coords._connectivity = coordinates._animal_ids, coordinates._connectivity
+    merged = coords.merge(*parts.values())
+    angle_names = [tuple(coordinates._bridge_names[i]) for i in coordinates._angle_keep_idx(animal_id)]
+    return merged, angle_names
 
 
 def _matching(names, feature_names) -> list:
@@ -85,43 +123,43 @@ def get_graph_dataset(
     """
     if return_as_paths is None:
         return_as_paths = coordinates._very_large_project
+    if return_as_paths:
+        raise NotImplementedError(PATHS_MODE)
+    if precomputed_tab_dict is not None:
+        raise NotImplementedError(PRECOMPUTED)
     if window_size is None:
         window_size = int(np.round(coordinates._frame_rate))
     window_step = int(kwargs.pop("window_step", 1))
     shuffle = bool(kwargs.pop("shuffle", False))
     if not preprocess:
         raise NotImplementedError("preprocess=False graph datasets are not yet supported.")
+    binned = bin_size is not None or bin_index is not None or precomputed_bins is not None
     fused = (
-        precomputed_tab_dict is None and animal_id is None and not polar and align is None
-        and bin_size is None and bin_index is None and precomputed_bins is None
-        and not return_as_paths
+        animal_id is None and not polar and align is None and not binned
         and _device_scale_applicable(
             scale, kwargs.get("filter_low_variance", False),
             dist_standardize, speed_standardize, coord_standardize,
         )
     )
-    if not fused:
-        raise NotImplementedError(
-            "the port builds graph datasets in the fused device lane only (no animal "
-            "selection, alignment, polar coordinates, time bins, precomputed tables or "
-            "paths mode; standard scaler, per-column modes): the host getters are ROADMAP "
-            "queue 1 items 3 and 4, paths mode item 2"
+    if fused:
+        frames, feature_names = coordinates.merged_graph_features_device(include_angles, device)
+        tab_dict = TableDict(
+            {key: _device_lazy(dev, feature_names) for key, dev in frames.items()},
+            typ="merged", table_path=coordinates._table_path, connectivity=coordinates._connectivity,
         )
+        tab_dict._animal_ids = coordinates._animal_ids
+        tab_dict._device_frames = frames
+        tab_dict._fused_lane = True
+        angle_names = [tuple(b) for b in coordinates._bridge_names]
+    else:
+        tab_dict, angle_names = _getter_tables(coordinates, animal_id, align, polar, include_angles, device)
+        feature_names = tab_dict[next(iter(tab_dict))].columns
 
-    frames, feature_names = coordinates.merged_graph_features_device(include_angles, device)
-    tab_dict = TableDict(
-        {key: LazyFrame((lambda d=dev: d.cpu().numpy()), feature_names, int(dev.shape[0]))
-         for key, dev in frames.items()},
-        typ="merged", table_path=coordinates._table_path, connectivity=coordinates._connectivity,
-    )
-    tab_dict._animal_ids = coordinates._animal_ids
-    tab_dict._device_frames = frames
-
-    graph, nodes, edges, adjacency = feature_graph(coordinates)
+    graph, nodes, edges, adjacency = feature_graph(coordinates, animal_id)
     tab_dict._connectivity = graph
 
     node_idx = _matching([(n, "x") for n in nodes] + [(n, "y") for n in nodes] + nodes, feature_names)
-    angle_idx = _matching([tuple(b) for b in coordinates._bridge_names], feature_names)
+    angle_idx = _matching(angle_names, feature_names)
     edge_idx = _matching(edges, feature_names)
     inner_link_mask = (
         [len({node.split("_")[0] for node in e}) == 1 for e in edges]
@@ -129,7 +167,8 @@ def get_graph_dataset(
     )
 
     to_preprocess, metainfo, global_scaler = tab_dict.preprocess(
-        coordinates=coordinates, samples_max=samples_max, save_as_paths=return_as_paths,
+        coordinates=coordinates, bin_size=bin_size, bin_index=bin_index,
+        precomputed_bins=precomputed_bins, samples_max=samples_max, save_as_paths=False,
         dist_standardize=dist_standardize, speed_standardize=speed_standardize,
         coord_standardize=coord_standardize, window_size=window_size, scale=scale,
         return_windows=False, **kwargs,
@@ -141,13 +180,15 @@ def get_graph_dataset(
 
     # The scaled per-frame frames, before windowing: scaling with a fitted
     # scaler is deterministic, so embedding_per_video reuses them when it
-    # is given the same scaler and settings.
-    tab_dict._scaled_frames = {k: part[k] for part in to_preprocess for k in part.keys()}
-    tab_dict._scaled_device = {
-        k: v for part in to_preprocess for k, v in part._device_frames.items()
-    }
-    tab_dict._scaled_scaler = global_scaler
-    tab_dict._scaled_sig = (scale, dist_standardize, speed_standardize, coord_standardize, samples_max)
+    # is given the same scaler and settings (unbinned builds only: it
+    # embeds every frame).
+    if not binned:
+        tab_dict._scaled_frames = {k: part[k] for part in to_preprocess for k in part.keys()}
+        tab_dict._scaled_device = {
+            k: v for part in to_preprocess for k, v in part._device_frames.items()
+        }
+        tab_dict._scaled_scaler = global_scaler
+        tab_dict._scaled_sig = (scale, dist_standardize, speed_standardize, coord_standardize, samples_max)
 
     def gather_windows(frame, order=None):
         """(T, F) scaled frame -> (nodes, edges, angles) window views, or
@@ -170,7 +211,7 @@ def get_graph_dataset(
             n_win = len(range(0, max(int(part[key].shape[0]) - window_size + 1, 0), window_step))
             order = None if rng is None else rng.permutation(n_win)
             part[key] = LazyWindows(
-                (lambda h=part._deferred_f32[key], o=order: gather_windows(h.f32(), o)),
+                (lambda h=part._deferred_f32[key], o=order: gather_windows(h.host(), o)),
                 [(n_win, window_size, len(idx)) for idx in (node_idx, edge_idx, angle_idx)],
             )
             num_rows += n_win

@@ -149,7 +149,8 @@ def embedding_per_video(
     Args:
         coordinates: the project's Coordinates.
         to_preprocess: the merged TableDict that ``get_graph_dataset``
-            returns (its fourth item).
+            returns (its fourth item), from either of its lanes: each
+            recording's scaled frame is read on the device.
         model: a ModelBundle whose ``rebuild_spec`` names the model, its
             input shape and ``use_angles``: one that ``train_deepof_model``
             returned, one ``ModelBundle.load`` read, or one built by hand.
@@ -204,6 +205,8 @@ def embedding_per_video(
     for key in to_preprocess.keys():
         if key not in scaled_tables.keys():
             continue  # all-NaN tables are dropped by preprocess
+        if key not in device_tables:
+            raise ValueError(f"recording {key!r} has no scaled frame on the device to embed")
         all_cols = list(get_dt(scaled_tables, key, only_metainfo=True)["columns"])
         node_cols = meta_info.get("node_columns")
         if node_cols is not None:

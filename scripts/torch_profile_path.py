@@ -3,6 +3,7 @@
     python3 scripts/torch_profile_path.py [--root ROOT] [--animals B]
     python3 scripts/torch_profile_path.py --train [--model VaDE] [--batch 256] [--steps 20]
     python3 scripts/torch_profile_path.py --supervised
+    python3 scripts/torch_profile_path.py --cohort
 
 Drives the same 1-hour, 2-animal serving path as chip_smoke.py (warm: one
 untimed 2,000-frame and one untimed 1-hour run first, as chip_smoke.py
@@ -49,6 +50,15 @@ wall time; the profiled call's wall time, device busy share and kernel
 launches; the kernels ranked by device time, and the host operators (CUDA
 runtime calls among them: launches, copies, synchronisations) by their own
 CPU time. Its chrome trace is chiprun_out/torch_profile_supervised.json.
+
+With ``--cohort``, the scaling pass of the general route on chip_smoke.py's
+cohort (45,000, 36,000 and 27,000 frames of two deepof_14 animals): its
+merged getter tables from ``get_graph_dataset(**GENERAL)`` (robust scaling,
+groupwise sections, the second 600 s bin), then ``TableDict.preprocess``
+of them, once warm, once timed, once under the profiler. It prints the
+card, the timed and the profiled wall time, the device's busy share and
+kernel launches, the kernels ranked by device time and the host operators
+by their own CPU time. Its chrome trace is chiprun_out/torch_profile_cohort.json.
 """
 
 from __future__ import annotations
@@ -315,6 +325,55 @@ def _profile_supervised(torch, chip_smoke) -> None:
     prof.export_chrome_trace(os.path.join(out_dir, "torch_profile_supervised.json"))
 
 
+def _profile_cohort(torch, chip_smoke) -> None:
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    card = _card()
+    tmp = tempfile.mkdtemp(prefix="torch_profile_cohort_")
+    try:
+        lengths = dict(zip(chip_smoke.COHORT_KEYS, chip_smoke.COHORT_FRAMES))
+        tables = chip_smoke._public_tables(0, seed=1, lengths=lengths)
+        root = chip_smoke._write_public_project(os.path.join(tmp, "cohort"), tables, max(lengths.values()))
+        coords = chip_smoke._cohort_project(root, "cuda")
+        merged = coords.get_graph_dataset(**chip_smoke.GENERAL)[3]
+        kw = {k: v for k, v in chip_smoke.GENERAL.items() if k != "window_size"}
+
+        def scale():
+            merged.preprocess(coordinates=coords, window_size=chip_smoke.WINDOW, return_windows=False, **kw)
+            torch.cuda.synchronize()
+
+        scale()
+        t0 = time.perf_counter()
+        scale()
+        timed_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            scale()
+            wall_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = _kernels(torch, prof)
+    host = _host_ops(torch, prof)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    runtime = {key: count for _, count, key in host if key.startswith("cuda")}
+    frame = next(iter(merged._device_frames.values()))
+    print(card)
+    print(json.dumps({
+        "card": card, "recordings": len(lengths), "frames": list(lengths.values()),
+        "columns": int(frame.shape[1]), "scaling": kw, "timed_s": timed_s, "profiled_wall_s": wall_s,
+        "device_busy_s": busy_s, "device_busy_share": busy_s / wall_s,
+        "kernel_launches": sum(r[1] for r in rows), "cuda_runtime_calls": runtime,
+    }))
+    _print_table(rows, 20)
+    _print_table(host, 25, what="host operator")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "torch_profile_cohort.json"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", help="checkout of the port to profile (default: this one)")
@@ -325,6 +384,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=20, help="--train: timed steps")
     ap.add_argument("--supervised", action="store_true",
                     help="profile supervised_annotation on the public project instead of the path")
+    ap.add_argument("--cohort", action="store_true",
+                    help="profile the general route's scaling pass on chip_smoke.py's cohort instead")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root or REPO))
     import chip_smoke  # the serving-path setup lives there
@@ -343,6 +404,9 @@ def main() -> int:
         return 0
     if args.supervised:
         _profile_supervised(torch, chip_smoke)
+        return 0
+    if args.cohort:
+        _profile_cohort(torch, chip_smoke)
         return 0
     card = _card()
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]

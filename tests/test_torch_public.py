@@ -96,12 +96,13 @@ def _write_csv(path, values, cols):
         f.write("\n".join(lines) + "\n")
 
 
-def write_project(root, fmt, lengths=(T, T), seed=0):
-    """Tables/ and Videos/ of a two-recording project under ``root``."""
+def write_project(root, fmt, lengths=(T, T), seed=0, keys=("test", "test2")):
+    """Tables/ and Videos/ of a project under ``root``: one recording of
+    each length, keyed by ``keys`` in order."""
     os.makedirs(f"{root}/Tables")
     os.makedirs(f"{root}/Videos")
     rng = np.random.default_rng(seed)
-    for key, t in zip(("test", "test2"), lengths):
+    for key, t in zip(keys, lengths):
         values, cols = _recording(rng, t, key)
         if fmt == "csv":
             _write_csv(f"{root}/Tables/{key}DLC_fixture.csv", values, cols)
@@ -321,11 +322,22 @@ def test_coordinates_pickle_and_load_project(sides):
     assert pickle.loads(pickle.dumps(p_coords))._animal_ids == IDS
 
 
-def test_unequal_lengths_raise(tmp_path):
+def test_unequal_lengths_raise(tmp_path, monkeypatch):
+    """Recordings of unequal length no longer raise: both are cut to the
+    shorter, and the fused lane's frames, no longer their full range, are
+    scaled on the float64 general route, as the JAX package scales them on
+    its host passes (1e-8)."""
+    monkeypatch.setenv("DEEPOF_TPU_DEVICE_SCALE", "1")
     root = write_project(tmp_path, "csv", lengths=(T, T - 20))
-    coords = Project(**_project_args(root, "csv"), device="cpu").create(test=True, verbose=False)
-    with pytest.raises(NotImplementedError, match="unequal length.*ROADMAP queue 1 item 4"):
-        coords.get_graph_dataset(window_size=WINDOW)
+    j_coords = JaxProject(**_project_args(root, "csv")).create(force=True, test=True, verbose=False)
+    coords = Project(**_project_args(root, "csv"), device="cpu").create(force=True, test=True, verbose=False)
+    (_, j_meta, _, j_tab, _), (_, meta, _, tab, _) = (
+        j_coords.get_graph_dataset(window_size=WINDOW), coords.get_graph_dataset(window_size=WINDOW))
+    assert meta["shape_train"] == j_meta["shape_train"] == [(2 * (T - 20 - WINDOW + 1), WINDOW, n)
+                                                           for n in (84, 32, 42)]
+    for key in ("test", "test2"):
+        assert tab._scaled_device[key].shape == (T - 20, 158)
+        _close(get_dt(tab._scaled_frames, key), jget_dt(j_tab._scaled_frames, key).to_numpy(), 1e-8)
 
 
 def test_full_imputation_and_arena_detection_raise(tmp_path):

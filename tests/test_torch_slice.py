@@ -218,14 +218,15 @@ def test_scanned_forward_without_gnn_matches_jax():
 def test_port_imports_nothing_of_jax():
     """Every module of the port, and chip_smoke.py, in a fresh interpreter:
     nothing of JAX, flax or deepof_tpu, and none of the host libraries the
-    machine with the card lacks (pandas, h5py, cv2, networkx)."""
+    machine with the card lacks (pandas, sklearn, h5py, cv2, networkx)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import deepof_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(deepof_tpu_torch.__path__, 'deepof_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'deepof_tpu',\n"
-        "                                                        'pandas', 'h5py', 'cv2', 'networkx'))\n"
+        "                                                        'pandas', 'sklearn', 'h5py', 'cv2',\n"
+        "                                                        'networkx'))\n"
         "print(len([m for m in sys.modules if m.startswith('deepof_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
