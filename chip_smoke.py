@@ -110,8 +110,36 @@
    CPU on a prefix copy (2,000, 1,600 and 1,200 frames): the tutorial's
    scaled frames (float32 both, 1e-4 of max(1, max |value|)), the general
    route from the same merged values (float64, 1e-8) and the trained
-   bundle's embeddings and soft counts (1e-4).
-10. Prints a stage line of each path, a kernels line, and last
+   bundle's embeddings and soft counts (1e-4), with the count of hard
+   labels that differ (reported, not checked). The cohort project reads
+   its experimental conditions and start markers from csv files written
+   beside its tables (a frame-integer and a time-string column), and ROI 1
+   (left of the median x of B's Center) from its arena file.
+10. Post-hoc, the group comparison on the cohort's VaDE outputs: the
+   trained bundle served once more with the kernels' counts reset (21
+   window and 84 GRU launches, no backward), ``supervised_annotation`` on
+   the cohort, then the battery a user runs after embedding, each call
+   twice on the card (the second timed) and once on the CPU from the same
+   host inputs, held at 1e-10 relative (counts, frame indices and masks
+   exactly): ``preprocess_time_bins(bin_size=600, bin_index=0,
+   start_marker="frame_start")``, ``apply_rois_to_bin_info`` (ROI 1),
+   ``get_time_on_cluster`` (share, counts in the bin, ``reduce_dim``, ROI),
+   ``get_aggregated_embedding`` (mean, median in the bin, ``reduce_dim``),
+   ``enrichment_across_conditions`` over the soft counts and over the
+   tags, ``compute_transition_matrix_per_condition`` (aggregated with
+   ``silence_diagonal``, per video, raw counts) -> ``compute_steady_state``
+   (with and without the entropy), ``cluster_transition_matrix`` per
+   recording and ``condition_distance_binning`` (growing window; AUC over
+   time on cluster and over mean embeddings; Wasserstein). Then a seeded
+   lab cohort (24 recordings x 45,000 frames, K = 10, D = 8, float64)
+   through bench.py's post-hoc pass (time on cluster, mean embeddings,
+   enrichment, per-condition transitions + steady states), three passes on
+   the card and one on the CPU, frames/s and each stage's seconds, card vs
+   CPU at 1e-10; and the card's VaDE on the reference file of the JAX
+   package's outputs (tests/data/vade_reference.npz, written by
+   scripts/make_torch_reference.py): embeddings and soft counts within
+   1e-5, the count of differing hard labels reported.
+11. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -1455,19 +1483,43 @@ GENERAL_RTOL = 1e-8
 PREFIX_BIN_S = 16  # the general route's bin on the prefix copy: frames 400-799
 
 
-def _cohort_project(root, device, precision="auto"):
+# The cohort's experimental conditions and start markers, written beside its
+# tables as csv (io/conditions.py reads them): a frame-integer column and a
+# time-string column.
+COHORT_CONDITIONS = {"test": ("case", "f"), "test2": ("control", "m"), "test3": ("case", "m")}
+COHORT_MARKERS = {"test": (250, "00:00:10"), "test2": (500, "00:00:20.5"), "test3": (125, "00:00:05")}
+
+
+def _cohort_csvs(root):
+    """(conditions path, start-markers path) of the cohort under ``root``."""
+    paths = os.path.join(root, "conditions.csv"), os.path.join(root, "start_markers.csv")
+    for path, header, rows in ((paths[0], "experiment_id,condition,sex", COHORT_CONDITIONS),
+                               (paths[1], "experiment_id,frame_start,light_on", COHORT_MARKERS)):
+        with open(path, "w") as f:
+            f.write(f",{header}\n" + "".join(f"{i},{k},{a},{b}\n" for i, (k, (a, b)) in enumerate(rows.items())))
+    return paths
+
+
+def _cohort_project(root, device, precision="auto", tables=None):
     """The cohort's csv project under ``root``, created with the test arenas
-    ("test3" taking "test"'s) read back from an arena file."""
+    ("test3" taking "test"'s) read back from an arena file, its conditions
+    and start markers from csv; with ``tables``, ROI 1 is the half-plane
+    left of the median x of B's Center in each recording."""
     from deepof_tpu_torch.data import Project
 
+    conditions, markers = _cohort_csvs(root)
     proj = Project(
         project_path=root, project_name="cohort", video_path=f"{root}/Videos", table_path=f"{root}/Tables",
         arena="circular-autodetect", video_scale="380 mm", table_format="csv", frame_rate=FPS,
-        animal_ids=ANIMALS, precision=precision, device=device,
+        animal_ids=ANIMALS, precision=precision, device=device, exp_conditions=conditions, start_markers=markers,
     )
     scales, params, rois, res = proj.get_arena(test=True)
     for table in (scales, params, rois, res):
         table["test3"] = table["test"]
+    for key, (values, cols) in (tables or {}).items():
+        xm = float(np.median(values[:, cols.index(("chip_smoke", "B", "Center", "x"))]))
+        xm *= scales[key][3] / scales[key][2]
+        rois[key] = {1: np.array([[-1e4, -1e4], [xm, -1e4], [xm, 1e4], [-1e4, 1e4]])}
     arena = os.path.join(root, f"arena_{device}.pkl")
     proj.save_arena_data(arena, params, rois, scales, res)
     return proj.create(force=True, arena_path=arena, verbose=False)
@@ -1541,6 +1593,7 @@ def _cohort_checks(torch, prefix, bundle):
               for tab, b, dev in ((merged, bundle, None), (on_host, cpu_bundle, "cpu"))]
     errs["embeddings"] = max(_rel_err(served[0][0][k], served[1][0][k]) for k in COHORT_KEYS)
     errs["soft_counts"] = max(_rel_err(served[0][1][k], served[1][1][k]) for k in COHORT_KEYS)
+    hard_diff = sum(int((served[0][1][k].argmax(1) != served[1][1][k].argmax(1)).sum()) for k in COHORT_KEYS)
     for name, err in errs.items():
         tol = GENERAL_RTOL if name == "general_route" else PATH_RTOL
         _log(f"cohort copy ({COHORT_PREFIX} frames), {name}, card vs CPU: max|diff| / max(1, max|cpu|) "
@@ -1555,6 +1608,9 @@ def _cohort_checks(torch, prefix, bundle):
         col = np.abs(got - want).max(axis=0)
         worst = max(worst, (float(col.max()) / max(1.0, float(np.abs(want).max())),
                             str(merged[k].columns[int(col.argmax())])), key=lambda w: w[0])
+    errs["hard_labels_differing"] = hard_diff
+    _log(f"cohort copy, hard labels of the served soft counts differing card vs CPU (not checked): {hard_diff} "
+         f"of {sum(len(served[1][1][k]) for k in COHORT_KEYS)}")
     errs["device_route_own_getters"] = {"max_rel_err": worst[0], "column": worst[1]}
     _log(f"cohort copy, the tutorial's scaled frames from each device's own float32 getters (not checked): "
          f"{errs['device_route_own_getters']}")
@@ -1572,7 +1628,8 @@ def _cohort_phase(torch, card, tmp):
     from a reset and the peak memory read; then get_graph_dataset(**GENERAL)
     (the float64 general route) timed on the same project; then the card
     against the CPU on a prefix copy (:func:`_cohort_checks`). Returns (the
-    cohort line, the launches of the tutorial's pipeline)."""
+    cohort line, the launches of the tutorial's pipeline, {"coords",
+    "graph_dataset", "bundle"} for phase 10)."""
     from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_backward
     from deepof_tpu_torch.ops.window_kernels import window_streams, window_streams_config
     from deepof_tpu_torch.train.inference import embedding_per_video, stream_tables
@@ -1591,7 +1648,7 @@ def _cohort_phase(torch, card, tmp):
     window_streams.launches = gru_scan.launches = gru_scan_backward.launches = 0
     stages = {}
     t0 = time.perf_counter()
-    coords = _cohort_project(full, "cuda")
+    coords = _cohort_project(full, "cuda", tables=tables)
     stages["create"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ggd, scaling = _scaling_timed(torch, lambda: coords.get_graph_dataset(**TUTORIAL))
@@ -1670,6 +1727,293 @@ def _cohort_phase(torch, card, tmp):
         "launches": launches, "window_streams_mode": mode, "peak_mem_gib": peak_gib,
         "fit_batches": [TRAIN_BATCHES, VAL_BATCHES], "losses": summary, "card_vs_cpu": errs,
         "write_csv_s": write_s, "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    return line, launches, {"coords": coords, "graph_dataset": ggd, "bundle": bundle}
+
+
+POSTHOC_RTOL = 1e-10  # card vs CPU from the same inputs; counts, labels and masks exactly
+REFERENCE_TOL = 1e-5  # the card's VaDE outputs against the JAX package's (the north star's bar)
+REFERENCE_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "vade_reference.npz")
+# The synthetic cohort timed at a lab's size: recordings, frames each, clusters, embedding width.
+POSTHOC_COHORT = (24, 45_000, N_COMPONENTS, LATENT)
+POSTHOC_PASSES = 3
+# Calls compared exactly card vs CPU: counts, frame indices and masks.
+POSTHOC_EXACT = ("time_bins", "rois", "time_on_cluster_counts", "transition_counts")
+
+
+def reference_bundle(path, device):
+    """(ModelBundle of the VaDE in the reference file, its arrays): the flax
+    parameters ``params/<path>`` carried by ``from_flax_params``."""
+    from deepof_tpu_torch.models import build_model
+    from deepof_tpu_torch.train.inference import ModelBundle
+    from deepof_tpu_torch.weights import from_flax_params
+
+    ref = dict(np.load(path))
+    params = {}
+    for name, value in ref.items():
+        if name.startswith("params/"):
+            *parents, leaf = name.split("/")[1:]
+            node = params
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = value
+    window, n, e = int(ref["window"]), len(ref["node"]) // 3, len(ref["edge"])
+    model = build_model("VaDE", (window, n, 3), (window, e, 1), ref["adjacency"], int(ref["latent"]),
+                        int(ref["n_components"]), device=device)
+    model.load_state_dict(from_flax_params(params, kind="VaDE"))
+    spec = {"model": "VaDE", "input_shape": [window, n, 3], "edge_feature_shape": [window, e, 1],
+            "n_components": int(ref["n_components"]), "use_angles": False}
+    return ModelBundle(model.eval(), spec), ref
+
+
+def _same(name, got, want):
+    """Max relative error of a post-hoc result card vs CPU (0 when equal);
+    fails on differing labels, shapes, or inexact counts where exactness
+    is asked (POSTHOC_EXACT)."""
+    from deepof_tpu_torch.posthoc import Labelled
+
+    if isinstance(want, Labelled):
+        if list(got.index) != list(want.index) or list(got.columns) != list(want.columns):
+            _fail(f"post-hoc {name}: labels differ card vs CPU ({got.index}, {got.columns})")
+        return _same(name, got.values, want.values)
+    if isinstance(want, dict):
+        if list(got) != list(want):
+            _fail(f"post-hoc {name}: keys differ card vs CPU ({list(got)} vs {list(want)})")
+        return max([_same(f"{name}[{k}]", got[k], want[k]) for k in want] + [0.0])
+    if isinstance(want, (tuple, list)):
+        return max([_same(name, g, w) for g, w in zip(got, want)] + [0.0])
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        _fail(f"post-hoc {name}: shapes {got.shape} vs {want.shape}")
+    if want.dtype.kind in "fc":
+        if not np.array_equal(np.isnan(got), np.isnan(want)):
+            _fail(f"post-hoc {name}: NaNs differ card vs CPU")
+        exact = any(name.startswith(e) for e in POSTHOC_EXACT)
+        err = _rel_err(np.nan_to_num(got), np.nan_to_num(want)) if got.size else 0.0
+        if exact and err != 0.0:
+            _fail(f"post-hoc {name}: counts differ card vs CPU ({err})")
+        return err
+    if not np.array_equal(got, want):
+        _fail(f"post-hoc {name}: differs card vs CPU")
+    return 0.0
+
+
+def _posthoc_battery(coords, emb, counts, tags, conds):
+    """{name: fn(device)} of the post-hoc battery on the cohort's outputs,
+    each a call a user makes after embedding (steady states from the
+    CPU's per-condition transitions, ROIs from the CPU's masks, so that
+    both devices get the same inputs)."""
+    from deepof_tpu_torch import posthoc as ph
+    from deepof_tpu_torch.core.table_dict import apply_rois_to_bin_info, preprocess_time_bins
+
+    def bins(dev):
+        return preprocess_time_bins(coords, bin_size=600, bin_index=0, start_marker="frame_start",
+                                    tab_dict_for_binning=counts)
+
+    host_bins = bins("cpu")
+    host_rois = apply_rois_to_bin_info(coords, 1, host_bins, device="cpu")
+    host_trans = ph.compute_transition_matrix_per_condition(counts, conds, silence_diagonal=True, device="cpu")
+    n = min(len(v) for v in counts.values())
+    grow = dict(start_bin=n // 4, end_bin=n, step_bin=n // 4, scan_mode="growing_window")
+    return {
+        "time_bins": bins,
+        "rois": lambda dev: apply_rois_to_bin_info(coords, 1, host_bins, device=dev),
+        "time_on_cluster": lambda dev: ph.get_time_on_cluster(counts, normalize=True, device=dev),
+        "time_on_cluster_counts": lambda dev: ph.get_time_on_cluster(counts, normalize=False, bin_info=host_bins,
+                                                                     device=dev),
+        "time_on_cluster_reduced": lambda dev: ph.get_time_on_cluster(counts, reduce_dim=True, device=dev),
+        "time_on_cluster_roi": lambda dev: ph.get_time_on_cluster(counts, bin_info=host_rois, roi_number=1,
+                                                                  animals_in_roi=["B"], device=dev),
+        "aggregated_mean": lambda dev: ph.get_aggregated_embedding(emb, agg="mean", device=dev),
+        "aggregated_median": lambda dev: ph.get_aggregated_embedding(emb, agg="median", bin_info=host_bins,
+                                                                     device=dev),
+        "aggregated_mean_reduced": lambda dev: ph.get_aggregated_embedding(emb, agg="mean", reduce_dim=True,
+                                                                           device=dev),
+        "enrichment_soft_counts": lambda dev: ph.enrichment_across_conditions(
+            soft_counts=counts, exp_conditions=conds, normalize=True, device=dev),
+        "enrichment_tags": lambda dev: ph.enrichment_across_conditions(
+            supervised_annotations=tags, exp_conditions=conds, normalize=True, bin_info=host_bins, device=dev),
+        "transitions_aggregated": lambda dev: ph.compute_transition_matrix_per_condition(
+            counts, conds, silence_diagonal=True, device=dev),
+        "transitions_per_video": lambda dev: ph.compute_transition_matrix_per_condition(
+            counts, conds, aggregate=False, bin_info=host_bins, device=dev),
+        "transition_counts": lambda dev: ph.compute_transition_matrix_per_condition(
+            counts, conds, aggregate=False, normalize=False, device=dev),
+        "steady_state": lambda dev: ph.compute_steady_state(host_trans, device=dev),
+        "steady_state_entropy": lambda dev: ph.compute_steady_state(host_trans, return_entropy=True, device=dev),
+        "cluster_transition_matrix": lambda dev: {
+            k: ph.cluster_transition_matrix(v.argmax(axis=1), N_COMPONENTS, device=dev) for k, v in counts.items()},
+        "distance_auc_time_on_cluster": lambda dev: ph.condition_distance_binning(
+            emb, counts, conds, agg="time_on_cluster", metric="auc", device=dev, **grow),
+        "distance_auc_mean": lambda dev: ph.condition_distance_binning(
+            emb, counts, conds, agg="mean", metric="auc", device=dev, **grow),
+        "distance_wasserstein": lambda dev: ph.condition_distance_binning(
+            emb, counts, conds, agg="mean", metric="wasserstein", device=dev, **grow),
+    }
+
+
+def synthetic_cohort(n_rec, frames, k, d, seed=0):
+    """(soft counts, embeddings, conditions) of a seeded cohort: each
+    recording a run-length cluster sequence (mean run 25 frames) whose
+    softmaxed noisy one-hot rows are the float64 soft counts, embeddings
+    the cluster's centre plus noise; half the recordings "case"."""
+    from deepof_tpu_torch.core.table_dict import TableDict
+    from deepof_tpu_torch.io.conditions import ConditionTable
+
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(scale=2.0, size=(k, d))
+    counts, emb, conds = {}, {}, {}
+    for i in range(n_rec):
+        key = f"rec{i:02d}"
+        runs = rng.geometric(1 / 25, size=frames // 5)
+        labels = np.repeat(rng.integers(0, k, size=len(runs)), runs)[:frames]
+        logits = rng.normal(size=(frames, k)) + 3.0 * np.eye(k)[labels] + 0.3 * (i % 2) * np.arange(k) / k
+        soft = np.exp(logits - logits.max(axis=1, keepdims=True))
+        counts[key] = soft / soft.sum(axis=1, keepdims=True)
+        emb[key] = centres[labels] + rng.normal(size=(frames, d)) + 0.2 * (i % 2)
+        conds[key] = ConditionTable(condition=["case" if i % 2 == 0 else "control"])
+    return (TableDict(counts, typ="unsupervised_counts", exp_conditions=conds),
+            TableDict(emb, typ="unsupervised_embedding", exp_conditions=conds), conds)
+
+
+def lab_cohort_pass(counts, emb, conds, device):
+    """(seconds of each stage, results) of the post-hoc pass of bench.py:868
+    ``_bench_posthoc``: time on cluster, mean embeddings, enrichment across
+    conditions, per-condition transitions + steady states (each stage ends
+    in its host copy)."""
+    from deepof_tpu_torch import posthoc as ph
+
+    stages, out = {}, {}
+    for name, fn in (
+        ("time_on_cluster", lambda: ph.get_time_on_cluster(counts, normalize=True, device=device)),
+        ("aggregated_embedding", lambda: ph.get_aggregated_embedding(emb, agg="mean", device=device)),
+        ("enrichment", lambda: ph.enrichment_across_conditions(
+            soft_counts=counts, exp_conditions=conds, normalize=True, device=device)),
+        ("transitions_steady_state", lambda: ph.compute_steady_state(
+            ph.compute_transition_matrix_per_condition(counts, conds, device=device), device=device)),
+    ):
+        t = time.perf_counter()
+        out[name] = fn()
+        stages[name] = time.perf_counter() - t
+    return stages, out
+
+
+def _posthoc_lab_cohort(torch):
+    """:func:`lab_cohort_pass` on the synthetic lab cohort: POSTHOC_PASSES
+    passes on the card (median pass, the fastest pass's stages), one on the
+    CPU, the card's results held against the CPU's."""
+    n_rec, frames, k, d = POSTHOC_COHORT
+    t0 = time.perf_counter()
+    counts, emb, conds = synthetic_cohort(n_rec, frames, k, d)
+    make_s = time.perf_counter() - t0
+    passes = [lab_cohort_pass(counts, emb, conds, "cuda") for _ in range(POSTHOC_PASSES)]
+    totals = [sum(st.values()) for st, _ in passes]
+    cpu_stages, cpu_out = lab_cohort_pass(counts, emb, conds, "cpu")
+    errs = {name: _same(f"lab cohort {name}", passes[-1][1][name], want) for name, want in cpu_out.items()}
+    worst = max(errs.values())
+    _log(f"lab cohort ({n_rec} x {frames} frames, K {k}, D {d}), card vs CPU: max rel err {worst:.3e} "
+         f"(tol {POSTHOC_RTOL:.0e})")
+    if not worst <= POSTHOC_RTOL:
+        _fail(f"card and CPU disagree on the lab cohort's post-hoc statistics: {errs}")
+    median = float(np.median(totals))
+    return {
+        "recordings": n_rec, "frames": n_rec * frames, "clusters": k, "embedding_dim": d,
+        "soft_counts_mb": n_rec * frames * k * 8 / 1e6, "passes_s": totals, "median_pass_s": median,
+        "frames_per_s": n_rec * frames / median, "stages_s": passes[int(np.argmin(totals))][0],
+        "cpu_pass_s": sum(cpu_stages.values()), "cpu_stages_s": cpu_stages, "card_vs_cpu_max_rel_err": worst,
+        "synthesize_s": make_s,
+    }
+
+
+def _posthoc_phase(torch, card, cohort):
+    """Phase 10: the group comparison on the cohort's VaDE outputs. Serves
+    the cohort's trained bundle once more with the kernels' counts reset
+    (the path's launches), annotates the cohort with the supervised
+    battery, then runs the post-hoc battery (:func:`_posthoc_battery`)
+    twice on the card, timing the second call, and once on the CPU from the
+    same host inputs, held at POSTHOC_RTOL (counts exactly); then the
+    synthetic lab cohort (:func:`_posthoc_lab_cohort`), and the card's VaDE
+    on the reference file of the JAX package's outputs at REFERENCE_TOL.
+    Returns (the posthoc line, the launches of the serving call)."""
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_backward
+    from deepof_tpu_torch.ops.window_kernels import window_streams
+    from deepof_tpu_torch.train.inference import embedding_per_video, scanned_windowed_forward
+
+    t_phase = time.perf_counter()
+    coords, (_, meta, _, tab_dict, scaler), bundle = (cohort["coords"], cohort["graph_dataset"],
+                                                      cohort["bundle"])
+    conds = coords.get_exp_conditions
+    if sorted(conds) != sorted(COHORT_KEYS) or coords.get_condition_values("condition") != ["case", "control"]:
+        _fail(f"the cohort's conditions from csv: {conds}")
+    markers = coords.get_start_marker_values("frame_start")
+    if markers != {k: v[0] for k, v in COHORT_MARKERS.items()}:
+        _fail(f"the cohort's start markers from csv: {markers}")
+
+    torch.cuda.synchronize()
+    window_streams.launches = gru_scan.launches = gru_scan_backward.launches = 0
+    t0 = time.perf_counter()
+    emb, counts = embedding_per_video(coords, tab_dict, bundle, meta, animal_id="B", global_scaler=scaler,
+                                      batch_size=BLOCK)
+    embed_s = time.perf_counter() - t0
+    launches = {"window_streams": window_streams.launches, "gru_scan": gru_scan.launches,
+                "gru_scan_bwd": gru_scan_backward.launches}
+    n_blocks = len(COHORT_KEYS) * -(-(min(COHORT_FRAMES) - WINDOW + 1) // BLOCK)
+    want = {"window_streams": n_blocks, "gru_scan": 4 * n_blocks, "gru_scan_bwd": 0}
+    if launches != want:
+        _fail(f"serving the cohort for post-hoc launched {launches}, not {want}")
+    t0 = time.perf_counter()
+    tags = coords.supervised_annotation(verbose=False, rng=np.random.RandomState(0))
+    tags_s = time.perf_counter() - t0
+
+    battery = _posthoc_battery(coords, emb, counts, tags, conds)
+    calls, errs = {}, {}
+    for name, fn in battery.items():
+        fn("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn("cuda")
+        torch.cuda.synchronize()
+        calls[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want_ = fn("cpu")
+        calls[f"{name}_cpu"] = time.perf_counter() - t0
+        errs[name] = _same(name, got, want_)
+        if not errs[name] <= POSTHOC_RTOL:
+            _fail(f"card and CPU disagree on post-hoc {name}: {errs[name]}")
+        _log(f"post-hoc {name}: card {calls[name]:.4f} s, CPU {calls[name + '_cpu']:.4f} s, "
+             f"max rel err {errs[name]:.3e}")
+    toc = battery["time_on_cluster"]("cuda")
+    if toc.values.shape[0] != len(COHORT_KEYS) or not np.allclose(toc.values.sum(axis=1), 1.0):
+        _fail(f"time on cluster: {toc}")
+    n = min(len(v) for v in counts.values())
+    for name in ("distance_auc_time_on_cluster", "distance_auc_mean", "distance_wasserstein"):
+        values = battery[name]("cuda")
+        if not (len(values) == len(range(n // 4, n, n // 4)) and np.isfinite(values).all()):
+            _fail(f"post-hoc {name}: {values}")
+
+    lab = _posthoc_lab_cohort(torch)
+
+    # The card's VaDE against the JAX package's outputs (reference file).
+    ref_bundle, ref = reference_bundle(REFERENCE_NPZ, "cuda")
+    layout = {"node": ref["node"].tolist(), "edge": ref["edge"].tolist(), "angle": None}
+    columns = list(tab_dict[COHORT_KEYS[0]].columns)
+    if [columns.index(c) for c in meta["node_columns"]] != layout["node"]:
+        _fail("the reference file's layout is not the cohort tutorial's")
+    ref_emb, ref_sc = scanned_windowed_forward(ref_bundle, ref["frame"], layout, int(ref["window"]), "VaDE",
+                                               block=BLOCK)
+    reference = {"embeddings_max_abs_err": float(np.abs(ref_emb - ref["embeddings"]).max()),
+                 "soft_counts_max_abs_err": float(np.abs(ref_sc - ref["soft_counts"]).max()),
+                 "hard_labels_differing": int((ref_sc.argmax(1) != ref["hard_labels"]).sum()),
+                 "windows": int(len(ref_sc)), "tol": REFERENCE_TOL}
+    _log(f"card VaDE vs the JAX package's reference: {reference}")
+    if not max(reference["embeddings_max_abs_err"], reference["soft_counts_max_abs_err"]) <= REFERENCE_TOL:
+        _fail(f"the card's VaDE outputs miss the JAX package's by more than {REFERENCE_TOL}: {reference}")
+
+    line = {
+        "path": "posthoc", "recordings": len(COHORT_KEYS), "windows": [len(v) for v in counts.values()],
+        "embed_s": embed_s, "supervised_s": tags_s, "launches": launches, "calls_s": calls,
+        "card_vs_cpu": errs, "card_vs_cpu_max_rel_err": max(errs.values()), "lab_cohort": lab,
+        "jax_reference": reference, "phase_s": time.perf_counter() - t_phase, "card": card,
     }
     return line, launches
 
@@ -1753,8 +2097,9 @@ def main() -> int:
     launches["gru_scan_bwd"] = bwd_launches
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
-    # Phases 4-9: the public path, the getters, supervised annotation,
-    # training and VaDE on its project, then the cohort.
+    # Phases 4-10: the public path, the getters, supervised annotation,
+    # training and VaDE on its project, then the cohort and its group
+    # comparison.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
     try:
         public_line, public_launches, full, tables = _public_phase(torch, card, tmp)
@@ -1765,7 +2110,9 @@ def main() -> int:
         train_line, bwd_err, bwd_t, train_launches = _training_phase(torch, card, data)
         vade_line, vade_launches = _vade_phase(torch, card, data, os.path.join(tmp, "prefix"))
         del data
-        cohort_line, cohort_launches = _cohort_phase(torch, card, tmp)
+        cohort_line, cohort_launches, cohort = _cohort_phase(torch, card, tmp)
+        posthoc_line, posthoc_launches = _posthoc_phase(torch, card, cohort)
+        del cohort
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1776,6 +2123,7 @@ def main() -> int:
     print(json.dumps(train_line), flush=True)
     print(json.dumps(vade_line), flush=True)
     print(json.dumps(cohort_line), flush=True)
+    print(json.dumps(posthoc_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,
         "first_stages_s": first_stages, "first_run_s": first_run_s,
@@ -1789,7 +2137,7 @@ def main() -> int:
     # beside it.
     by_path = {name: {"raw_keypoints": launches[name], **{p: c[name] for p, c in public_launches.items()},
                       "training": train_launches[name], **{p: c[name] for p, c in vade_launches.items()},
-                      "cohort": cohort_launches[name]}
+                      "cohort": cohort_launches[name], "posthoc": posthoc_launches[name]}
                for name in ("window_streams", "gru_scan", "gru_scan_bwd")}
     kernels = [
         {"name": "window_streams", "route": "cuda",

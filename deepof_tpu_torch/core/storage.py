@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import numpy as np
+import torch
 
 PATHS_MODE = (
     "paths mode (tables stored in files, return_path / save_as_paths, very large "
@@ -140,17 +141,44 @@ def save_dt(dt: Any, path: Optional[str] = None, return_path: bool = False):
     return dt
 
 
-def get_dt(tab_dict: dict, key: str, only_metainfo: bool = False):
+def get_dt(tab_dict: dict, key: str, only_metainfo: bool = False, load_range=None):
     """Resolve a TableDict value, realising a lazy one.
 
     With ``only_metainfo``: a dict of ``shape``, ``columns`` (None where the
     value has no column list), ``num_rows`` and, for frames, ``num_cols``,
-    without realising anything.
+    without realising anything. ``load_range`` selects rows: a 2-element
+    sequence is the inclusive span [start, end], anything longer or shorter
+    an array of row indices (:func:`get_dt_rows` always reads indices).
     """
     entry = tab_dict[key]
     if only_metainfo:
         return _metainfo(entry)
-    return entry.realize() if isinstance(entry, (LazyFrame, LazyWindows)) else entry
+    obj = entry.realize() if isinstance(entry, (LazyFrame, LazyWindows)) else entry
+    return obj if load_range is None else _slice_obj(obj, load_range)
+
+
+def get_dt_rows(tab_dict: dict, key: str, idx):
+    """The rows ``idx`` of a TableDict value, ``idx`` always an array of row
+    indices (``get_dt`` reads a 2-element sequence as a span)."""
+    if idx is None:
+        return get_dt(tab_dict, key)
+    return _take(get_dt(tab_dict, key), np.asarray(idx).astype(np.int64))
+
+
+def _slice_obj(obj, load_range):
+    """Rows of an array, tensor or tuple of them: a 2-element 1-D
+    ``load_range`` is the inclusive span [start, end], else row indices."""
+    if hasattr(load_range, "__len__") and len(load_range) == 2 and np.ndim(load_range) == 1:
+        return _take(obj, slice(int(load_range[0]), int(load_range[1]) + 1))
+    return _take(obj, np.asarray(load_range))
+
+
+def _take(obj, rows):
+    if isinstance(obj, tuple):
+        return tuple(_take(o, rows) for o in obj)
+    if isinstance(obj, torch.Tensor):
+        return obj[rows] if isinstance(rows, slice) else obj[torch.as_tensor(rows, device=obj.device)]
+    return np.asarray(obj)[rows]
 
 
 def _metainfo(entry) -> dict:

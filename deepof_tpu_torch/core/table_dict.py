@@ -1,7 +1,8 @@
 """TableDict: the dataset container that travels between layers (port of
 ``deepof_tpu/core/table_dict.py``: ``TableDict`` with its filters, merge,
 split, preprocess and window sampling, and of
-``deepof_tpu/visuals_utils.py`` ``preprocess_time_bins``).
+``deepof_tpu/visuals_utils.py`` ``preprocess_time_bins`` and
+``apply_rois_to_bin_info``).
 
 A table is a :class:`LazyFrame` (a (T, F) frame and its column labels); a
 TableDict may hold its frames on the device in ``_device_frames`` (the
@@ -39,7 +40,8 @@ import numpy as np
 import torch
 
 from deepof_tpu_torch.core.storage import PATHS_MODE, LazyFrame, get_dt, save_dt
-from deepof_tpu_torch.device import resolve_device
+from deepof_tpu_torch.device import fetch_together, resolve_device
+from deepof_tpu_torch.ops.geometry import point_in_polygon
 from deepof_tpu_torch.ops.scaling import (
     SCALERS,
     _global_scaler_vectors,
@@ -868,4 +870,52 @@ def preprocess_time_bins(
                 sel = (np.linspace(0, len(idx) - 1, samples_max, dtype=int) if down_sample
                        else np.arange(samples_max))
                 bin_info[key] = idx[sel]
+    return bin_info
+
+
+def apply_rois_to_bin_info(
+    coordinates,
+    roi_number: Optional[int],
+    bin_info_time: Optional[Dict[str, np.ndarray]] = None,
+    in_roi_criterion: str = "Center",
+    invert_roi: bool = False,
+    device=None,
+) -> Dict[str, dict]:
+    """Per-animal in-ROI masks beside each recording's time bin
+    (``deepof_tpu/visuals_utils.py:23``): {key: {"time": frame indices,
+    animal: (len(time),) bool mask}}, the mask telling whether the animal's
+    ``in_roi_criterion`` bodyparts (or every bodypart with "all") lie inside
+    ROI ``roi_number`` (outside with ``invert_roi``). A 2-element ``time``
+    array (start, end) with end > start + 1 is read as the inclusive span.
+    The masks are computed on ``device`` (default: the project's) from the
+    float64 positions and come back to the host in one copy."""
+    animal_ids = list(coordinates._animal_ids or [""])
+    if bin_info_time is None:
+        bin_info_time = {key: np.arange(len(tab), dtype=int) for key, tab in coordinates._tables.items()}
+    criteria = [in_roi_criterion] if isinstance(in_roi_criterion, str) else list(in_roi_criterion)
+    nodes = list(coordinates._nodes)
+    bin_info: Dict[str, dict] = {}
+    pending = []
+    for key, time_idx in bin_info_time.items():
+        time_idx = np.asarray(time_idx)
+        if len(time_idx) == 2 and time_idx[0] + 1 < time_idx[1]:
+            time_idx = np.arange(time_idx[0], time_idx[1] + 1, dtype=int)
+        bin_info[key] = {"time": time_idx}
+        if roi_number is None:
+            continue
+        dev = resolve_device(coordinates._device if device is None else device)
+        pos = torch.as_tensor(np.asarray(coordinates._tables[key], np.float64), device=dev)
+        rows = torch.as_tensor(time_idx.astype(np.int64), device=dev)
+        polygon = np.asarray(coordinates._roi_dicts[key][roi_number])
+        for aid in animal_ids:
+            prefix = f"{aid}_" if aid else ""
+            bps = [bp for bp in nodes if bp.startswith(prefix)] if "all" in criteria else [
+                f"{prefix}{c}" for c in criteria]
+            mask = torch.ones(len(pos), dtype=torch.bool, device=dev)
+            for bp in bps:
+                if bp in nodes:
+                    mask &= point_in_polygon(pos[:, nodes.index(bp)], polygon)
+            pending.append((key, aid, (~mask if invert_roi else mask)[rows]))
+    for (key, aid, _), mask in zip(pending, fetch_together([m for _, _, m in pending])):
+        bin_info[key][aid] = mask
     return bin_info

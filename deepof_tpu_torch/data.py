@@ -35,8 +35,9 @@ from deepof_tpu_torch import config
 from deepof_tpu_torch.arena import fixture_arenas
 from deepof_tpu_torch.core.graph import BodyGraph, build_body_graph, connect_mouse
 from deepof_tpu_torch.core.storage import LazyFrame, save_dt
-from deepof_tpu_torch.core.table_dict import TableDict
+from deepof_tpu_torch.core.table_dict import TableDict, seconds_to_time, time_to_seconds
 from deepof_tpu_torch.device import resolve_device, to_device, working_dtype
+from deepof_tpu_torch.io.conditions import load_exp_conditions, load_start_markers
 from deepof_tpu_torch.io.readers import RawTable, load_table, natural_sorted
 from deepof_tpu_torch.ops.alignment import align_trajectories
 from deepof_tpu_torch.ops.geometry import point_in_polygon
@@ -321,7 +322,6 @@ _ARENA_DETECTION = (
     "queue 1 item 7; pass test=True for the fixed test arenas or arena_path for saved "
     "arena data"
 )
-_CONDITIONS = "reading conditions or start markers from a file is not ported yet: ROADMAP queue 1 item 13"
 
 
 class Project:
@@ -368,8 +368,6 @@ class Project:
             raise ValueError(f"precision must be auto, float32 or float64, got {precision!r}")
         if iterative_imputation == "full":
             raise NotImplementedError(_FULL_IMPUTATION)
-        if isinstance(exp_conditions, str) or isinstance(start_markers, str):
-            raise NotImplementedError(_CONDITIONS)
         resolve_device(device)
         self.device = device
         self.precision = precision
@@ -462,7 +460,11 @@ class Project:
         # Optional ego bodypart: distances restricted to pairs involving it.
         self.ego = False
         self.exp_conditions = exp_conditions
+        if isinstance(exp_conditions, str):
+            self.load_exp_conditions(exp_conditions)
         self.start_markers = start_markers
+        if isinstance(start_markers, str):
+            self.load_start_markers(start_markers)
         self.remove_outliers = remove_outliers
         self.interpolation_limit = interpolation_limit
         self.interpolation_std = interpolation_std
@@ -479,6 +481,15 @@ class Project:
         return f"deepof_tpu_torch analysis of {len(self.videos)} videos"
 
     __repr__ = __str__
+
+    def load_exp_conditions(self, filepath: str):
+        """Read the experimental conditions from a csv (io/conditions.py)."""
+        self.exp_conditions = load_exp_conditions(filepath)
+
+    def load_start_markers(self, filepath: str):
+        """Read the start markers from a csv, frame integers taken at the
+        project's frame rate (io/conditions.py)."""
+        self.start_markers = load_start_markers(filepath, self.frame_rate)
 
     def set_up_project_directory(self, debug: bool = False):
         """Create the output directory tree."""
@@ -880,16 +891,52 @@ class Coordinates:
         self._supervised_parameters = params
         self.save(timestamp=False)
 
-    def get_table_lengths(self, tab_dict_for_binning=None) -> Dict[str, int]:
-        """Frame count per experiment, of this project or of a TableDict."""
-        if tab_dict_for_binning is None:
-            return {key: len(tab) for key, tab in self._tables.items()}
-        from deepof_tpu_torch.core.storage import get_dt
+    def get_start_marker_values(self, start_marker, return_frames: bool = True) -> dict:
+        """Each recording's start marker ``start_marker``: its frame index at
+        the project's frame rate, or its time string."""
+        starts = {}
+        for key, table in (self._start_markers or {}).items():
+            if start_marker not in getattr(table, "columns", table):
+                raise ValueError(f"given start_marker is missing at key {key}")
+            value = _first_value(table, start_marker)
+            starts[key] = int(np.round(time_to_seconds(value) * self._frame_rate)) if return_frames else value
+        return starts
 
-        return {
-            k: int(get_dt(tab_dict_for_binning, k, only_metainfo=True)["num_rows"])
-            for k in tab_dict_for_binning.keys()
-        }
+    def get_end_times(self) -> Dict[str, str]:
+        """The time stamp of each recording's last frame, "HH:MM:SS.sssssssss"."""
+        return {key: seconds_to_time((len(tab) - 1) / self._frame_rate, cut_milliseconds=False)
+                for key, tab in self._tables.items()}
+
+    def get_table_lengths(self, tab_dict_for_binning=None, start_marker=None) -> Dict[str, int]:
+        """Frame count per experiment, of this project or of a TableDict;
+        with ``start_marker``, the frames from that marker on."""
+        if tab_dict_for_binning is None:
+            lengths = {key: len(tab) for key, tab in self._tables.items()}
+        else:
+            from deepof_tpu_torch.core.storage import get_dt
+
+            lengths = {
+                k: int(get_dt(tab_dict_for_binning, k, only_metainfo=True)["num_rows"])
+                for k in tab_dict_for_binning.keys()
+            }
+        if start_marker is None:
+            return lengths
+        out = {}
+        for key, full in lengths.items():
+            start = np.round(time_to_seconds(_first_value(self._start_markers[key], start_marker)) * self._frame_rate)
+            out[key] = int(np.round(full - start))
+            if out[key] <= 0:
+                raise ValueError(f"start marker {start_marker} at experiment {key} is exceeding the length "
+                                 "of the experiment table!")
+        return out
+
+    def load_exp_conditions(self, filepath: str):
+        """Read the experimental conditions from a csv (io/conditions.py)."""
+        self._exp_conditions = load_exp_conditions(filepath)
+
+    def load_start_markers(self, filepath: str):
+        """Read the start markers from a csv (io/conditions.py)."""
+        self._start_markers = load_start_markers(filepath, self._frame_rate)
 
     def save(self, filename: str = None, timestamp: bool = True, file: str = None):
         """Pickle the Coordinates object into the project's Coordinates folder."""

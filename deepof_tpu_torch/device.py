@@ -47,3 +47,20 @@ def to_device(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=dev, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+
+def fetch_together(tensors) -> list:
+    """Device tensors -> host numpy arrays, through one device-to-host copy
+    (per dtype: tensors of one dtype are concatenated and copied at once)."""
+    out = [None] * len(tensors)
+    by_dtype = {}
+    for i, x in enumerate(tensors):
+        by_dtype.setdefault(x.dtype, []).append(i)
+    for idx in by_dtype.values():
+        host = torch.cat([tensors[i].reshape(-1) for i in idx]).cpu().numpy()
+        start = 0
+        for i in idx:
+            x = tensors[i]
+            out[i] = host[start:start + x.numel()].reshape(tuple(x.shape))
+            start += x.numel()
+    return out

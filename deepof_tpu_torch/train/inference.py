@@ -25,7 +25,7 @@ import torch
 
 from deepof_tpu_torch.core.storage import get_dt
 from deepof_tpu_torch.core.table_dict import TableDict
-from deepof_tpu_torch.device import resolve_device, to_device
+from deepof_tpu_torch.device import fetch_together, resolve_device, to_device
 from deepof_tpu_torch.models.zoo import SERVING_KEYS
 from deepof_tpu_torch.ops.window_kernels import window_streams
 from deepof_tpu_torch.train.harness import ModelBundle
@@ -115,18 +115,6 @@ def scanned_windowed_forward(
     if not fetch:
         return embs, scs
     return embs.cpu().numpy(), scs.cpu().numpy()
-
-
-def _fetch_together(tensors):
-    """Device tensors -> host numpy arrays, through one device-to-host copy."""
-    if not tensors:
-        return []
-    host = torch.cat([x.reshape(-1) for x in tensors]).cpu().numpy()
-    out, start = [], 0
-    for x in tensors:
-        out.append(host[start:start + x.numel()].reshape(tuple(x.shape)))
-        start += x.numel()
-    return out
 
 
 def embedding_per_video(
@@ -231,7 +219,7 @@ def embedding_per_video(
         )
 
     # Every recording ran back to back on the device; one copy fetches all.
-    host = iter(_fetch_together([x for pair in pending.values() for x in pair if x is not None]))
+    host = iter(fetch_together([x for pair in pending.values() for x in pair if x is not None]))
     embeddings, soft_counts = {}, {}
     for key, (_, sc) in pending.items():
         embeddings[key] = next(host)

@@ -1,9 +1,13 @@
-"""Column helpers of the port (its own copy of
-``deepof_tpu/utils.py`` ``filter_columns``)."""
+"""Column and ROI helpers of the port (its own copies of
+``deepof_tpu/utils.py`` ``filter_columns`` and the ROI filters of time-bin
+info, which here take and return tensors on their device)."""
 
 from __future__ import annotations
 
 from typing import Optional
+
+import numpy as np
+import torch
 
 
 def filter_columns(columns, selected_id: Optional[str], table_type: str = None) -> list:
@@ -28,3 +32,78 @@ def filter_columns(columns, selected_id: Optional[str], table_type: str = None) 
         elif str(column[0]).lower().startswith("pheno"):
             keep.append(column)
     return keep
+
+
+# --------------------------------------------------------------------------- #
+# ROI filters of time-bin info (deepof_tpu/utils.py:714-805)
+# --------------------------------------------------------------------------- #
+
+
+def _as_list(animal_ids) -> list:
+    if isinstance(animal_ids, str):
+        return [animal_ids]
+    return [""] if animal_ids is None else list(animal_ids)
+
+
+def _mask(local_bin_info, aid, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(local_bin_info[aid], bool), device=like.device)
+
+
+def get_supervised_behaviors_in_roi(values: torch.Tensor, columns, local_bin_info, animal_ids,
+                                    roi_mode: str = "mousewise") -> torch.Tensor:
+    """A (T, C) supervised table ``values`` (float, labelled by ``columns``)
+    with the detections outside the ROI set to NaN. ``local_bin_info`` maps
+    each animal id to its (T,) in-ROI mask (and "time" to the frames).
+    "mousewise" blanks every frame where a requested animal is outside;
+    "behaviorwise" blanks the columns of no requested animal, and each
+    animal's columns where it is outside."""
+    if not animal_ids:
+        return values
+    animal_ids = _as_list(animal_ids)
+    if roi_mode == "mousewise":
+        inside = torch.stack([_mask(local_bin_info, aid, values) for aid in animal_ids]).all(dim=0)
+        return torch.where(inside[:, None], values, torch.nan)
+    if roi_mode != "behaviorwise":
+        raise NotImplementedError('roi_mode must be "mousewise" or "behaviorwise"')
+
+    def base_name(col):
+        return str(col[0] if isinstance(col, tuple) else col)
+
+    valid = [any(base_name(c).startswith(aid) for aid in animal_ids) for c in columns]
+    keep = torch.ones_like(values, dtype=torch.bool)
+    keep[:, [i for i, v in enumerate(valid) if not v]] = False
+    mask_ids = [k for k in local_bin_info if k != "time"]
+    for aid in mask_ids:
+        token = f"{aid}_" if len(mask_ids) > 1 else aid
+        cols = [i for i, c in enumerate(columns) if valid[i] and token in base_name(c)]
+        if cols:
+            keep[:, cols] &= _mask(local_bin_info, aid, values)[:, None]
+    return torch.where(keep, values, torch.nan)
+
+
+def get_behavior_frames_in_roi(behavior, local_bin_info, animal_ids) -> np.ndarray:
+    """The frames of ``local_bin_info["time"]`` on which the relevant animals
+    are inside the ROI: the animals named by a behavior's "{id}_" prefix,
+    else every requested animal."""
+    animal_ids = _as_list(animal_ids)
+    frames = np.array(local_bin_info["time"], copy=True)
+    if behavior is not None and any(f"{aid}_" in str(behavior) for aid in animal_ids):
+        checked = [aid for aid in local_bin_info if aid != "time" and f"{aid}_" in str(behavior)]
+    else:
+        checked = animal_ids
+    for aid in checked:
+        frames[~np.asarray(local_bin_info[aid], bool)] = -1
+    return frames[frames >= 0]
+
+
+def get_unsupervised_behaviors_in_roi(values: torch.Tensor, local_bin_info, animal_ids) -> torch.Tensor:
+    """Cluster assignments outside the ROI masked: -1 in (T,) hard labels,
+    NaN rows in (T, K) soft counts (as floating point)."""
+    out = values
+    for aid in _as_list(animal_ids):
+        bad = ~_mask(local_bin_info, aid, values)
+        if out.ndim == 1:
+            out = torch.where(bad, torch.full_like(out, -1), out)
+        else:
+            out = torch.where(bad[:, None], torch.nan, out if out.is_floating_point() else out.double())
+    return out

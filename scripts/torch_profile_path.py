@@ -4,6 +4,7 @@
     python3 scripts/torch_profile_path.py --train [--model VaDE] [--batch 256] [--steps 20]
     python3 scripts/torch_profile_path.py --supervised
     python3 scripts/torch_profile_path.py --cohort
+    python3 scripts/torch_profile_path.py --posthoc
 
 Drives the same 1-hour, 2-animal serving path as chip_smoke.py (warm: one
 untimed 2,000-frame and one untimed 1-hour run first, as chip_smoke.py
@@ -59,6 +60,16 @@ of them, once warm, once timed, once under the profiler. It prints the
 card, the timed and the profiled wall time, the device's busy share and
 kernel launches, the kernels ranked by device time and the host operators
 by their own CPU time. Its chrome trace is chiprun_out/torch_profile_cohort.json.
+
+With ``--posthoc``, one post-hoc pass (chip_smoke.py ``lab_cohort_pass``:
+time on cluster, mean embeddings, enrichment, per-condition transitions +
+steady states) on chip_smoke.py's synthetic lab cohort (24 recordings x
+45,000 frames, K 10, D 8, float64), once warm, once timed, once under the
+profiler. It prints the card, the timed pass and its stages, the profiled
+wall time, the device's kernel and copy seconds and their share of it,
+kernel launches, the copies by kind, the kernels and copies ranked by
+device time and the host operators by their own CPU time. Its chrome trace
+is chiprun_out/torch_profile_posthoc.json.
 """
 
 from __future__ import annotations
@@ -374,6 +385,41 @@ def _profile_cohort(torch, chip_smoke) -> None:
     prof.export_chrome_trace(os.path.join(out_dir, "torch_profile_cohort.json"))
 
 
+def _profile_posthoc(torch, chip_smoke) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    card = _card()
+    n_rec, frames, k, d = chip_smoke.POSTHOC_COHORT
+    counts, emb, conds = chip_smoke.synthetic_cohort(n_rec, frames, k, d)
+    chip_smoke.lab_cohort_pass(counts, emb, conds, "cuda")
+    t0 = time.perf_counter()
+    stages, _ = chip_smoke.lab_cohort_pass(counts, emb, conds, "cuda")
+    timed_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chip_smoke.lab_cohort_pass(counts, emb, conds, "cuda")
+        wall_s = time.perf_counter() - t0
+    rows = _kernels(torch, prof)
+    host = _host_ops(torch, prof)
+    copies = [r for r in rows if r[2].startswith("Memcpy")]
+    kernels = [r for r in rows if not r[2].startswith("Memcpy")]
+    kernel_s, copy_s = sum(r[0] for r in kernels) / 1e6, sum(r[0] for r in copies) / 1e6
+    runtime = {key: count for _, count, key in host if key.startswith("cuda")}
+    print(card)
+    print(json.dumps({
+        "card": card, "recordings": n_rec, "frames": n_rec * frames, "clusters": k, "embedding_dim": d,
+        "timed_s": timed_s, "timed_stages_s": stages, "profiled_wall_s": wall_s,
+        "kernel_s": kernel_s, "copy_s": copy_s, "device_busy_share": (kernel_s + copy_s) / wall_s,
+        "copy_share": copy_s / wall_s, "kernel_launches": sum(r[1] for r in kernels),
+        "copies": {key: {"ms": us / 1e3, "count": n} for us, n, key in copies}, "cuda_runtime_calls": runtime,
+    }))
+    _print_table(rows, 20)
+    _print_table(host, 25, what="host operator")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "torch_profile_posthoc.json"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", help="checkout of the port to profile (default: this one)")
@@ -386,6 +432,8 @@ def main() -> int:
                     help="profile supervised_annotation on the public project instead of the path")
     ap.add_argument("--cohort", action="store_true",
                     help="profile the general route's scaling pass on chip_smoke.py's cohort instead")
+    ap.add_argument("--posthoc", action="store_true",
+                    help="profile one post-hoc pass on chip_smoke.py's synthetic lab cohort instead")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root or REPO))
     import chip_smoke  # the serving-path setup lives there
@@ -407,6 +455,9 @@ def main() -> int:
         return 0
     if args.cohort:
         _profile_cohort(torch, chip_smoke)
+        return 0
+    if args.posthoc:
+        _profile_posthoc(torch, chip_smoke)
         return 0
     card = _card()
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]

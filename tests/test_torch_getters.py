@@ -263,8 +263,13 @@ def test_metadata_getters(sides):
             p_coords.get_condition_values("other")
     finally:
         p_coords._exp_conditions = p_coords._start_markers = None
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        Project(**{**_project_args(sides["root"], "csv"), "exp_conditions": "conditions.csv"}, device="cpu")
+    conditions = os.path.join(sides["root"], "conditions.csv")
+    with open(conditions, "w") as f:
+        f.write(",experiment_id,CSDS\n0,test,Stressed\n1,test2,Control\n")
+    loaded = Project(**{**_project_args(sides["root"], "csv"), "exp_conditions": conditions}, device="cpu")
+    assert loaded.exp_conditions == {"test": {"CSDS": ["Stressed"]}, "test2": {"CSDS": ["Control"]}}
+    with pytest.raises(FileNotFoundError):
+        Project(**{**_project_args(sides["root"], "csv"), "exp_conditions": "no_such.csv"}, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         p_coords.get_distances(return_path=True)
 
