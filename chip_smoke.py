@@ -139,7 +139,23 @@
    package's outputs (tests/data/vade_reference.npz, written by
    scripts/make_torch_reference.py): embeddings and soft counts within
    1e-5, the count of differing hard labels reported.
-11. Prints a stage line of each path, a kernels line, and last
+11. Soft counts: the HMM recursion kernel (csrc/hmm_scan.cu, ``hmm_scan``)
+   held against ``hmm_scan_plain`` on the card at K 2-32, N 1-24, T 1-1000
+   and at the cohort's (3, 26,976, 10) (the long-sequence rule: 1e-4 of
+   max(1, |value|), gamma's difference reported), timed there and at the
+   lab cohort's (24, 45,000, 10) against its bound; then on the cohort,
+   each call from a reset of the kernels' counts, ``embedding_per_video``
+   with ``softcounts_extraction_method`` "gmm", "msm", "hmm" and
+   "combined" at their defaults (shapes, rows summing to 1, hmm_scan
+   launched only by "hmm"), ``recluster(states=10)`` and
+   ``get_contrastive_soft_counts(states="bic")`` (2-25 states); card vs
+   CPU on the prefix copy from the same host embeddings (distance-gate bins
+   and hard labels differing on at most 0.1% of windows, soft counts where
+   the bins agree within 1e-4 for the MSM decoders, 1e-2 for the GMM and
+   2e-2 for the HMM, whose float32 posteriors are ill-conditioned); and
+   the 10-state HMM and the MSM on the seeded lab cohort, fit and decode
+   timed, with launches and host reads.
+12. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -1728,7 +1744,7 @@ def _cohort_phase(torch, card, tmp):
         "fit_batches": [TRAIN_BATCHES, VAL_BATCHES], "losses": summary, "card_vs_cpu": errs,
         "write_csv_s": write_s, "phase_s": time.perf_counter() - t_phase, "card": card,
     }
-    return line, launches, {"coords": coords, "graph_dataset": ggd, "bundle": bundle}
+    return line, launches, {"coords": coords, "graph_dataset": ggd, "bundle": bundle, "prefix": prefix}
 
 
 POSTHOC_RTOL = 1e-10  # card vs CPU from the same inputs; counts, labels and masks exactly
@@ -2018,6 +2034,279 @@ def _posthoc_phase(torch, card, cohort):
     return line, launches
 
 
+# Phase 11: soft-count extraction on the cohort's VaDE embeddings.
+# Columns of each method's counts at the defaults (K 10, M_gates 3; "combined"
+# appends the chaotic half of the two-bin chaos gate's 20).
+SOFTCOUNT_METHODS = {"gmm": 30, "msm": 30, "hmm": 10, "combined": 40}
+# hmm_scan against hmm_scan_plain on the card, (K, N, T), each value within
+# HMM_TOL of max(1, |value|): the same float32 recursions, the kernel's
+# max and sum as trees, its expf / logf against PyTorch's.
+HMM_CHECK = [(k, n, t) for k in (2, 10, 25, 32) for n in (1, 3, 24) for t in (1, 2, 1_000)]
+HMM_TOL = 1e-5
+# The cohort's shape, where |log alpha| reaches ~1e5 and one float32 ulp is
+# ~0.008: the long-sequence rule, 1e-4 of max(1, |value|); gamma's
+# difference and the share of frames whose argmax differs are reported.
+HMM_LONG = (3, 26_976, 10)
+HMM_LONG_TOL = 1e-4
+HMM_TIMED = (HMM_LONG, (24, 45_000, 10))  # the cohort and the lab cohort
+GATE_DIFF_MAX = 1e-3  # share of windows whose gate bin may differ card vs CPU
+# Card vs CPU soft counts (float32 both) where the gate bins agree, of
+# max(1, max |value|). The MSM decoders' labels come out equal, so their
+# memberships agree to rounding (1e-4). The GMM's and the HMM's posteriors
+# are exponentials of float32 log-likelihoods of magnitude ~1e3 (a full
+# covariance's Mahalanobis terms) and ~1e5 (a sequence's forward
+# variables), whose last-bit differences move a posterior near a boundary
+# by ~1e-3, and the HMM's 50 EM iterations carry them on (seen 3.43e-4 to
+# 1.81e-3 for the GMM and 1.79e-3 to 4.91e-3 for the HMM over three runs,
+# no hard label differing; NVIDIA H100 80GB HBM3, 700.00 W): 1e-2 and
+# 2e-2, with hard labels differing on at most GATE_DIFF_MAX of the windows.
+SOFTCOUNT_RTOL = {"gmm": 1e-2, "msm": 1e-4, "hmm": 2e-2, "combined": 1e-4}
+CONTRASTIVE_MAX_STATES = 25
+
+
+def _hmm_inputs(torch, g, n, t, k):
+    """Seeded (log_b, log_pi, log_a) on the card: emissions of -5 +- 3 nats,
+    a diagonal-heavy transition matrix."""
+    log_b = torch.randn(n, t, k, generator=g) * 3 - 5
+    a = torch.rand(k, k, generator=g) + torch.eye(k) * k
+    pi = torch.rand(k, generator=g)
+    return [v.to("cuda").contiguous() for v in (log_b, torch.log(pi / pi.sum()), torch.log(a / a.sum(1, keepdim=True)))]
+
+
+def _hmm_errs(torch, got, want):
+    """(max abs, max abs / max(1, |plain|)) over both recursions."""
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want)) if want[0].numel() else 0.0
+    rel_err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) for a, b in zip(got, want)) \
+        if want[0].numel() else 0.0
+    return abs_err, rel_err
+
+
+def _check_time_hmm(torch):
+    """hmm_scan against hmm_scan_plain on the card at HMM_CHECK and at the
+    cohort's length, then timed at HMM_TIMED against its bound (its plain
+    version timed once, at the cohort's shape). Returns (max abs err, max
+    rel err, the long-sequence report, the timing of each shape)."""
+    from deepof_tpu_torch.ops.hmm_kernels import hmm_scan, hmm_scan_plain
+
+    g = torch.Generator().manual_seed(0)
+    worst = (0.0, 0.0)
+    for k, n, t in HMM_CHECK:
+        args = _hmm_inputs(torch, g, n, t, k)
+        got = hmm_scan(*args)
+        torch.cuda.synchronize()
+        errs = _hmm_errs(torch, got, hmm_scan_plain(*args))
+        worst = (max(worst[0], errs[0]), max(worst[1], errs[1]))
+    _log(f"hmm_scan vs plain at {len(HMM_CHECK)} shapes (K 2-32, N 1-24, T 1-1000): max|diff| {worst[0]:.3e}, "
+         f"max|diff| / max(1, |plain|) {worst[1]:.3e} (tol {HMM_TOL:.0e})")
+    if not worst[1] <= HMM_TOL:
+        _fail(f"hmm_scan disagrees with its plain version: {worst}")
+
+    n, t, k = HMM_LONG
+    args = _hmm_inputs(torch, g, n, t, k)
+    got = hmm_scan(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = hmm_scan_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    abs_err, rel_err = _hmm_errs(torch, got, want)
+
+    def gamma(alpha, beta):
+        ll = torch.logsumexp(alpha[:, -1], dim=-1)
+        return torch.softmax(alpha + beta - ll[:, None, None], dim=-1)
+
+    g_card, g_plain = gamma(*got), gamma(*want)
+    long = {"shape": list(HMM_LONG), "max_rel_err": rel_err, "max_abs_err": abs_err,
+            "gamma_max_abs_diff": float((g_card - g_plain).abs().max()),
+            "argmax_differing_share": float((g_card.argmax(-1) != g_plain.argmax(-1)).double().mean())}
+    _log(f"hmm_scan vs plain at {HMM_LONG}: {long} (tol {HMM_LONG_TOL:.0e} on the recursions)")
+    if not rel_err <= HMM_LONG_TOL:
+        _fail(f"hmm_scan disagrees with its plain version at the cohort's length: {long}")
+
+    timed = []
+    for n, t, k in HMM_TIMED:
+        args = _hmm_inputs(torch, g, n, t, k)
+        ms = _cuda_ms(torch, lambda: hmm_scan(*args), reps=5, warmup=1)
+        n_bytes = 4 * (3 * n * t * k + k + k * k)  # log_b, log_pi, log_a read; two outputs written
+        flop = 2 * n * t * k * (5 * k + 2)  # per state-step and pass: K adds, max, sub, exp, sum; log, add
+        by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flop / PEAK_FP32 * 1e3
+        timed.append({"shape": f"log_b ({n}, {t}, {k}) float32", "ms": ms, "ns_per_step": ms * 1e6 / t,
+                      "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"})
+    timed[0]["plain_ms"] = plain_ms
+    _log(f"hmm_scan timed: {timed}")
+    return worst[0], max(worst[1], rel_err), long, timed
+
+
+def _kernel_counts(reset=False):
+    """{kernel: launches since the last reset}, or set every count to 0."""
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_backward
+    from deepof_tpu_torch.ops.hmm_kernels import hmm_scan
+    from deepof_tpu_torch.ops.window_kernels import window_streams
+
+    fns = {"window_streams": window_streams, "gru_scan": gru_scan, "gru_scan_bwd": gru_scan_backward,
+           "hmm_scan": hmm_scan}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def _gate_bins(masks, m_eff):
+    """{(gate, key): (T,) bin index of each window (-1 in none)}."""
+    out = {}
+    for gate, bins in masks.items():
+        for key in bins[0]:
+            idx = np.full(len(bins[0][key]), -1)
+            for b in range(m_eff):
+                idx[np.asarray(bins[b][key], bool)] = b
+            out[(gate, key)] = idx
+    return out
+
+
+def _softcounts_card_vs_cpu(torch, prefix, bundle):
+    """The four methods card vs CPU (float32 both) on the cohort's prefix
+    copy, from the same host embeddings (the card's served ones): the
+    windows whose distance-gate bin differs (at most GATE_DIFF_MAX), the
+    soft counts where the bins agree (every window for "hmm"; SOFTCOUNT_RTOL
+    of max(1, max |value|)), and the hard labels that differ (at most
+    GATE_DIFF_MAX of the windows)."""
+    from deepof_tpu_torch import gating
+    from deepof_tpu_torch.train.inference import _extract_soft_counts, embedding_per_video
+
+    on_card = _cohort_project(prefix, "cuda")
+    on_cpu = _cohort_project(prefix, "cpu", precision="float32")
+    ggd = on_card.get_graph_dataset(**TUTORIAL)
+    emb, _ = embedding_per_video(on_card, ggd[3], bundle, ggd[1], animal_id="B", global_scaler=ggd[4],
+                                 batch_size=BLOCK)
+    emb = {k: np.asarray(v) for k, v in emb.items()}
+    bins = [_gate_bins(gating._preprocess_gates(c, emb, None, WINDOW, None, 3, "Center", None, dev)[2], 3)
+            for c, dev in ((on_card, torch.device("cuda")), (on_cpu, torch.device("cpu")))]
+    n_windows = sum(len(v) for v in bins[1].values())
+    differ = sum(int((bins[0][gk] != bins[1][gk]).sum()) for gk in bins[1])
+    agree = {key: bins[0][(gate, key)] == bins[1][(gate, key)] for gate, key in bins[1]}  # one gate: B-W
+    out = {"windows": n_windows, "gate_bins_differing": differ}
+    _log(f"softcounts copy: distance-gate bins differing card vs CPU: {differ} of {n_windows} windows "
+         f"(at most {GATE_DIFF_MAX:.1%})")
+    if differ > GATE_DIFF_MAX * n_windows:
+        _fail(f"the card's gate bins differ from the CPU's on {differ} of {n_windows} windows")
+    for method in SOFTCOUNT_METHODS:
+        counts = [_extract_soft_counts(c, emb, method, N_COMPONENTS, N_COMPONENTS, WINDOW, None, None, "Center", 3,
+                                       0.75, 0.5, 200, 3, dev)
+                  for c, dev in ((on_card, torch.device("cuda")), (on_cpu, torch.device("cpu")))]
+        rows = {k: slice(None) if method == "hmm" else agree[k] for k in emb}
+        err = max(_rel_err(counts[0][k][rows[k]], counts[1][k][rows[k]]) for k in emb)
+        hard = sum(int((counts[0][k].argmax(1) != counts[1][k].argmax(1)).sum()) for k in emb)
+        out[method] = {"max_rel_err": err, "hard_labels_differing": hard}
+        tol = SOFTCOUNT_RTOL[method]
+        _log(f"softcounts copy, {method}, card vs CPU where the bins agree: {err:.3e} (tol {tol:.0e}), "
+             f"hard labels differing {hard} of {n_windows} (at most {GATE_DIFF_MAX:.1%})")
+        if not (err <= tol and hard <= GATE_DIFF_MAX * n_windows):
+            _fail(f"card and CPU disagree on the {method} soft counts of the cohort copy: {out[method]}")
+    return out
+
+
+def _softcounts_lab_cohort(torch):
+    """The two ungated decoders at a lab's size (phase 10's seeded cohort,
+    24 x 45,000 frames, D 8): a 10-state HMM and a 10-macrostate MSM, each
+    fit and decode timed, with the kernel's launches and the fit's host
+    reads."""
+    from deepof_tpu_torch import msm
+
+    n_rec, frames, k, d = POSTHOC_COHORT
+    _, emb, _ = synthetic_cohort(n_rec, frames, k, d)
+    seqs = {key: np.asarray(v, np.float32) for key, v in emb.items()}
+    out = {"recordings": n_rec, "frames": n_rec * frames}
+    torch.cuda.synchronize()
+    _kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    model = msm.GaussianHMM(N_COMPONENTS, device="cuda").fit(np.stack(list(seqs.values())))
+    t1 = time.perf_counter()
+    hmm = model._decode(list(seqs.values()), [None] * n_rec)
+    t2 = time.perf_counter()
+    out["hmm"] = {"fit_s": t1 - t0, "decode_s": t2 - t1, "frames_per_s": n_rec * frames / (t2 - t0),
+                  "launches": _kernel_counts()["hmm_scan"], "host_reads": 2}
+    t0 = time.perf_counter()
+    fit = msm.fit_msm_pcca(seqs, n_macro=N_COMPONENTS, device="cuda")
+    t1 = time.perf_counter()
+    msm_counts = msm.decode_msm(fit, seqs)
+    t2 = time.perf_counter()
+    km = fit["kmeans"]
+    out["msm"] = {"fit_s": t1 - t0, "decode_s": t2 - t1, "frames_per_s": n_rec * frames / (t2 - t0),
+                  "minibatch_steps_and_host_reads": km.n_steps_,
+                  "kmeanspp_host_copies": km.n_init * km.n_clusters, "reassigned": km.reassigned_}
+    for name, counts, width in (("hmm", hmm, N_COMPONENTS), ("msm", list(msm_counts.values()), N_COMPONENTS)):
+        for c in counts:
+            if c.shape != (frames, width) or not np.isfinite(c).all() or np.abs(c.sum(1) - 1).max() > 1e-4:
+                _fail(f"lab cohort {name} soft counts: {c.shape}, finite {np.isfinite(c).all()}")
+    _log(f"softcounts lab cohort: {out}")
+    return out
+
+
+def _softcounts_phase(torch, card, cohort):
+    """Phase 11: soft-count extraction. hmm_scan against its plain version
+    and timed (:func:`_check_time_hmm`); then on the cohort, with the
+    kernels' counts reset before each call, embedding_per_video with each
+    method at its defaults (K 10, M_gates 3, n_micro 200, lagtime 3, the
+    Center distance gate of the B-W pair), recluster(states=10) and
+    get_contrastive_soft_counts(states="bic") on the served embeddings;
+    card vs CPU on the prefix copy (:func:`_softcounts_card_vs_cpu`); and
+    the lab cohort (:func:`_softcounts_lab_cohort`). Returns (the
+    softcounts line, {path: launches}, the kernel's errors and times)."""
+    from deepof_tpu_torch import posthoc as ph
+    from deepof_tpu_torch.train.inference import embedding_per_video
+
+    t_phase = time.perf_counter()
+    hmm_abs, hmm_rel, long, timed = _check_time_hmm(torch)
+    coords, (_, meta, _, tab_dict, scaler), bundle = (cohort["coords"], cohort["graph_dataset"], cohort["bundle"])
+    n_windows = min(COHORT_FRAMES) - WINDOW + 1
+    calls, launches, sums = {}, {}, {}
+    emb = None
+    for method, width in SOFTCOUNT_METHODS.items():
+        torch.cuda.synchronize()
+        _kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        emb, counts = embedding_per_video(coords, tab_dict, bundle, meta, animal_id="B", global_scaler=scaler,
+                                          batch_size=BLOCK, softcounts_extraction_method=method)
+        calls[method] = time.perf_counter() - t0
+        launches[method] = _kernel_counts()
+        sums[method] = max(float(np.abs(counts[k].sum(1) - 1).max()) for k in COHORT_KEYS)
+        for key in COHORT_KEYS:
+            if counts[key].shape != (n_windows, width) or not np.isfinite(counts[key]).all():
+                _fail(f"softcounts {method} {key}: shape {counts[key].shape}, not ({n_windows}, {width})")
+        if method != "combined" and not sums[method] <= 1e-4:
+            _fail(f"softcounts {method}: rows do not sum to 1 ({sums[method]})")
+        _log(f"softcounts {method}: {calls[method]:.3f} s, launches {launches[method]}, shape "
+             f"{counts[COHORT_KEYS[0]].shape} a recording, rows' max |sum - 1| {sums[method]:.2e}")
+    if launches["hmm"]["hmm_scan"] <= 0 or any(launches[m]["hmm_scan"] for m in ("gmm", "msm", "combined")):
+        _fail(f"hmm_scan launches on the softcounts path: {launches}")
+
+    for name, fn in (("recluster", lambda: ph.recluster(coords, emb, states=N_COMPONENTS, save=False)),
+                     ("contrastive_bic", lambda: ph.get_contrastive_soft_counts(
+                         coords, emb, states="bic", max_states=CONTRASTIVE_MAX_STATES))):
+        torch.cuda.synchronize()
+        _kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        out = fn()
+        calls[name] = time.perf_counter() - t0
+        launches[name] = _kernel_counts()
+        k_out = out[COHORT_KEYS[0]].shape[1]
+        for key in COHORT_KEYS:
+            if out[key].shape != (n_windows, k_out) or np.abs(out[key].sum(1) - 1).max() > 1e-4:
+                _fail(f"softcounts {name} {key}: shape {out[key].shape} or rows not summing to 1")
+        _log(f"softcounts {name}: {calls[name]:.3f} s, {k_out} states, launches {launches[name]}")
+
+    card_vs_cpu = _softcounts_card_vs_cpu(torch, cohort["prefix"], bundle)
+    lab = _softcounts_lab_cohort(torch)
+    launches["lab_hmm"] = {"hmm_scan": lab["hmm"]["launches"]}
+    line = {
+        "path": "softcounts", "recordings": len(COHORT_KEYS), "windows_per_recording": n_windows,
+        "calls_s": calls, "launches": launches, "rows_max_abs_sum_err": sums,
+        "contrastive_max_states": CONTRASTIVE_MAX_STATES, "hmm_scan_long": long, "hmm_scan_timed": timed,
+        "card_vs_cpu": card_vs_cpu, "lab_cohort": lab, "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    return line, launches, (hmm_abs, hmm_rel, timed)
+
+
 def main() -> int:
     import torch
 
@@ -2097,9 +2386,9 @@ def main() -> int:
     launches["gru_scan_bwd"] = bwd_launches
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
-    # Phases 4-10: the public path, the getters, supervised annotation,
-    # training and VaDE on its project, then the cohort and its group
-    # comparison.
+    # Phases 4-11: the public path, the getters, supervised annotation,
+    # training and VaDE on its project, then the cohort, its group
+    # comparison and its soft counts.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
     try:
         public_line, public_launches, full, tables = _public_phase(torch, card, tmp)
@@ -2112,6 +2401,7 @@ def main() -> int:
         del data
         cohort_line, cohort_launches, cohort = _cohort_phase(torch, card, tmp)
         posthoc_line, posthoc_launches = _posthoc_phase(torch, card, cohort)
+        softcounts_line, softcounts_launches, hmm_res = _softcounts_phase(torch, card, cohort)
         del cohort
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2124,6 +2414,7 @@ def main() -> int:
     print(json.dumps(vade_line), flush=True)
     print(json.dumps(cohort_line), flush=True)
     print(json.dumps(posthoc_line), flush=True)
+    print(json.dumps(softcounts_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,
         "first_stages_s": first_stages, "first_run_s": first_run_s,
@@ -2137,8 +2428,10 @@ def main() -> int:
     # beside it.
     by_path = {name: {"raw_keypoints": launches[name], **{p: c[name] for p, c in public_launches.items()},
                       "training": train_launches[name], **{p: c[name] for p, c in vade_launches.items()},
-                      "cohort": cohort_launches[name], "posthoc": posthoc_launches[name]}
+                      "cohort": cohort_launches[name], "posthoc": posthoc_launches[name],
+                      **{f"softcounts_{p}": c[name] for p, c in softcounts_launches.items() if name in c}}
                for name in ("window_streams", "gru_scan", "gru_scan_bwd")}
+    hmm_abs, hmm_rel, hmm_timed = hmm_res
     kernels = [
         {"name": "window_streams", "route": "cuda",
          "source": "deepof_tpu_torch/csrc/window_gather.cu",
@@ -2155,6 +2448,13 @@ def main() -> int:
          "replaces": "deepof_tpu/models/blocks.py:78 (no TPU kernel: XLA's derivative of flax nn.scan)",
          "launches": train_launches["gru_scan_bwd"], "launches_by_path": by_path["gru_scan_bwd"],
          "max_abs_err": bwd_err[0], "max_rel_err": bwd_err[1], **bwd_t[0], "at_shapes": bwd_t},
+        {"name": "hmm_scan", "route": "cuda",
+         "source": "deepof_tpu_torch/csrc/hmm_scan.cu",
+         "replaces": "deepof_tpu/msm.py:39 (no TPU kernel: XLA's lax.scan of _forward_backward)",
+         "launches": softcounts_launches["hmm"]["hmm_scan"],
+         "launches_by_path": {f"softcounts_{p}": c["hmm_scan"] for p, c in softcounts_launches.items()},
+         "max_abs_err": hmm_abs, "max_rel_err": hmm_rel, **hmm_timed[0], "library_ms": None,
+         "at_shapes": hmm_timed},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

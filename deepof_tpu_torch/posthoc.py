@@ -1,8 +1,10 @@
 """Post-hoc statistics over the served embeddings, soft counts and
 supervised tags, and the kinematics tables the supervised engine reads
 (port of ``deepof_tpu/posthoc.py``: ``_kinematics_table_views`` :76, the
-cluster usage statistics :222-421, transitions :423-571 and condition
-separability :574-736).
+cluster usage statistics :222-421, transitions :423-571, condition
+separability :574-736 and HMM reclustering :1114). The gating API and
+``get_contrastive_soft_counts`` are re-exported here, where the JAX package
+exposes them (:30-38).
 
 Every entry point takes ``device`` (default "cuda"; it raises without a GPU
 unless given "cpu"). Each recording's table is uploaded once per call in
@@ -23,13 +25,26 @@ array of row indices (the JAX package reads a 2-element one as a span).
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence
+import os
+import pickle
+import warnings
+from typing import Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from deepof_tpu_torch.core.storage import DeviceTable, _slice_obj, _take, get_dt
+from deepof_tpu_torch.core.table_dict import TableDict
 from deepof_tpu_torch.device import fetch_together, resolve_device
+from deepof_tpu_torch.gating import (  # noqa: F401 -- the JAX package's post-hoc names
+    add_chaos_gates,
+    compute_gate_edges,
+    get_contrastive_soft_counts_gmm,
+    get_contrastive_soft_counts_msm_pcca,
+    get_pairwise_distances,
+    get_supervised_chaos,
+)
+from deepof_tpu_torch.msm import GaussianHMM, fit_hmm_range, get_contrastive_soft_counts, get_soft_counts_hmm  # noqa: F401
 from deepof_tpu_torch.utils import (
     filter_columns,
     get_behavior_frames_in_roi,
@@ -586,3 +601,60 @@ def condition_distance_binning(
     emb = _DeviceTables(embedding, dev) if embedding is not None else None
     counts = _DeviceTables(soft_counts, dev)
     return np.asarray([_separation(emb, counts, b, exp_conditions, agg, metric) for b in bin_infos])
+
+
+def recluster(
+    coordinates,
+    embeddings: TableDict,
+    soft_counts: TableDict = None,
+    min_confidence: float = 0.75,
+    states: Union[int, str] = "aic",
+    pretrained: Union[bool, str] = False,
+    covariance_type: str = "diag",
+    min_states: int = 2,
+    max_states: int = 12,
+    save: bool = True,
+    device=None,
+) -> TableDict:
+    """HMM reclustering of the embedding space (``deepof_tpu/posthoc.py:1114``).
+
+    With ``soft_counts``, the decode of an HMM of their width is biased by
+    them (rows below ``min_confidence`` fall back to a uniform prior).
+    Otherwise the state count is ``states`` when an int, else chosen by
+    "aic" / "bic" over [min_states, max_states]. The HMM is diagonal
+    (:class:`msm.GaussianHMM`). ``pretrained`` is a pickle path, or True for
+    ``Trained_models/hmm_trained_{states}.pkl`` of the project, which
+    ``save`` writes. Pickles are this package's own (numpy parameters).
+    ``device`` defaults to the project's."""
+    if covariance_type != "diag":
+        warnings.warn(f"deepof_tpu_torch HMMs are diagonal-covariance; ignoring covariance_type={covariance_type!r}.")
+    dev = resolve_device(coordinates._device if device is None and coordinates is not None else (device or "cuda"))
+
+    def model_path():
+        return os.path.join(coordinates._project_path, coordinates._project_name, "Trained_models",
+                            f"hmm_trained_{states}.pkl")
+
+    seqs = {k: np.asarray(get_dt(embeddings, k), np.float32) for k in embeddings.keys()}
+    model = None
+    if pretrained:
+        with open(pretrained if isinstance(pretrained, str) else model_path(), "rb") as f:
+            model = pickle.load(f)[0]
+        model.device = dev
+    if model is None and soft_counts is not None:
+        out = get_soft_counts_hmm(embeddings, soft_counts={k: np.asarray(get_dt(soft_counts, k))
+                                                           for k in soft_counts.keys()},
+                                  min_confidence=min_confidence, device=dev)
+    else:
+        if model is None:
+            if isinstance(states, int):
+                min_t = min(s.shape[0] for s in seqs.values())
+                model = GaussianHMM(int(states), device=dev).fit(np.stack([s[:min_t] for s in seqs.values()]))
+            else:
+                model, _ = fit_hmm_range(seqs, states, min_states=min_states, max_states=max_states, device=dev)
+            if save and coordinates is not None:
+                os.makedirs(os.path.dirname(model_path()), exist_ok=True)
+                with open(model_path(), "wb") as f:
+                    pickle.dump([model], f)
+        out = dict(zip(seqs, model._decode(list(seqs.values()), [None] * len(seqs))))
+    return TableDict(out, typ="unsupervised_counts", table_path=embeddings._table_path,
+                     animal_ids=embeddings._animal_ids, exp_conditions=embeddings._exp_conditions)

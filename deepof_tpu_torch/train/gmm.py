@@ -100,15 +100,20 @@ def _gaussian_parameters(x, resp, reg_covar):
     return nk, means, covariances
 
 
-def _e_step(x, weights, means, covariances):
-    """(mean log-likelihood, log responsibilities (N, K)), sklearn's diagonal
+def _weighted_log_prob(x, weights, means, covariances):
+    """(N, K) log densities plus log weights: sklearn's diagonal
     ``_estimate_log_gaussian_prob`` through its precisions."""
     prec_chol = 1.0 / torch.sqrt(covariances)
     precisions = prec_chol ** 2
     log_prob = (torch.sum(means ** 2 * precisions, 1) - 2.0 * (x @ (means * precisions).T)
                 + (x ** 2 @ precisions.T))
-    weighted = -0.5 * (x.shape[1] * math.log(2 * math.pi) + log_prob) + torch.log(prec_chol).sum(1) \
+    return -0.5 * (x.shape[1] * math.log(2 * math.pi) + log_prob) + torch.log(prec_chol).sum(1) \
         + torch.log(weights)
+
+
+def _e_step(x, weights, means, covariances):
+    """(mean log-likelihood, log responsibilities (N, K))."""
+    weighted = _weighted_log_prob(x, weights, means, covariances)
     norm = torch.logsumexp(weighted, dim=1)
     return norm.mean(), weighted - norm[:, None]
 

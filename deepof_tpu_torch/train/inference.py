@@ -1,9 +1,11 @@
 """Embeddings and soft counts for every stride-1 window of every recording
 (port of deepof_tpu/train/inference.py:204 ``scanned_windowed_forward`` and
-:287 ``embedding_per_video``, its model-head branch, with the VQ-VAE's and
-VaDE's outputs as ``_model_forward_fn`` :96-110 picks them: the VQ-VAE's
-encoder output and soft counts, VaDE's latent (z_mean) and categorical
-posterior).
+:287 ``embedding_per_video``, with the VQ-VAE's and VaDE's outputs as
+``_model_forward_fn`` :96-110 picks them: the VQ-VAE's encoder output and
+soft counts, VaDE's latent (z_mean) and categorical posterior). Soft counts
+come from the model's head, or from the embeddings through the gated GMM,
+the gated MSM + PCCA+, the Gaussian HMM or "combined" (``gating.py``,
+``msm.py``) when ``softcounts_extraction_method`` names one.
 
 Windows never exist on the host: the scaled (T, F) frame is on the device,
 and for each block of ``block`` windows one launch of the window kernel
@@ -20,17 +22,40 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import warnings
+
 import numpy as np
 import torch
 
+from deepof_tpu_torch import gating
 from deepof_tpu_torch.core.storage import get_dt
 from deepof_tpu_torch.core.table_dict import TableDict
 from deepof_tpu_torch.device import fetch_together, resolve_device, to_device
 from deepof_tpu_torch.models.zoo import SERVING_KEYS
+from deepof_tpu_torch.msm import get_soft_counts_hmm
 from deepof_tpu_torch.ops.window_kernels import window_streams
 from deepof_tpu_torch.train.harness import ModelBundle
 
 __all__ = ["ModelBundle", "embedding_per_video", "scanned_windowed_forward", "stream_tables"]
+
+EXTRACTION_METHODS = ("gmm", "msm", "hmm", "combined")
+
+
+def _extract_pair_to_gate_key(coordinates, extract_pair: Optional[list]):
+    """The gate key of the soft-counts dict an ``extract_pair`` selects."""
+    animal_ids = list(coordinates._animal_ids or [""])
+    if extract_pair is None:
+        if len(animal_ids) <= 1:
+            return ""
+        return tuple(sorted(animal_ids[:2]))
+    if extract_pair == [""]:
+        return ""
+    if not isinstance(extract_pair, (list, tuple)) or len(extract_pair) != 2:
+        raise AssertionError('extract_pair must be a two-id list, or [""] for single-animal')
+    a, b = extract_pair
+    if a not in animal_ids or b not in animal_ids:
+        raise AssertionError(f"Animal IDs {a}, {b} not in {animal_ids}")
+    return tuple(sorted([a, b]))
 
 
 def stream_tables(layout: Dict, use_gnn: bool = True):
@@ -130,9 +155,17 @@ def embedding_per_video(
     n_components: Optional[int] = None,
     samples_max: int = 227272,
     batch_size: int = 256,
+    extract_pair: Optional[list] = None,
+    embedding_gates: Any = "Center",
+    states_per_gate: Optional[int] = None,
+    M_gates: int = 3,
+    quality_threshold: float = 0.75,
+    frac_bps_below: float = 0.5,
+    n_micro: int = 200,
+    lagtime: int = 3,
     device=None,
 ):
-    """Embeddings and soft counts of every experiment, from the model's head.
+    """Embeddings and soft counts of every experiment.
 
     Args:
         coordinates: the project's Coordinates.
@@ -149,6 +182,17 @@ def embedding_per_video(
             match), its scaled frames are reused; otherwise the merged
             frames are scaled again with it.
         batch_size: windows per encoder call.
+        softcounts_extraction_method: None (the model's head) | "gmm" |
+            "msm" | "hmm" | "combined". "gmm" and "msm" run the gated
+            decoders (per animal pair's distance gate on a multi-animal
+            project), "combined" the MSM decoder with the tracking-chaos
+            gates of ``quality_threshold`` / ``frac_bps_below`` overlaid,
+            "hmm" a Gaussian HMM of ``n_components`` states.
+        n_components: states or clusters a gate (default: the model's).
+        extract_pair: which animal pair's gate to return (default: the
+            first two animal ids, or the "" gate of a single animal).
+        embedding_gates / states_per_gate / M_gates / n_micro / lagtime:
+            the gate configuration of ``gating.py``.
         device: defaults to the project's.
 
     Returns:
@@ -158,11 +202,6 @@ def embedding_per_video(
     model_name = model.rebuild_spec["model"]
     if model_name not in SERVING_KEYS:
         raise NotImplementedError(f"model {model_name!r}: Contrastive comes with ROADMAP queue 1 item 8")
-    if softcounts_extraction_method is not None:
-        raise NotImplementedError(
-            f"softcounts_extraction_method={softcounts_extraction_method!r}: the gated GMM / "
-            "MSM / HMM decoders come with the post-hoc modules, ROADMAP queue 1 item 12"
-        )
     dev = resolve_device(coordinates._device if device is None else device)
     window_size = model.rebuild_spec["input_shape"][0]
     sig = (
@@ -226,9 +265,49 @@ def embedding_per_video(
         if sc is not None:
             soft_counts[key] = next(host)
 
+    if not soft_counts or softcounts_extraction_method in EXTRACTION_METHODS:
+        k = n_components or (model.rebuild_spec.get("n_components") or 10)
+        soft_counts = _extract_soft_counts(
+            coordinates, embeddings, softcounts_extraction_method or "gmm", k, states_per_gate or k, window_size,
+            supervised_annotations, extract_pair, embedding_gates, M_gates, quality_threshold, frac_bps_below,
+            n_micro, lagtime, dev)
+
     header = dict(
         table_path=coordinates._table_path, animal_ids=coordinates._animal_ids,
         exp_conditions=coordinates._exp_conditions,
     )
     return (TableDict(embeddings, typ="unsupervised_embedding", **header),
             TableDict(soft_counts, typ="unsupervised_counts", **header))
+
+
+def _extract_soft_counts(coordinates, embeddings, method, k, k_gate, window_size, supervised_annotations,
+                         extract_pair, embedding_gates, M_gates, quality_threshold, frac_bps_below, n_micro,
+                         lagtime, dev) -> Dict[str, np.ndarray]:
+    """Soft counts from the embeddings (deepof_tpu/train/inference.py:464-530)."""
+    if method == "hmm":
+        return get_soft_counts_hmm(embeddings, n_states=k, device=dev)
+    gate_key = _extract_pair_to_gate_key(coordinates, extract_pair)
+    common = dict(coordinates=coordinates, embeddings=embeddings, animal_ids=None, window_size=window_size,
+                  supervised_annotations=supervised_annotations, embedding_gates=embedding_gates,
+                  N_clusters_per_gate=k_gate, M_gates=M_gates, device=dev)
+    if method == "gmm":
+        counts = gating.get_contrastive_soft_counts_gmm(**common)
+    else:  # "msm" / "combined"
+        counts = gating.get_contrastive_soft_counts_msm_pcca(n_micro=n_micro, lagtime=lagtime,
+                                                             temporal_smooth_win=1, **common)
+        if method == "combined":
+            chaos = gating.get_supervised_chaos(coordinates, quality_threshold, frac_bps_below, device=dev)
+            chaos_counts = gating.get_contrastive_soft_counts_gmm(
+                **{**common, "supervised_annotations": chaos, "embedding_gates": ["anychaos"]},
+                temporal_smooth_win=1)
+            counts = gating.add_chaos_gates(coordinates, counts, chaos_counts, chaos, window_size)
+    if gate_key not in counts:
+        # Behaviour-gated runs key on behaviour names, and sorted pair keys
+        # may not match the project's id order.
+        fallback = list(counts.keys())[0]
+        warnings.warn(
+            f"Requested gate {gate_key!r} not found among {sorted(map(str, counts.keys()))}; returning soft "
+            f"counts for gate {fallback!r}. Pass extract_pair (or check embedding_gates) to select a specific "
+            "gate.")
+        gate_key = fallback
+    return {key: np.asarray(c) for key, c in counts[gate_key].items()}
