@@ -152,10 +152,33 @@
    CPU on the prefix copy from the same host embeddings (distance-gate bins
    and hard labels differing on at most 0.1% of windows, soft counts where
    the bins agree within 1e-4 for the MSM decoders, 1e-2 for the GMM and
-   2e-2 for the HMM, whose float32 posteriors are ill-conditioned); and
+   2e-2 for the HMM, whose float32 posteriors are ill-conditioned; the
+   "gmm" and "msm" fits on the card once more, equal bit for bit); and
    the 10-state HMM and the MSM on the seeded lab cohort, fit and decode
    timed, with launches and host reads.
-12. Prints a stage line of each path, a kernels line, and last
+12. Encoders: the TCN and transformer encoders and decoders, and
+   Contrastive at its default TCN encoder, on the training phase's project
+   (window 25, latent 8, 10 components). Serving: seeded VQ-VAE-TCN,
+   VQ-VAE-transformer, VaDE-transformer and Contrastive-TCN bundles (seeded
+   BatchNorm running statistics) through ``embedding_per_video(batch_size=
+   4096)`` twice, the second timed from a reset of the kernels' counts (one
+   window launch a block per recording, Contrastive's at half windows; no
+   GRU or HMM launch); shapes, finiteness and row sums (Contrastive's "msm"
+   soft counts); card vs CPU on the 2,000-frame copy, embeddings and soft
+   counts at 1e-4 of max(1, max |value|): the model on the card's scaled
+   frames, and the whole path from each device's own project.
+   Training: one step at batch 256 of VQ-VAE-TCN, VaDE-transformer and
+   Contrastive-TCN on the card against the CPU's float64 step from the
+   same weights, batch and draws with dropout at rate 0 (loss at 1e-5,
+   each gradient at 2e-2 of max(1, its max |g_64|), the running statistics
+   after it at 1e-4), then on the card at default dropout: launches (none),
+   20 timed steps, peak memory. Fits: ``deep_unsupervised_embedding`` for one epoch
+   of 50 + 5 batches (VaDE one pretrain epoch too) of each, finite losses,
+   the saved bundle read back with ``ModelBundle.load`` serving equal
+   outputs. Then the card's VQ-VAE-TCN and VaDE-transformer against the JAX
+   package's outputs in tests/data/tcn_reference.npz and
+   transformer_reference.npz within 1e-5.
+13. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -1757,6 +1780,20 @@ POSTHOC_PASSES = 3
 POSTHOC_EXACT = ("time_bins", "rois", "time_on_cluster_counts", "transition_counts")
 
 
+def _unflatten(ref, collection):
+    """The nested dict of a reference file's ``collection/<path>`` arrays,
+    float32."""
+    tree = {}
+    for name, value in ref.items():
+        if name.startswith(f"{collection}/"):
+            *parents, leaf = name.split("/")[1:]
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = np.asarray(value, np.float32)
+    return tree
+
+
 def reference_bundle(path, device):
     """(ModelBundle of the VaDE in the reference file, its arrays): the flax
     parameters ``params/<path>`` carried by ``from_flax_params``."""
@@ -1765,14 +1802,7 @@ def reference_bundle(path, device):
     from deepof_tpu_torch.weights import from_flax_params
 
     ref = dict(np.load(path))
-    params = {}
-    for name, value in ref.items():
-        if name.startswith("params/"):
-            *parents, leaf = name.split("/")[1:]
-            node = params
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = value
+    params = _unflatten(ref, "params")
     window, n, e = int(ref["window"]), len(ref["node"]) // 3, len(ref["edge"])
     model = build_model("VaDE", (window, n, 3), (window, e, 1), ref["adjacency"], int(ref["latent"]),
                         int(ref["n_components"]), device=device)
@@ -1780,6 +1810,38 @@ def reference_bundle(path, device):
     spec = {"model": "VaDE", "input_shape": [window, n, 3], "edge_feature_shape": [window, e, 1],
             "n_components": int(ref["n_components"]), "use_angles": False}
     return ModelBundle(model.eval(), spec), ref
+
+
+ENCODER_KINDS = {"TCN": "TCNEncoder", "transformer": "TransformerEncoder"}
+HEAD_KINDS = {"vq_layer": "VectorQuantizer", "latent_space": "GaussianMixtureLatent"}
+
+
+def encoder_reference_bundle(path, device):
+    """(ModelBundle, file arrays, frame, layout) of an encoder reference file
+    (tests/data/tcn_reference.npz, transformer_reference.npz): the model the
+    file names, its encoder and latent head carried by ``from_flax_params``
+    with the batch stats, its decoder (which serving does not read) drawn
+    from seed 0; the frame and the layout are the VaDE reference file's."""
+    import torch
+
+    from deepof_tpu_torch.models import build_model
+    from deepof_tpu_torch.train.inference import ModelBundle
+    from deepof_tpu_torch.weights import from_flax_params
+
+    ref = dict(np.load(path))
+    base = dict(np.load(REFERENCE_NPZ))
+    params, stats = _unflatten(ref, "params"), _unflatten(ref, "batch_stats")
+    model_name, encoder, head = str(ref["model"]), str(ref["encoder_type"]), str(ref["head"])
+    window, n, e = int(ref["window"]), len(base["node"]) // 3, len(base["edge"])
+    model = build_model(model_name, (window, n, 3), (window, e, 1), base["adjacency"], int(ref["latent"]),
+                        int(ref["n_components"]), encoder_type=encoder, device=device,
+                        generator=torch.Generator().manual_seed(0))
+    model.encoder.load_state_dict(from_flax_params(params["encoder"], ENCODER_KINDS[encoder], stats["encoder"]))
+    getattr(model, head).load_state_dict(from_flax_params(params[head], HEAD_KINDS[head]))
+    spec = {"model": model_name, "input_shape": [window, n, 3], "edge_feature_shape": [window, e, 1],
+            "n_components": int(ref["n_components"]), "encoder_type": encoder, "use_angles": False}
+    layout = {"node": base["node"].tolist(), "edge": base["edge"].tolist(), "angle": None}
+    return ModelBundle(model.eval(), spec), ref, base["frame"], layout
 
 
 def _same(name, got, want):
@@ -2061,6 +2123,9 @@ GATE_DIFF_MAX = 1e-3  # share of windows whose gate bin may differ card vs CPU
 # no hard label differing; NVIDIA H100 80GB HBM3, 700.00 W): 1e-2 and
 # 2e-2, with hard labels differing on at most GATE_DIFF_MAX of the windows.
 SOFTCOUNT_RTOL = {"gmm": 1e-2, "msm": 1e-4, "hmm": 2e-2, "combined": 1e-4}
+# The k-means decoders, fitted twice on the card from the same embeddings:
+# equal bit for bit (cluster sums in row order, ``gmm.cluster_sums``).
+REPEATED_METHODS = ("gmm", "msm")
 CONTRASTIVE_MAX_STATES = 25
 
 
@@ -2190,9 +2255,11 @@ def _softcounts_card_vs_cpu(torch, prefix, bundle):
     if differ > GATE_DIFF_MAX * n_windows:
         _fail(f"the card's gate bins differ from the CPU's on {differ} of {n_windows} windows")
     for method in SOFTCOUNT_METHODS:
-        counts = [_extract_soft_counts(c, emb, method, N_COMPONENTS, N_COMPONENTS, WINDOW, None, None, "Center", 3,
-                                       0.75, 0.5, 200, 3, dev)
-                  for c, dev in ((on_card, torch.device("cuda")), (on_cpu, torch.device("cpu")))]
+        def extract(c, dev):
+            return _extract_soft_counts(c, emb, method, N_COMPONENTS, N_COMPONENTS, WINDOW, None, None, "Center", 3,
+                                        0.75, 0.5, 200, 3, dev)
+
+        counts = [extract(c, dev) for c, dev in ((on_card, torch.device("cuda")), (on_cpu, torch.device("cpu")))]
         rows = {k: slice(None) if method == "hmm" else agree[k] for k in emb}
         err = max(_rel_err(counts[0][k][rows[k]], counts[1][k][rows[k]]) for k in emb)
         hard = sum(int((counts[0][k].argmax(1) != counts[1][k].argmax(1)).sum()) for k in emb)
@@ -2202,6 +2269,11 @@ def _softcounts_card_vs_cpu(torch, prefix, bundle):
              f"hard labels differing {hard} of {n_windows} (at most {GATE_DIFF_MAX:.1%})")
         if not (err <= tol and hard <= GATE_DIFF_MAX * n_windows):
             _fail(f"card and CPU disagree on the {method} soft counts of the cohort copy: {out[method]}")
+        if method in REPEATED_METHODS:
+            again = extract(on_card, torch.device("cuda"))
+            if not all(np.array_equal(again[k], counts[0][k]) for k in emb):
+                _fail(f"the card's {method} soft counts of the cohort copy differ from one fit to the next")
+            _log(f"softcounts copy, {method}: a second fit on the card gave the same soft counts bit for bit")
     return out
 
 
@@ -2307,6 +2379,374 @@ def _softcounts_phase(torch, card, cohort):
     return line, launches, (hmm_abs, hmm_rel, timed)
 
 
+# Phase 12: the TCN and transformer encoders and decoders, and Contrastive.
+# The served bundles (model, encoder); Contrastive reads half windows and
+# takes its soft counts from the "msm" decoder.
+ENCODER_BUNDLES = (("VQVAE", "TCN"), ("VQVAE", "transformer"), ("VaDE", "transformer"), ("Contrastive", "TCN"))
+# The models stepped card vs CPU and fitted through deep_unsupervised_embedding.
+ENCODER_STEPS = (("VQVAE", "TCN"), ("VaDE", "transformer"), ("Contrastive", "TCN"))
+ENCODER_REFERENCES = ("tcn_reference.npz", "transformer_reference.npz")
+# The card against the JAX package's outputs in the reference files: float32
+# convolutions and attention in other summation orders, ~1e-7 relative an
+# operation, on outputs of magnitude ~1 (the VaDE file's 1.31e-6 on one H100).
+ENCODER_REF_ATOL = 1e-5
+# One step, the card (float32) against the CPU's plain PyTorch in float64
+# (the same weights, batch and draws): a float32 CPU is no reference here.
+# The TCN steps' BatchNorm gradients sum 384,000 terms a channel that
+# cancel to a small residual, and on an H100 80GB HBM3 (700 W) the CPU's
+# float32 gradients were 5.2e-2 (VQ-VAE-TCN) and 1.1e-2 (Contrastive-TCN)
+# of max(1, max |g|) off the float64 ones where the card's were 5.4e-3 and
+# 3.9e-3, cuDNN on or off (the transformer's: 4.2e-5 and 4.6e-5, measured
+# on one H100). The loss at ENCODER_STEP_LOSS_RTOL relative, each
+# gradient at ENCODER_STEP_GRAD_RTOL of max(1, its max |g_64|) (the floor
+# for the conv biases a train-mode BatchNorm absorbs, whose exact gradient
+# is 0), the running statistics after the step at STEP_RTOL of max(1,
+# |value|).
+ENCODER_STEP_LOSS_RTOL = 1e-5
+ENCODER_STEP_GRAD_RTOL = 2e-2
+
+
+def _seed_running_stats(torch, model, seed):
+    """Seeded BatchNorm running statistics (means N(0, 0.2), variances
+    0.5 + U(0, 1)), so that eval mode does not normalise by 0 and 1."""
+    from deepof_tpu_torch.models.blocks import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.2)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+    return model
+
+
+def _encoder_model(torch, model, encoder, adjacency, n, e, device):
+    from deepof_tpu_torch.models import build_model
+
+    net = build_model(model, (WINDOW, n, 3), (WINDOW, e, 1), adjacency, LATENT, N_COMPONENTS,
+                      encoder_type=encoder, generator=torch.Generator().manual_seed(0), device="cpu")
+    return _seed_running_stats(torch, net, 1).to(device)
+
+
+def _encoder_spec(model, encoder, n, e):
+    spec = {"model": model, "input_shape": [WINDOW, n, 3], "edge_feature_shape": [WINDOW, e, 1],
+            "encoder_type": encoder, "use_angles": False}
+    if model != "Contrastive":
+        spec["n_components"] = N_COMPONENTS
+    return spec
+
+
+def _check_encoder_outputs(name, outs, rows, window):
+    """Shapes, finiteness and row sums of one bundle's served results."""
+    emb, sc = outs
+    n_windows = rows - window + 1
+    for key in PUBLIC_KEYS:
+        width = N_COMPONENTS if not name.startswith("Contrastive") else SOFTCOUNT_METHODS["msm"]
+        if emb[key].shape != (n_windows, LATENT) or sc[key].shape != (n_windows, width):
+            _fail(f"{name} served {key}: shapes {emb[key].shape}, {sc[key].shape}")
+        if not (np.isfinite(emb[key]).all() and np.isfinite(sc[key]).all()):
+            _fail(f"{name} served {key}: non-finite embeddings or soft counts")
+        sum_err = float(np.abs(sc[key].sum(axis=1) - 1.0).max())
+        if not sum_err <= 1e-4:
+            _fail(f"{name} served {key}: soft counts do not sum to 1 (max |sum - 1| {sum_err})")
+
+
+def _encoders_serving(torch, data, prefix, bundles):
+    """Each bundle through ``embedding_per_video(batch_size=BLOCK)`` on the
+    public project twice, the second timed from a reset of the kernels'
+    counts (one window launch a block, no GRU or HMM launch); then card vs
+    CPU (float32 both) on the 2,000-frame copy, each at PATH_RTOL: the
+    model on the card's scaled frames, and the whole path from each
+    device's own project (the transformer magnifies the scaling pass's
+    last-bit differences: 9.26e-5 of max(1, |value|) on an H100 80GB HBM3
+    at 700 W)."""
+    from deepof_tpu_torch.core.storage import get_dt
+    from deepof_tpu_torch.train.inference import ModelBundle, embedding_per_video, scanned_windowed_forward
+
+    coords, (_, meta, _, tab_dict, scaler) = data["coords"], data["ggd"]
+    serving = {}
+    for name, bundle in bundles.items():
+        window = WINDOW // 2 if name.startswith("Contrastive") else WINDOW
+        embedding_per_video(coords, tab_dict, bundle, meta, global_scaler=scaler, batch_size=BLOCK)
+        torch.cuda.synchronize()
+        _kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        outs = embedding_per_video(coords, tab_dict, bundle, meta, global_scaler=scaler, batch_size=BLOCK)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = _kernel_counts()
+        n_blocks = len(PUBLIC_KEYS) * -(-(PUBLIC_FRAMES - window + 1) // BLOCK)
+        want = {"window_streams": n_blocks, "gru_scan": 0, "gru_scan_bwd": 0, "hmm_scan": 0}
+        if launches != want:
+            _fail(f"serving {name} launched {launches}, not {want}")
+        _check_encoder_outputs(name, outs, PUBLIC_FRAMES, window)
+        serving[name] = {"call_s": call_s, "window": window, "launches": launches,
+                         "windows_per_s": len(PUBLIC_KEYS) * (PUBLIC_FRAMES - window + 1) / call_s}
+        _log(f"served {name}: {call_s:.3f} s (second call), launches {launches}")
+
+    card_tab, card_meta, _, on_card = _run_public(torch, prefix, list(bundles.values()), "cuda")
+    on_cpu = _run_public(torch, prefix, list(bundles.values()), "cpu", precision="float32")[3]
+    errs = {}
+    for (name, bundle), got, want in zip(bundles.items(), on_card, on_cpu):
+        window = WINDOW // 2 if name.startswith("Contrastive") else WINDOW
+        _check_encoder_outputs(name, got, PREFIX, window)
+        cpu_bundle = ModelBundle(copy.deepcopy(bundle.model).to("cpu"), bundle.rebuild_spec)
+        err = {"model_embeddings": 0.0, "model_soft_counts": 0.0, "path_embeddings": 0.0, "path_soft_counts": 0.0,
+               "path_labels_differing": 0}
+        for key in PUBLIC_KEYS:
+            # The model alone: the CPU's plain path on the card's scaled frame.
+            cols = list(get_dt(card_tab._scaled_frames, key, only_metainfo=True)["columns"])
+            layout = {"node": [cols.index(c) for c in card_meta["node_columns"]],
+                      "edge": [cols.index(c) for c in card_meta["edge_columns"]], "angle": None}
+            emb, sc = scanned_windowed_forward(cpu_bundle, card_tab._scaled_device[key].cpu(), layout, window,
+                                               bundle.rebuild_spec["model"], block=BLOCK, device="cpu")
+            err["model_embeddings"] = max(err["model_embeddings"], _rel_err(got[0][key], emb))
+            if sc is not None:
+                err["model_soft_counts"] = max(err["model_soft_counts"], _rel_err(got[1][key], sc))
+            # The whole path, each device from its own project.
+            err["path_embeddings"] = max(err["path_embeddings"], _rel_err(got[0][key], want[0][key]))
+            err["path_soft_counts"] = max(err["path_soft_counts"], _rel_err(got[1][key], want[1][key]))
+            err["path_labels_differing"] += int((got[1][key].argmax(1) != want[1][key].argmax(1)).sum())
+        _log(f"{name} on the {PREFIX}-frame copy, card vs CPU plain: {err} (tol {PATH_RTOL:.0e})")
+        if not max(err["model_embeddings"], err["model_soft_counts"]) <= PATH_RTOL:
+            _fail(f"card and CPU disagree on {name}'s served outputs from the same frames: {err}")
+        if not max(err["path_embeddings"], err["path_soft_counts"]) <= PATH_RTOL:
+            _fail(f"card and CPU disagree on {name}'s served outputs over the whole path: {err}")
+        errs[name] = err
+    return serving, errs
+
+
+def _bn_stats_err(cpu_model, card_model):
+    """Max |card - CPU| / max(1, max |CPU|) over the BatchNorm buffers."""
+    card = card_model.state_dict()
+    return max(_rel_err(card[k].cpu().numpy(), v.numpy()) for k, v in cpu_model.state_dict().items()
+               if "running" in k)
+
+
+def _step_vs_float64(torch, loss_fn, cpu_model, card_model, label):
+    """One step's loss and every parameter gradient on the card against the
+    same step on the CPU in float64 (``loss_fn(model, device, dtype)`` ->
+    total), and the running statistics after it. Fails beyond
+    ENCODER_STEP_LOSS_RTOL / ENCODER_STEP_GRAD_RTOL / STEP_RTOL. Returns
+    (loss rel error, worst and median gradient rel error, running
+    statistics rel error)."""
+    loss = {}
+    for side, m, device, dtype in (("cpu64", cpu_model, "cpu", torch.float64),
+                                   ("card", card_model, "cuda", torch.float32)):
+        m.zero_grad(set_to_none=True)
+        total = loss_fn(m, device, dtype)
+        total.backward()
+        loss[side] = total.item()
+    loss_err = abs(loss["card"] - loss["cpu64"]) / max(1.0, abs(loss["cpu64"]))
+    errs = {}
+    for (name, pc), (_, pg) in zip(cpu_model.named_parameters(), card_model.named_parameters()):
+        if pc.grad is None or pg.grad is None:
+            _fail(f"{label} left {name} without a gradient")
+        want = pc.grad.double()
+        errs[name] = float((pg.grad.cpu().double() - want).abs().max()) / max(1.0, float(want.abs().max()))
+    worst = max(errs, key=errs.get)
+    median = float(np.median(list(errs.values())))
+    stats_err = _bn_stats_err(cpu_model, card_model)
+    _log(f"{label}, card (float32) vs CPU (float64): loss {loss['card']:.6f} vs {loss['cpu64']:.6f}, rel "
+         f"{loss_err:.3e} (tol {ENCODER_STEP_LOSS_RTOL:.0e}); gradients of max(1, max|g_64|): worst {errs[worst]:.3e} "
+         f"at {worst}, median {median:.3e} (tol {ENCODER_STEP_GRAD_RTOL:.0e}); running statistics after it "
+         f"{stats_err:.3e} (tol {STEP_RTOL:.0e})")
+    if not (loss_err <= ENCODER_STEP_LOSS_RTOL and errs[worst] <= ENCODER_STEP_GRAD_RTOL and stats_err <= STEP_RTOL):
+        _fail(f"{label}: the card and the CPU's float64 step disagree (loss {loss_err}, gradients {errs[worst]} at "
+              f"{worst}, running statistics {stats_err})")
+    return loss_err, errs[worst], median, stats_err
+
+
+def _encoders_steps(torch, data):
+    """One train step of each ENCODER_STEPS model on the card against the
+    CPU's float64 step from the same weights, batch and draws, dropout at
+    rate 0 on both sides: the loss, every gradient and the BatchNorm
+    running statistics after it; then the step on the card at its default
+    dropout, its launches and TIMED_STEPS timed steps, with the peak
+    memory."""
+    import copy as _copy
+
+    from deepof_tpu_torch.models.blocks import DropoutDraws, set_dropout_rate, use_dropout_draws
+    from deepof_tpu_torch.train import harness
+    from deepof_tpu_torch.train.augment import build_rotation_precomp, draw_augmentations
+    from deepof_tpu_torch.train.config import CommonFitCfg, ContrastiveCfg, TurtleTeacherCfg, VaDECfg
+    from deepof_tpu_torch.train.losses import vade_params_from_cfg
+
+    x, a, adjacency = data["x"], data["a"], data["ggd"][2]
+    n, e = x.shape[2], a.shape[2]
+    edges = harness.graph_edges(adjacency)
+    precomp = build_rotation_precomp(edges, n)
+    ccfg = ContrastiveCfg()
+    vade_params = vade_params_from_cfg(CommonFitCfg(n_components=N_COMPONENTS), VaDECfg(), TurtleTeacherCfg(), False)
+    g = torch.Generator().manual_seed(5)
+    eps_z, eps_kl = torch.randn(TRAIN_BATCH, LATENT, generator=g), torch.randn(32, TRAIN_BATCH, LATENT, generator=g)
+    draws = draw_augmentations(torch.Generator().manual_seed(6), x.shape, precomp, ccfg)
+
+    def loss_fn(model_name):
+        def fn(m, dev, dtype):
+            def to(v):
+                return v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+
+            xb, ab = torch.as_tensor(x, device=dev, dtype=dtype), torch.as_tensor(a, device=dev, dtype=dtype)
+            if model_name == "VQVAE":
+                return harness.vqvae_loss(m, xb, ab)[0]
+            if model_name == "VaDE":
+                return harness.vade_step_loss(m, xb, ab, None, vade_params, 0.5, to(eps_z), to(eps_kl))[0]
+            on_dev = {k: {kk: to(v) for kk, v in d.items()} for k, d in draws.items()}
+            return harness.contrastive_step_loss(m, xb, edges, precomp, ccfg, draws=on_dev)[0]
+        return fn
+
+    steps = {}
+    for model_name, encoder in ENCODER_STEPS:
+        label = f"one {model_name}-{encoder} step"
+        card_model = set_dropout_rate(_encoder_model(torch, model_name, encoder, adjacency, n, e, "cpu"), 0.0)
+        cpu_model = _copy.deepcopy(card_model).double()
+        card_model = card_model.to("cuda")
+        loss_err, grad_err, grad_median, stats_err = _step_vs_float64(torch, loss_fn(model_name), cpu_model,
+                                                                      card_model, label)
+        del cpu_model, card_model
+
+        model = _encoder_model(torch, model_name, encoder, adjacency, n, e, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        use_dropout_draws(model, DropoutDraws(gen))
+        opt = harness._make_optimizer(model.named_parameters(), 3e-4)
+        xb, ab = torch.as_tensor(x, device="cuda"), torch.as_tensor(a, device="cuda")
+        if model_name == "VQVAE":
+            step = harness.make_vqvae_step(model, opt)
+            run = lambda: step(xb, ab)  # noqa: E731
+        elif model_name == "VaDE":
+            step = harness.make_vade_step(model, opt, vade_params, gen)
+            run = lambda: step(xb, ab, kl_weight=0.5)  # noqa: E731
+        else:
+            step = harness.make_contrastive_step(model, opt, ccfg, edges, precomp, gen)
+            run = lambda: step(xb)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        _kernel_counts(reset=True)
+        run()
+        launches = _kernel_counts()
+        if any(launches.values()):
+            _fail(f"{label} launched {launches}: a TCN or transformer step launches no kernel of the port")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            logs = run()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        if not all(np.isfinite(v.item()) for v in logs.values()):
+            _fail(f"non-finite {model_name}-{encoder} losses after {TIMED_STEPS + 2} steps: {logs}")
+        steps[f"{model_name}_{encoder}"] = {
+            "ms_per_step": step_ms, "windows_per_s": TRAIN_BATCH * 1e3 / step_ms, "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "loss_rel_err_vs_cpu64": loss_err, "grad_rel_err_vs_cpu64": grad_err,
+            "grad_median_rel_err_vs_cpu64": grad_median, "running_stats_rel_err_vs_cpu64": stats_err}
+        del model, opt, step
+    return steps
+
+
+def _encoders_fits(torch, data):
+    """``deep_unsupervised_embedding`` for one epoch of TRAIN_BATCHES +
+    VAL_BATCHES batches (VaDE: one pretrain epoch too) at default dropout
+    for each ENCODER_STEPS model: finite losses, no kernel of the port
+    launched, and the saved bundle read back with ``ModelBundle.load``
+    serving what the trained bundle serves."""
+    from deepof_tpu_torch.train.harness import ModelBundle
+    from deepof_tpu_torch.train.inference import embedding_per_video
+
+    coords, ggd = data["coords"], data["ggd"]
+    _, meta, adjacency, tab_dict, scaler = ggd
+    fits = {}
+    for model_name, encoder in ENCODER_STEPS:
+        name = f"{model_name}_{encoder}"
+        _kernel_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle, _, _, summary = coords.deep_unsupervised_embedding(
+            ggd[:3], adjacency_matrix=adjacency, embedding_model=model_name, encoder_type=encoder,
+            batch_size=TRAIN_BATCH, latent_dim=LATENT, n_clusters=N_COMPONENTS, epochs=1, pretrain_epochs=1,
+            save_checkpoints=True, verbose=False, limit_train_batches=TRAIN_BATCHES,
+            limit_val_batches=VAL_BATCHES)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _kernel_counts()
+        if launches["gru_scan"] or launches["gru_scan_bwd"]:
+            _fail(f"fitting {name} launched the GRU kernels: {launches}")
+        if not summary or not all(np.isfinite(v) for v in summary.values()):
+            _fail(f"{name} training losses: {summary}")
+        path = os.path.join(coords._project_path, coords._project_name, "Trained_models", "models",
+                            f"{name}_latent{LATENT}_k{N_COMPONENTS}_run0.ckpt")
+        loaded = ModelBundle.load(path)
+        t0 = time.perf_counter()
+        outs = [embedding_per_video(coords, tab_dict, b, meta, global_scaler=scaler, batch_size=BLOCK)
+                for b in (bundle, loaded)]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        _check_encoder_outputs(name, outs[0], PUBLIC_FRAMES, WINDOW // 2 if model_name == "Contrastive" else WINDOW)
+        for key in PUBLIC_KEYS:
+            if not (np.array_equal(outs[0][0][key], outs[1][0][key]) and np.array_equal(outs[0][1][key],
+                                                                                       outs[1][1][key])):
+                _fail(f"the reloaded {name} bundle serves other outputs than the trained one on {key}")
+        fits[name] = {"fit_s": fit_s, "serve_two_bundles_s": serve_s, "launches": launches, "losses": summary}
+        _log(f"fit {name}: {fit_s:.2f} s, launches {launches}, losses {summary}")
+    return fits
+
+
+def _encoders_references(torch):
+    """The card's VQ-VAE-TCN and VaDE-transformer on the JAX package's
+    outputs in the reference files (ENCODER_REF_ATOL), the count of
+    differing hard labels reported."""
+    from deepof_tpu_torch.train.inference import scanned_windowed_forward
+
+    out = {}
+    for name in ENCODER_REFERENCES:
+        bundle, ref, frame, layout = encoder_reference_bundle(
+            os.path.join(os.path.dirname(REFERENCE_NPZ), name), "cuda")
+        emb, counts = scanned_windowed_forward(bundle, frame, layout, int(ref["window"]), str(ref["model"]),
+                                               block=128, device="cuda")
+        err = {"embeddings": float(np.abs(emb - ref["embeddings"]).max()),
+               "soft_counts": float(np.abs(counts - ref["soft_counts"]).max()),
+               "labels_differing": int((counts.argmax(1) != ref["hard_labels"]).sum())}
+        _log(f"{name}: the card against the JAX package's outputs {err} (tol {ENCODER_REF_ATOL:.0e})")
+        if not max(err["embeddings"], err["soft_counts"]) <= ENCODER_REF_ATOL:
+            _fail(f"the card's {ref['model']}-{ref['encoder_type']} differs from the JAX package's outputs: {err}")
+        out[name] = err
+    return out
+
+
+def _encoders_phase(torch, card, data, prefix):
+    """Phase 12: the TCN and transformer encoders and decoders, and
+    Contrastive at its default TCN encoder: serving, one train step card vs
+    CPU, the fits, and the card against the JAX package's reference files.
+    Returns (stage line, launches of each served bundle's second call)."""
+    t_phase = time.perf_counter()
+    graph, *_ = _frame_layout(ANIMALS)
+    n, e = graph.n_nodes, graph.n_edges
+    bundles = {}
+    from deepof_tpu_torch.train.inference import ModelBundle
+
+    for model_name, encoder in ENCODER_BUNDLES:
+        net = _encoder_model(torch, model_name, encoder, graph.adjacency, n, e, "cuda")
+        bundles[f"{model_name}_{encoder}"] = ModelBundle(net.eval(), _encoder_spec(model_name, encoder, n, e))
+    stage_s, t0 = {}, time.perf_counter()
+    serving, serve_errs = _encoders_serving(torch, data, prefix, bundles)
+    del bundles
+    stage_s["serving_and_card_vs_cpu"], t0 = time.perf_counter() - t0, time.perf_counter()
+    steps = _encoders_steps(torch, data)
+    stage_s["steps_and_cpu_float64"], t0 = time.perf_counter() - t0, time.perf_counter()
+    fits = _encoders_fits(torch, data)
+    stage_s["fits"], t0 = time.perf_counter() - t0, time.perf_counter()
+    references = _encoders_references(torch)
+    stage_s["jax_reference"] = time.perf_counter() - t0
+    line = {
+        "path": "encoders", "latent": LATENT, "n_components": N_COMPONENTS, "window": WINDOW,
+        "batch": TRAIN_BATCH, "serving": serving, "serving_card_vs_cpu": serve_errs, "steps": steps,
+        "timed_steps": TIMED_STEPS, "fits": fits, "fit_batches": [TRAIN_BATCHES, VAL_BATCHES],
+        "jax_reference": references, "stages_s": stage_s, "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    return line, {f"encoders_{k}": v["launches"] for k, v in serving.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2398,11 +2838,12 @@ def main() -> int:
         data = _training_data(full)
         train_line, bwd_err, bwd_t, train_launches = _training_phase(torch, card, data)
         vade_line, vade_launches = _vade_phase(torch, card, data, os.path.join(tmp, "prefix"))
-        del data
         cohort_line, cohort_launches, cohort = _cohort_phase(torch, card, tmp)
         posthoc_line, posthoc_launches = _posthoc_phase(torch, card, cohort)
         softcounts_line, softcounts_launches, hmm_res = _softcounts_phase(torch, card, cohort)
         del cohort
+        encoders_line, encoders_launches = _encoders_phase(torch, card, data, os.path.join(tmp, "prefix"))
+        del data
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2415,6 +2856,7 @@ def main() -> int:
     print(json.dumps(cohort_line), flush=True)
     print(json.dumps(posthoc_line), flush=True)
     print(json.dumps(softcounts_line), flush=True)
+    print(json.dumps(encoders_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,
         "first_stages_s": first_stages, "first_run_s": first_run_s,
@@ -2429,7 +2871,8 @@ def main() -> int:
     by_path = {name: {"raw_keypoints": launches[name], **{p: c[name] for p, c in public_launches.items()},
                       "training": train_launches[name], **{p: c[name] for p, c in vade_launches.items()},
                       "cohort": cohort_launches[name], "posthoc": posthoc_launches[name],
-                      **{f"softcounts_{p}": c[name] for p, c in softcounts_launches.items() if name in c}}
+                      **{f"softcounts_{p}": c[name] for p, c in softcounts_launches.items() if name in c},
+                      **{p: c[name] for p, c in encoders_launches.items()}}
                for name in ("window_streams", "gru_scan", "gru_scan_bwd")}
     hmm_abs, hmm_rel, hmm_timed = hmm_res
     kernels = [

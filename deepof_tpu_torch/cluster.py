@@ -29,6 +29,8 @@ order sklearn draws (``GaussianMixture`` hands its instance to its
 the same order. Float sums run in other orders than sklearn's BLAS and
 cython loops; where a comparison decides a draw or a stop (a candidate's
 potential, a near tie of two distances) the two can part, in principle.
+Each cluster's sum adds its rows in row order on every device
+(``gmm.cluster_sums``), so a fit on the card repeats bit for bit.
 
 Host reads: k-means++ copies each centre's distances (its draws are
 numpy's), each Lloyd or EM iteration reads its convergence scalars, each
@@ -193,7 +195,7 @@ def _lloyd(x, centers, max_iter, tol):
     for i in range(max_iter):
         labels = _labels(x, centers)
         counts = torch.bincount(labels, minlength=k).to(x.dtype)
-        sums = x.new_zeros(centers.shape).index_add_(0, labels, x)
+        sums = gmm.cluster_sums(x, labels, k)
         same = labels_old is not None and torch.equal(labels, labels_old)
         empty = np.flatnonzero(counts.cpu().numpy() == 0)
         if empty.size:
@@ -413,7 +415,7 @@ class MiniBatchKMeans:
             if reassign:
                 since_reassign = 0
             labels, inertia = labels_inertia(xb, centers)
-            sums = x.new_zeros(centers.shape).index_add_(0, labels, xb)
+            sums = gmm.cluster_sums(xb, labels, k)
             host = torch.cat([torch.bincount(labels, minlength=k).to(x.dtype), inertia[None]]).cpu().numpy()
             batch_counts, batch_inertia = host[:k], float(host[k])
             old = counts.copy()

@@ -1,14 +1,13 @@
 """Training configuration (port of deepof_tpu/train/config.py
-``CommonFitCfg`` :14, ``TurtleTeacherCfg`` :47 and ``VaDECfg`` :93), with
-the JAX package's names and defaults.
+``CommonFitCfg`` :14, ``TurtleTeacherCfg`` :47, ``VaDECfg`` :93 and
+``ContrastiveCfg`` :136), with the JAX package's names and defaults.
 
-``CommonFitCfg`` keeps the fields that ``fit_vqvae`` and ``fit_vade`` read.
+``CommonFitCfg`` keeps the fields that the fits read.
 The JAX package's other common fields are ``train_deepof_model`` arguments
 (the output paths, the run number), raise there (``use_amp``), or are read
 by neither fit and raise there too (``UNREAD_COMMON_FIELDS``). The teacher
 config is carried whole, since the VaDE loss reads its ``distill_*``
-fields; the TURTLE teacher itself raises (ROADMAP queue 1 item 14). The
-Contrastive config comes with that model (item 8).
+fields; the TURTLE teacher itself raises (ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -16,9 +15,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-# The JAX package's CommonFitCfg fields that neither its VQ-VAE nor its VaDE
-# fit reads, with their defaults: a keyword that sets one to another value
-# raises.
+# The JAX package's CommonFitCfg fields that none of its fits reads, with
+# their defaults: a keyword that sets one to another value raises.
 UNREAD_COMMON_FIELDS = {"num_workers": 0, "prefetch_factor": 0,
                         "interaction_regularization": 0.0, "diag_max_batches": 4}
 
@@ -127,6 +125,26 @@ class VaDECfg:
     kl_warmup_pretrain: int = 15
     kl_end_weight_pretrain: float = 0.2
     kl_cooldown_pretrain: int = 10
+
+
+@dataclass
+class ContrastiveCfg:
+    temperature: float = 0.1
+    contrastive_similarity_function: str = "cosine"
+    contrastive_loss_function: str = "nce"
+    beta: float = 0.1
+    tau: float = 0.1
+    aug_min_shift: int = 1
+    aug_max_shift: int = 6
+    aug_p_shift: float = 0.8
+    aug_max_rot: int = 30
+    aug_n_rot: int = 4
+    aug_p_rot: float = 0.0
+    aug_max_interp: int = 8
+    aug_min_interp: int = 3
+    aug_p_interp: float = 0.3
+    aug_noise_sigma: float = 0.03
+    aug_p_noise: float = 0.0
 
 
 TEACHER = (

@@ -56,6 +56,18 @@ def kmeans_plusplus(x: torch.Tensor, k: int, generator: Optional[torch.Generator
     return torch.stack(indices)
 
 
+def cluster_sums(x: torch.Tensor, labels: torch.Tensor, k: int) -> torch.Tensor:
+    """(k, D) sums of the rows of x (N, D) by label, each cluster's rows
+    added in row order on every device, so that a fit repeats bit for bit.
+    On the CPU ``index_add_`` adds in row order; on CUDA it adds with
+    atomics in no fixed order, so there the labels are sorted (stably) and
+    each cluster's rows added in turn by ``index_put_(accumulate=True)``."""
+    sums = x.new_zeros((k, x.shape[1]))
+    if x.is_cuda:
+        return sums.index_put_((labels,), x, accumulate=True)
+    return sums.index_add_(0, labels, x)
+
+
 def kmeans(x: torch.Tensor, k: int, generator: Optional[torch.Generator] = None,
            max_iter: int = 300, tol: float = 1e-4) -> Tuple[torch.Tensor, torch.Tensor]:
     """``KMeans(n_clusters=k, n_init=1)`` (Lloyd) on x (N, D) ->
@@ -68,7 +80,7 @@ def kmeans(x: torch.Tensor, k: int, generator: Optional[torch.Generator] = None,
     for _ in range(max_iter):
         labels = _sq_dist(x, centers).argmin(1)
         counts = torch.bincount(labels, minlength=k).to(x.dtype)
-        sums = x.new_zeros((k, x.shape[1])).index_add_(0, labels, x)
+        sums = cluster_sums(x, labels, k)
         empty = (counts == 0).nonzero().flatten()
         if empty.numel():  # sklearn's _relocate_empty_clusters_dense
             far = ((x - centers[labels]) ** 2).sum(-1).topk(empty.numel()).indices

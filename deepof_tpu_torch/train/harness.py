@@ -1,23 +1,31 @@
-"""Training harness of the VQ-VAE and VaDE: the model bundle, the
-optimisers, the train and evaluation steps, the epoch loop, ``fit_vqvae``,
-``fit_vade``, ``extract_latents``, ``train_deepof_model`` and
-``deep_unsupervised_embedding`` (port of deepof_tpu/train/harness.py:
-``ModelBundle`` :75-166, ``_make_optimizer`` :187 and
-``_make_vade_main_optimizer`` :210 (``ClippedAdam``), ``make_vqvae_step``,
-``make_vqvae_eval_step``, ``make_vade_step`` and ``make_vade_eval_step``
-:275-357, ``_epoch_mean`` and ``_run_epochs`` :410-550, ``fit_vqvae``
-:567-675, ``fit_vade`` :691-1006, ``extract_latents`` :1009,
-``_dataset_from_preprocessed`` :1125-1144, ``train_deepof_model``
-:1147-1324 and ``deep_unsupervised_embedding`` :1327-1367).
+"""Training harness of the VQ-VAE, VaDE and Contrastive models: the model
+bundle, the optimisers, the train and evaluation steps, the epoch loop,
+``fit_vqvae``, ``fit_vade``, ``extract_latents``, ``fit_contrastive``,
+``train_deepof_model`` and ``deep_unsupervised_embedding`` (port of
+deepof_tpu/train/harness.py: ``ModelBundle`` :75-166, ``_make_optimizer``
+:187 and ``_make_vade_main_optimizer`` :210 (``ClippedAdam``),
+``make_vqvae_step``, ``make_vqvae_eval_step``, ``make_vade_step``,
+``make_vade_eval_step`` and ``make_contrastive_step`` :275-405,
+``_epoch_mean`` and ``_run_epochs`` :410-550, ``fit_vqvae`` :567-675,
+``fit_vade`` :691-1006, ``extract_latents`` :1009, ``fit_contrastive``
+:1031-1122, ``_dataset_from_preprocessed`` :1125-1144,
+``train_deepof_model`` :1147-1324 and ``deep_unsupervised_embedding``
+:1327-1367).
 
 The JAX package jits one train step over a device mesh; here the step runs
-eagerly on one device, its GRU layers through the fused GRU kernel and its
-backward kernel (``ops.gru_kernels.GRULayerFunction``). VaDE's sampling
-noise comes from a ``torch.Generator`` on the fit's device, seeded with the
-fit's seed, and its GMM init runs there too (``train.gmm``). Contrastive,
-the TURTLE teacher, Orbax checkpoints, mixed precision and the JAX
-package's flax checkpoint files raise, naming their ROADMAP queue 1 items.
-Bundles are saved with ``torch.save`` (state dict, rebuild spec, history).
+eagerly on one device, its GRU layers (recurrent encoders) through the
+fused GRU kernel and its backward kernel
+(``ops.gru_kernels.GRULayerFunction``). A train step runs the model in
+train mode (BatchNorm on the batch's statistics, moving the running ones;
+dropout on); evaluation and latent extraction run it in eval mode, as the
+JAX package runs them at ``train=False``. Every random draw of a fit
+(VaDE's sampling noise, dropout's keep masks, the contrastive
+augmentations) comes from one ``torch.Generator`` on the fit's device,
+seeded with the fit's seed; VaDE's GMM init runs there too
+(``train.gmm``). The TURTLE teacher, Orbax checkpoints, mixed precision and
+the JAX package's flax checkpoint files raise, naming their ROADMAP queue 1
+items. Bundles are saved with ``torch.save`` (state dict with the BatchNorm
+running statistics, rebuild spec, history).
 """
 
 from __future__ import annotations
@@ -35,17 +43,31 @@ from torch import nn
 from deepof_tpu_torch.core.storage import get_dt
 from deepof_tpu_torch.device import resolve_device
 from deepof_tpu_torch.graph_dataset import reorder_and_reshape
+from deepof_tpu_torch.models.blocks import DropoutDraws, use_dropout_draws
 from deepof_tpu_torch.models.zoo import build_model
+from deepof_tpu_torch.train.augment import (
+    RotationPrecomp,
+    build_rotation_precomp,
+    make_augmented_view,
+    recompute_edges,
+    slice_time_per_sample,
+)
 from deepof_tpu_torch.train.config import (
     UNREAD_COMMON_FIELDS,
     CommonFitCfg,
+    ContrastiveCfg,
     TurtleTeacherCfg,
     VaDECfg,
     raise_if_teacher,
 )
 from deepof_tpu_torch.train.dataset import WindowDataset, prefetch
 from deepof_tpu_torch.train.gmm import fit_gmm_init
-from deepof_tpu_torch.train.losses import VadeLossParams, vade_loss, vade_params_from_cfg
+from deepof_tpu_torch.train.losses import (
+    VadeLossParams,
+    select_contrastive_loss,
+    vade_loss,
+    vade_params_from_cfg,
+)
 from deepof_tpu_torch.train.schedules import WeightSchedule
 
 # --------------------------------------------------------------------------- #
@@ -56,7 +78,7 @@ from deepof_tpu_torch.train.schedules import WeightSchedule
 def _model_from_spec(spec: Dict, device) -> nn.Module:
     return build_model(
         spec["model"], spec["input_shape"], spec["edge_feature_shape"], np.asarray(spec["adjacency"]),
-        spec["latent_dim"], spec["n_components"], spec.get("encoder_type", "recurrent"),
+        spec["latent_dim"], spec.get("n_components", 10), spec.get("encoder_type", "recurrent"),
         spec.get("use_gnn", True), device=device,
         angle_feature_shape=spec.get("angle_feature_shape") if spec.get("use_angles") else None,
     )
@@ -219,11 +241,12 @@ def _make_vade_main_optimizer(named_parameters, learning_rate: float, gmm_lr: Op
 
 
 def vqvae_loss(model: nn.Module, x: torch.Tensor, a: torch.Tensor,
-               ang: Optional[torch.Tensor] = None):
-    """(total, logs) of one batch: total = enc_rec + rec + vq + kmeans, each
-    rec the negative mean log-probability over all (B, T) frames (masked
-    frames count as 0)."""
-    out = model.training_forward(x, a, ang)
+               ang: Optional[torch.Tensor] = None, train: bool = True):
+    """(total, logs) of one batch, in train mode (or eval mode without
+    ``train``): total = enc_rec + rec + vq + kmeans, each rec the negative
+    mean log-probability over all (B, T) frames (masked frames count as
+    0)."""
+    out = model.training_forward(x, a, ang, train=train)
     b, t = x.shape[:2]
     x_flat = x.reshape(b, t, -1)
     enc_rec = -out["encoding_reconstruction"].log_prob(x_flat).mean()
@@ -252,11 +275,11 @@ def make_vqvae_step(model: nn.Module, optimizer: torch.optim.Optimizer) -> Calla
 
 def make_vqvae_eval_step(model: nn.Module) -> Callable:
     """step(x, a, ang=None) -> {"total_loss": enc_rec + rec + vq,
-    "reconstruct_loss": rec}, without gradients."""
+    "reconstruct_loss": rec}, in eval mode, without gradients."""
 
     @torch.no_grad()
     def step(x, a, ang=None):
-        _, logs = vqvae_loss(model, x, a, ang)
+        _, logs = vqvae_loss(model, x, a, ang, train=False)
         return {"total_loss": logs["enc_rec_loss"] + logs["reconstruct_loss"] + logs["vq_loss"],
                 "reconstruct_loss": logs["reconstruct_loss"]}
 
@@ -295,12 +318,62 @@ def make_vade_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_para
 
 def make_vade_eval_step(model: nn.Module, loss_params: VadeLossParams,
                         generator: Optional[torch.Generator] = None) -> Callable:
-    """step(x, a, ang=None, kl_weight=0.0) -> every loss of the batch at
-    z = z_mean (the KL's noise drawn from ``generator``), without gradients."""
+    """step(x, a, ang=None, kl_weight=0.0) -> every loss of the batch in
+    eval mode at z = z_mean (the KL's noise drawn from ``generator``),
+    without gradients."""
 
     @torch.no_grad()
     def step(x, a, ang=None, kl_weight=0.0):
         return vade_step_loss(model, x, a, ang, loss_params, kl_weight, generator=generator, train=False)[1]
+
+    return step
+
+
+def contrastive_step_loss(model: nn.Module, x_full: torch.Tensor, edge_index: np.ndarray,
+                          precomp: RotationPrecomp, cfg: ContrastiveCfg, draws: Optional[Dict] = None,
+                          generator: Optional[torch.Generator] = None, dropout_masks=None):
+    """(loss, logs) of one contrastive batch of full windows x_full (B, T, N,
+    F): the centred half window and the augmented view (``draws`` as
+    ``augment.draw_augmentations`` makes them, drawn from ``generator`` when
+    not given), each with its edges recomputed from the coordinates, through
+    two train-mode forwards, the second seeing the running statistics the
+    first moved and the same dropout masks (``dropout_masks`` given, or
+    drawn from ``generator`` in the first); the loss of
+    ``cfg.contrastive_loss_function`` under its similarity on the
+    L2-normalised embeddings. Logs: total_loss, pos_similarity,
+    neg_similarity."""
+    a_full = recompute_edges(x_full, edge_index)
+    x_aug, a_aug = make_augmented_view(x_full, edge_index, precomp, cfg, draws, generator)
+    half = x_full.shape[1] // 2
+    starts = torch.full((x_full.shape[0],), half // 2, dtype=torch.long, device=x_full.device)
+    x = slice_time_per_sample(x_full, starts, half)
+    a = slice_time_per_sample(a_full, starts, half)
+    first = DropoutDraws(generator, dropout_masks, record=True)
+    use_dropout_draws(model, first)
+    z = model.training_forward(x, a)
+    use_dropout_draws(model, DropoutDraws(masks=first.recorded))
+    z_aug = model.training_forward(x_aug, a_aug)
+    use_dropout_draws(model, DropoutDraws(generator))
+    zn = z / torch.linalg.vector_norm(z, dim=1, keepdim=True).clamp(min=1e-8)
+    zan = z_aug / torch.linalg.vector_norm(z_aug, dim=1, keepdim=True).clamp(min=1e-8)
+    loss, pos, neg = select_contrastive_loss(
+        zn, zan, similarity=cfg.contrastive_similarity_function, loss_fn=cfg.contrastive_loss_function,
+        temperature=cfg.temperature, tau=cfg.tau, beta=cfg.beta)
+    return loss, {"total_loss": loss, "pos_similarity": pos, "neg_similarity": neg}
+
+
+def make_contrastive_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: ContrastiveCfg,
+                          edge_index: np.ndarray, precomp: RotationPrecomp,
+                          generator: torch.Generator) -> Callable:
+    """step(x_full) -> logs: ``contrastive_step_loss`` (its draws from
+    ``generator``), backward, clip + Adam update."""
+
+    def step(x_full):
+        loss, logs = contrastive_step_loss(model, x_full, edge_index, precomp, cfg, generator=generator)
+        optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in logs.items()}
 
     return step
 
@@ -465,13 +538,15 @@ def fit_vqvae(
     device="cuda",
 ) -> ModelBundle:
     """Train a VQ-VAE on ``train_ds`` (validated on ``val_ds`` after every
-    epoch) on ``device``. Weights are drawn from ``common.seed`` on the CPU.
-    Returns its bundle, in eval mode."""
+    epoch) on ``device``. Weights are drawn from ``common.seed`` on the CPU,
+    dropout's masks from a generator of that seed on ``device``. Returns its
+    bundle, in eval mode."""
     if checkpointer is not None:
         raise NotImplementedError("resumable checkpoints (Orbax in the JAX package) come with ROADMAP queue 1 item 9")
     dev = resolve_device(device)
     x0, a0, ang0, use_angles = _first_batch(train_ds, common, use_angles)
     model = _new_model("VQVAE", x0, a0, ang0, adjacency, common, use_gnn, use_angles, kmeans_loss, dev)
+    use_dropout_draws(model, DropoutDraws(torch.Generator(device=dev).manual_seed(common.seed or 0)))
     step = make_vqvae_step(model, _make_optimizer(model.named_parameters(), common.learning_rate))
     eval_step = make_vqvae_eval_step(model)
 
@@ -498,7 +573,7 @@ def fit_vqvae(
 def extract_latents(model: nn.Module, ds: WindowDataset, batch_size: int,
                     use_angles: bool = False) -> torch.Tensor:
     """Encoder-mean latents (N, D) of the whole dataset, unshuffled, on the
-    model's device."""
+    model's device, in eval mode (``embed``)."""
     dev = next(model.parameters()).device
     outs = []
     batches = prefetch(ds.batches(batch_size, shuffle=False))
@@ -532,7 +607,9 @@ def fit_vade(
     pretrained latents, then the main phase against that prior (its KL
     schedule from ``vade_cfg.kl_annealing_mode`` / ``kl_warmup``, with
     best-validation tracking and ``epoch_callback``). Each phase gets a
-    fresh optimiser. Returns the bundle, in eval mode."""
+    fresh optimiser. The sampling noise and dropout's masks come from one
+    generator of ``common.seed`` on ``device``. Returns the bundle, in eval
+    mode."""
     if checkpointer is not None:
         raise NotImplementedError(
             "resumable checkpoints and the post-GMM-init snapshot (teacher_init.pkl) come with "
@@ -544,6 +621,7 @@ def fit_vade(
     seed = common.seed or 0
     model = _new_model("VaDE", x0, a0, ang0, adjacency, common, use_gnn, use_angles, common.kmeans_loss, dev)
     generator = torch.Generator(device=dev).manual_seed(seed)
+    use_dropout_draws(model, DropoutDraws(generator))
     n_batches = max(1, train_ds.n_batches(common.batch_size))
     history: Dict[str, List[float]] = {}
     best, on_best = _best_tracker(model)
@@ -608,6 +686,68 @@ def fit_vade(
     return ModelBundle(model.eval(), spec, history, best.get("state"), best.get("val"))
 
 
+def graph_edges(adjacency: np.ndarray) -> np.ndarray:
+    """(E, 2) node pairs of the graph's edges, upper-triangular row-major
+    (the order of the edge features)."""
+    rows, cols = np.nonzero(np.triu(np.asarray(adjacency)))
+    return np.stack([rows, cols], axis=1).astype(np.int64)
+
+
+def fit_contrastive(
+    train_ds: WindowDataset,
+    val_ds: Optional[WindowDataset],
+    adjacency: np.ndarray,
+    common: CommonFitCfg,
+    contrastive_cfg: ContrastiveCfg,
+    use_gnn: bool = True,
+    bootstrap: bool = False,
+    bootstrap_block_len: int = 250,
+    verbose: bool = True,
+    checkpointer=None,
+    epoch_callback=None,
+    device="cuda",
+) -> ModelBundle:
+    """Train a Contrastive model (``common.encoder_type``'s encoder over
+    half windows) on ``device``: each step contrasts the centred half
+    window of every training window with an augmented view of it
+    (``make_contrastive_step``); there is no validation, as in the JAX
+    package, so ``val_ds`` is not read. Weights are drawn from
+    ``common.seed`` on the CPU, the augmentations and dropout's masks from a
+    generator of that seed on ``device``. Returns the bundle, in eval mode."""
+    if checkpointer is not None:
+        raise NotImplementedError("resumable checkpoints (Orbax in the JAX package) come with ROADMAP queue 1 item 9")
+    dev = resolve_device(device)
+    x0, a0, ang0, _ = _first_batch(train_ds, common, False)
+    model = _new_model("Contrastive", x0, a0, ang0, adjacency, common, use_gnn, False, 0.0, dev)
+    edge_index = graph_edges(adjacency)
+    precomp = build_rotation_precomp(edge_index, np.asarray(adjacency).shape[0])
+    generator = torch.Generator(device=dev).manual_seed(common.seed or 0)
+    step = make_contrastive_step(model, _make_optimizer(model.named_parameters(), common.learning_rate),
+                                 contrastive_cfg, edge_index, precomp, generator)
+
+    def train_fn(x, a, ang, idx, epoch):
+        return step(torch.as_tensor(x, device=dev))
+
+    history: Dict[str, List[float]] = {}
+    _run_epochs(
+        n_epochs=common.epochs, train_ds=train_ds, val_ds=None, batch_size=common.batch_size,
+        rng_seed=common.seed or 0, train_fn=train_fn, eval_fn=None, history=history,
+        bootstrap=bootstrap, bootstrap_block_len=bootstrap_block_len,
+        limit_train_batches=common.limit_train_batches, limit_val_batches=common.limit_val_batches,
+        verbose=verbose, on_epoch_end=epoch_callback,
+    )
+    spec = {
+        "model": "Contrastive",
+        "input_shape": list(x0.shape[1:]),
+        "edge_feature_shape": list(a0.shape[1:]),
+        "adjacency": np.asarray(adjacency).tolist(),
+        "latent_dim": common.latent_dim,
+        "encoder_type": common.encoder_type,
+        "use_gnn": use_gnn,
+    }
+    return ModelBundle(model.eval(), spec, history)
+
+
 # --------------------------------------------------------------------------- #
 # Dispatcher
 # --------------------------------------------------------------------------- #
@@ -641,6 +781,11 @@ def train_deepof_model(
     log_history: bool = True,
     n_clusters: int = 10,
     kmeans_loss: float = 0.0,
+    temperature: float = 0.1,
+    contrastive_similarity_function: str = "cosine",
+    contrastive_loss_function: str = "nce",
+    beta: float = 0.1,
+    tau: float = 0.1,
     output_path: str = ".",
     data_path: str = ".",
     pretrained: Optional[str] = None,
@@ -664,8 +809,9 @@ def train_deepof_model(
     device="cuda",
     **kwargs,
 ):
-    """Train a VaDE (the default) or a VQ-VAE on a graph dataset
-    ``(dataset (train, test), metainfo, adjacency)``.
+    """Train a VaDE (the default), a VQ-VAE or a Contrastive model, with
+    ``encoder_type``'s encoder, on a graph dataset ``(dataset (train,
+    test), metainfo, adjacency)``.
 
     Returns (model_bundle, model_score (None without the TURTLE teacher),
     None, log_summary), as the JAX package does. ``CommonFitCfg`` fields
@@ -673,18 +819,18 @@ def train_deepof_model(
     ``limit_val_batches``) set the fit's configuration; for a VaDE so do
     ``VaDECfg`` and ``TurtleTeacherCfg`` fields (``kl_annealing_mode`` and
     ``kl_warmup`` set its main phase's KL schedule, ``pretrain_epochs`` its
-    pretrain). The JAX package's common fields that neither fit reads raise
-    when set to another value than their default; other keywords are
-    accepted and unused, as in the JAX package. With ``save_weights`` the
+    pretrain), and for a Contrastive model ``ContrastiveCfg`` fields (the
+    loss, its similarity and temperature, the augmentations' ``aug_*``).
+    The JAX package's common fields that no fit reads raise when set to
+    another value than their default; other keywords are accepted and
+    unused, as in the JAX package. With ``save_weights`` the
     bundle (and its best-validation twin, ``_best.ckpt``) is written under
     ``output_path/models`` as
     ``{model_name}_{encoder_type}_latent{L}_k{K}_run{run}.ckpt``.
     """
     if pretrained:  # before any raise, as the JAX package returns it
         return ModelBundle.load(pretrained, device), None, None, {}
-    if model_name in ("Contrastive", "contrastive"):
-        raise NotImplementedError(f"model {model_name!r}: Contrastive comes with ROADMAP queue 1 item 8")
-    if model_name not in ("VaDE", "vade", "VQVAE", "vqvae"):
+    if model_name not in ("VaDE", "vade", "VQVAE", "vqvae") and model_name.lower() != "contrastive":
         raise ValueError(f"Unknown model_name: {model_name}")
     if use_amp:
         raise NotImplementedError(
@@ -692,7 +838,7 @@ def train_deepof_model(
         )
     unread = sorted(k for k, default in UNREAD_COMMON_FIELDS.items() if kwargs.get(k, default) != default)
     if unread:
-        raise ValueError(f"{unread}: neither the VQ-VAE nor the VaDE fit reads such a setting")
+        raise ValueError(f"{unread}: no fit reads such a setting")
     if checkpoint_dir:
         raise NotImplementedError("checkpoint_dir: resumable checkpoints (Orbax in the JAX package) come with "
                                   "ROADMAP queue 1 item 9")
@@ -727,6 +873,14 @@ def train_deepof_model(
                   device=device)
     if vade:
         bundle = fit_vade(train_ds, val_ds, adjacency_matrix, common, vade_cfg, teacher_cfg, **fit_kw)
+    elif model_name.lower() == "contrastive":
+        ccfg = ContrastiveCfg(temperature=temperature, contrastive_similarity_function=contrastive_similarity_function,
+                              contrastive_loss_function=contrastive_loss_function, beta=beta, tau=tau)
+        for k, v in kwargs.items():
+            if hasattr(ccfg, k):
+                setattr(ccfg, k, v)
+        fit_kw.pop("use_angles")
+        bundle = fit_contrastive(train_ds, val_ds, adjacency_matrix, common, ccfg, **fit_kw)
     else:
         bundle = fit_vqvae(train_ds, val_ds, adjacency_matrix, common, kmeans_loss=kmeans_loss, **fit_kw)
     log_summary = {k: v[-1] if v else None for k, v in bundle.history.items()}

@@ -1,17 +1,19 @@
 """Embeddings and soft counts for every stride-1 window of every recording
 (port of deepof_tpu/train/inference.py:204 ``scanned_windowed_forward`` and
-:287 ``embedding_per_video``, with the VQ-VAE's and VaDE's outputs as
+:287 ``embedding_per_video``, with each model's outputs as
 ``_model_forward_fn`` :96-110 picks them: the VQ-VAE's encoder output and
-soft counts, VaDE's latent (z_mean) and categorical posterior). Soft counts
-come from the model's head, or from the embeddings through the gated GMM,
-the gated MSM + PCCA+, the Gaussian HMM or "combined" (``gating.py``,
-``msm.py``) when ``softcounts_extraction_method`` names one.
+soft counts, VaDE's latent (z_mean) and categorical posterior, the
+Contrastive encoder's embedding of half windows, T_train // 2 frames).
+Soft counts come from the model's head, or from the embeddings through the
+gated GMM, the gated MSM + PCCA+, the Gaussian HMM or "combined"
+(``gating.py``, ``msm.py``) when ``softcounts_extraction_method`` names one;
+a Contrastive model has no head and takes "msm" by default.
 
 Windows never exist on the host: the scaled (T, F) frame is on the device,
 and for each block of ``block`` windows one launch of the window kernel
 writes the encoder's node, edge and (with the angle stream) angle streams
 straight from the frame's rows, which ``forward_streams`` runs through the
-encoder.
+encoder, of any kind, in eval mode.
 
 The JAX version rounds the number of blocks up to a power of two so that
 recordings of other lengths reuse one compiled program; PyTorch runs
@@ -31,6 +33,7 @@ from deepof_tpu_torch import gating
 from deepof_tpu_torch.core.storage import get_dt
 from deepof_tpu_torch.core.table_dict import TableDict
 from deepof_tpu_torch.device import fetch_together, resolve_device, to_device
+from deepof_tpu_torch.models.blocks import run_mode
 from deepof_tpu_torch.models.zoo import SERVING_KEYS
 from deepof_tpu_torch.msm import get_soft_counts_hmm
 from deepof_tpu_torch.ops.window_kernels import window_streams
@@ -89,17 +92,19 @@ def scanned_windowed_forward(
         layout: {"node": idx, "edge": idx, "angle": idx-or-None} column
             indices into F; node indices in x-block, y-block, speed-block
             order.
-        window: model window size.
-        model_name: "VQVAE" or "VaDE".
+        window: the window the model encodes (a Contrastive model's half
+            window).
+        model_name: "VQVAE", "VaDE" or "Contrastive".
         block: windows per encoder call (compute / memory granularity).
         fetch: False leaves the results on the device.
 
     Returns:
-        (embeddings (W, D), soft_counts (W, K)) float32, numpy (or tensors
-        on the device without ``fetch``), W = T - window + 1.
+        (embeddings (W, D), soft_counts (W, K) or None for a Contrastive
+        model) float32, numpy (or tensors on the device without
+        ``fetch``), W = T - window + 1.
     """
     if model_name not in SERVING_KEYS:
-        raise NotImplementedError(f"model {model_name!r}: Contrastive comes with ROADMAP queue 1 item 8")
+        raise ValueError(f"Unknown model: {model_name}")
     emb_key, sc_key = SERVING_KEYS[model_name]
     dev = resolve_device(device)
     model = bundle.model
@@ -125,7 +130,7 @@ def scanned_windowed_forward(
     ones = feats.new_ones(f)
 
     embs, scs = [], []
-    with torch.inference_mode():
+    with run_mode(model, False), torch.inference_mode():
         for i in range(n_blocks):
             rows = padded[i * block:i * block + rows_per_block]
             # (block*N, W, 3), (block*E, W, 1) [and (block, W, A)], from one launch.
@@ -134,12 +139,13 @@ def scanned_windowed_forward(
             ang = streams[len(tables) - 1] if layout.get("angle") is not None else None
             out = model.forward_streams(xg, ag, ang)
             embs.append(out[emb_key])
-            scs.append(out[sc_key])
+            if sc_key is not None:
+                scs.append(out[sc_key])
     embs = torch.cat(embs)[:n_windows]
-    scs = torch.cat(scs)[:n_windows]
+    scs = torch.cat(scs)[:n_windows] if scs else None
     if not fetch:
         return embs, scs
-    return embs.cpu().numpy(), scs.cpu().numpy()
+    return embs.cpu().numpy(), None if scs is None else scs.cpu().numpy()
 
 
 def embedding_per_video(
@@ -187,7 +193,8 @@ def embedding_per_video(
             decoders (per animal pair's distance gate on a multi-animal
             project), "combined" the MSM decoder with the tracking-chaos
             gates of ``quality_threshold`` / ``frac_bps_below`` overlaid,
-            "hmm" a Gaussian HMM of ``n_components`` states.
+            "hmm" a Gaussian HMM of ``n_components`` states. A
+            Contrastive model, which has no head, takes "msm" by default.
         n_components: states or clusters a gate (default: the model's).
         extract_pair: which animal pair's gate to return (default: the
             first two animal ids, or the "" gate of a single animal).
@@ -201,9 +208,13 @@ def embedding_per_video(
     """
     model_name = model.rebuild_spec["model"]
     if model_name not in SERVING_KEYS:
-        raise NotImplementedError(f"model {model_name!r}: Contrastive comes with ROADMAP queue 1 item 8")
+        raise ValueError(f"Unknown model: {model_name}")
     dev = resolve_device(coordinates._device if device is None else device)
     window_size = model.rebuild_spec["input_shape"][0]
+    if model_name == "Contrastive":
+        # The contrastive encoder reads half windows, each whole.
+        window_size //= 2
+        softcounts_extraction_method = softcounts_extraction_method or "msm"
     sig = (
         scale,
         meta_info.get("dist_standardize", "per_column"),

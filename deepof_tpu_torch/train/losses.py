@@ -1,6 +1,8 @@
-"""The VaDE loss (port of deepof_tpu/train/losses.py:162-450):
+"""The contrastive losses and the VaDE loss (port of
+deepof_tpu/train/losses.py: the similarity matrices and the nce / dcl / fc /
+hard-dcl losses with ``select_contrastive_loss`` :34-148;
 ``cluster_frequencies_regularizer``, ``VadeLossParams``, ``vade_loss`` and
-``vade_params_from_cfg``.
+``vade_params_from_cfg`` :162-450).
 
 The composite loss: the masked-Normal reconstruction NLL; the KL to N(0, I)
 in pretrain and a 32-sample Monte-Carlo KL to the GMM prior in the main
@@ -13,18 +15,128 @@ scatter terms, with the JAX package's clips and stop-gradients
 The teacher-distillation term waits for the TURTLE teacher (ROADMAP queue 1
 item 14): without a teacher the JAX package's step runs it on zero
 assignments at weight 0, so it is exactly 0, and here ``distill_loss`` is 0.
-The contrastive losses (losses.py:34-148) come with Contrastive (item 8).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+
+# --------------------------------------------------------------------------- #
+# Similarities and contrastive losses
+# --------------------------------------------------------------------------- #
+
+
+def cosine_similarity_matrix(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    xn = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(min=1e-8)
+    yn = y / torch.linalg.vector_norm(y, dim=-1, keepdim=True).clamp(min=1e-8)
+    return xn @ yn.T
+
+
+def dot_similarity_matrix(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return x @ y.T
+
+
+def euclidean_similarity_matrix(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    d2 = ((x[:, None] - y[None]) ** 2).sum(dim=-1)
+    return 1.0 / (1.0 + torch.sqrt(d2.clamp(min=0.0)))
+
+
+SIMILARITIES: Dict[str, Callable] = {
+    "cosine": cosine_similarity_matrix,
+    "dot": dot_similarity_matrix,
+    "euclidean": euclidean_similarity_matrix,
+    "edit": euclidean_similarity_matrix,
+}
+
+
+def _off_diagonal(sim: torch.Tensor) -> torch.Tensor:
+    """Each row's off-diagonal entries, (N, N - 1)."""
+    n = sim.shape[0]
+    return sim.reshape(-1)[:-1].reshape(n - 1, n + 1)[:, 1:].reshape(n, n - 1)
+
+
+def nce_loss(history, future, similarity, temperature=0.1):
+    """InfoNCE with in-batch negatives. -> (loss, mean positive similarity,
+    mean negative similarity)."""
+    sim = similarity(history, future) / temperature
+    loss = -torch.diagonal(torch.log_softmax(sim, dim=1)).mean()
+    return loss, torch.diagonal(sim).mean() * temperature, _off_diagonal(sim * temperature).mean()
+
+
+def dcl_loss(history, future, similarity, temperature=0.1, debiased=True, tau_plus=0.1):
+    """Debiased contrastive loss (Chuang et al. 2020)."""
+    n = history.shape[0]
+    sim = similarity(history, future)
+    pos = torch.exp(torch.diagonal(sim) / temperature)
+    neg_raw = _off_diagonal(sim)
+    neg = torch.exp(neg_raw / temperature)
+    if debiased:
+        n_eff = n - 1
+        ng = (-tau_plus * n_eff * pos + neg.sum(-1)) / (1.0 - tau_plus)
+        ng = ng.clamp(min=n_eff * math.e ** (-1.0 / temperature))
+    else:
+        ng = neg.sum(-1)
+    loss = (-torch.log(pos / (pos + ng))).mean()
+    return loss, torch.diagonal(sim).mean(), neg_raw.mean()
+
+
+def fc_loss(history, future, similarity, temperature=0.1, elimination_topk=0.1):
+    """False-negative elimination: each row's k most similar negatives
+    dropped."""
+    n = history.shape[0]
+    k = max(1, int(math.ceil(min(elimination_topk, 0.5) * n)))
+    sim = similarity(history, future) / temperature
+    pos = torch.exp(torch.diagonal(sim))
+    neg_raw = _off_diagonal(sim)
+    keep = max((n - 1) - k, 0)
+    trimmed = torch.sort(neg_raw, dim=1).values[:, :keep]
+    neg_sum = torch.exp(trimmed).sum(-1) if keep > 0 else sim.new_zeros(n)
+    loss = (-torch.log(pos / (pos + neg_sum))).mean()
+    mean_neg = trimmed.mean() * temperature if keep > 0 else sim.new_zeros(())
+    return loss, torch.diagonal(sim).mean() * temperature, mean_neg
+
+
+def hard_loss(history, future, similarity, temperature=0.1, beta=0.0, debiased=True, tau_plus=0.1):
+    """Hard-negative reweighted DCL (Robinson et al. 2021)."""
+    n = history.shape[0]
+    sim = similarity(history, future)
+    pos = torch.exp(torch.diagonal(sim) / temperature)
+    neg_raw = _off_diagonal(sim)
+    neg = torch.exp(neg_raw / temperature)
+    reweight = torch.ones_like(neg) if beta == 0.0 else (beta * neg) / neg.mean(dim=1, keepdim=True)
+    if debiased:
+        n_eff = n - 1
+        ng = (-tau_plus * n_eff * pos + (reweight * neg).sum(-1)) / (1.0 - tau_plus)
+        ng = ng.clamp(min=math.e ** (-1.0 / temperature))
+    else:
+        ng = neg.sum(-1)
+    loss = (-torch.log(pos / (pos + ng))).mean()
+    return loss, torch.diagonal(sim).mean(), neg_raw.mean()
+
+
+def select_contrastive_loss(history, future, similarity: str = "cosine", loss_fn: str = "nce",
+                            temperature: float = 0.1, tau: float = 0.1, beta: float = 0.1,
+                            elimination_topk: float = 0.1):
+    """(loss, mean positive, mean negative similarity) of ``loss_fn`` ("nce",
+    "dcl", "fc", "hard_dcl") under ``similarity`` ("cosine", "dot",
+    "euclidean" or "edit", the same)."""
+    sim_fn = SIMILARITIES[similarity]
+    if loss_fn == "nce":
+        return nce_loss(history, future, sim_fn, temperature)
+    if loss_fn == "dcl":
+        return dcl_loss(history, future, sim_fn, temperature, True, tau)
+    if loss_fn == "fc":
+        return fc_loss(history, future, sim_fn, temperature, elimination_topk)
+    if loss_fn == "hard_dcl":
+        return hard_loss(history, future, sim_fn, temperature, beta, True, tau)
+    raise ValueError(f"Unknown loss_fn: {loss_fn}")
 
 
 def cluster_frequencies_regularizer(soft_counts: torch.Tensor) -> torch.Tensor:

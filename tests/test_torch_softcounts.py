@@ -34,11 +34,21 @@ inputs showed (seen values beside them where they are not exact):
 - gating series 1e-7 relative (float32 results of float64 sums), gates,
   masks, runs, samples and transition counts exactly; PCCA+ 1e-10 (numpy
   float64 on both sides).
+
+The JAX package's HMM forward-backward and log-densities run compiled
+whole (``compiled_reference_hmm``); its forward-backward programs of the
+nine test shapes compile together in threads, and its side of the HMM
+tests runs in threads at once (``jax_hmm_results``); each package's
+``embedding_per_video`` with each extraction method runs once a module
+(``served``), and the tests that read it share its outputs. The port runs
+on one torch thread (``one_torch_thread``): beside tier-1's other
+workers, eight threads made its serving calls ~100 times slower.
 """
 
 import os
 import pickle
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -65,10 +75,26 @@ from deepof_tpu_torch.core.storage import LazyFrame
 from deepof_tpu_torch.core.table_dict import TableDict
 from deepof_tpu_torch.data import Project
 from deepof_tpu_torch.ops.hmm_kernels import forward_backward, hmm_scan, hmm_scan_plain
+from deepof_tpu_torch.train import gmm
 from deepof_tpu_torch.train.inference import embedding_per_video
 
 from test_torch_cohort import _vade_bundles
+from test_torch_encoders import one_torch_thread  # noqa: F401 (an autouse fixture of this module too)
 from test_torch_public import _project_args, write_project
+
+@pytest.fixture(scope="module", autouse=True)
+def compiled_reference_hmm():
+    """The JAX package's forward-backward and Gaussian log-densities, each
+    compiled whole. Its decode and log-likelihood paths call them outside
+    jit, where JAX compiles each of their ~40 operations on its own for
+    every new shape (9 of the 11.5 s of one ``fit_hmm_range`` here); the
+    same functions, the same arithmetic, as one program."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jmsm, "_forward_backward", jax.jit(jmsm._forward_backward))
+    mp.setattr(jmsm, "_log_gaussian", jax.jit(jmsm._log_gaussian))
+    yield
+    mp.undo()
+
 
 KEYS = ("test", "test2")
 LENGTHS = (300, 260)
@@ -134,21 +160,33 @@ def _sticky_sequences(seed, n, t, d=4, k=3, scale=3.0):
 # --------------------------------------------------------------------------- #
 
 
-# The JAX package's forward-backward vmapped over sequences, as its EM runs it.
-_jax_fb = jax.jit(jax.vmap(jmsm._forward_backward, in_axes=(0, None, None)))
+FB_SHAPES = [(k, t) for t in (1, 2, 257) for k in (2, 10, 25)]
+
+
+@pytest.fixture(scope="module")
+def jax_forward_backward():
+    """The JAX package's forward-backward vmapped over 3 sequences, as its
+    EM runs it, at each FB_SHAPES (K, T): every program traced in turn,
+    then all compiled at once in threads (XLA compiles without the
+    interpreter lock). -> {(k, t): (inputs, (gamma, xi_sum, ll))}."""
+    fb = jax.vmap(jmsm._forward_backward, in_axes=(0, None, None))
+    inputs = {(k, t): _hmm_inputs(np.random.default_rng(k * 1000 + t), 3, t, k) for k, t in FB_SHAPES}
+    lowered = {s: jax.jit(fb).lower(*(jnp.asarray(v) for v in args)) for s, args in inputs.items()}
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        compiled = dict(zip(lowered, pool.map(lambda low: low.compile(), lowered.values())))
+    return {s: (args, compiled[s](*(jnp.asarray(v) for v in args))) for s, args in inputs.items()}
 
 
 @pytest.mark.parametrize("k", [2, 10, 25])
 @pytest.mark.parametrize("t", [1, 2, 257])
-def test_forward_backward_matches_jax(k, t):
+def test_forward_backward_matches_jax(jax_forward_backward, k, t):
     """gamma, xi_sum and the log-likelihood of 3 sequences from
     hmm_scan_plain (through hmm_scan on CPU tensors) against the JAX
     package's _forward_backward, sequence by sequence."""
-    log_b, log_pi, log_a = _hmm_inputs(np.random.default_rng(k * 1000 + t), 3, t, k)
+    (log_b, log_pi, log_a), (jg, jx, jl) = jax_forward_backward[k, t]
     launches = hmm_scan.launches
     gamma, xi, ll = forward_backward(torch.as_tensor(log_b), torch.as_tensor(log_pi), torch.as_tensor(log_a))
     assert hmm_scan.launches == launches  # a CPU tensor never counts a launch
-    jg, jx, jl = _jax_fb(jnp.asarray(log_b), jnp.asarray(log_pi), jnp.asarray(log_a))
     xi64 = _exact_xi(log_b, log_pi, log_a)
     for i in range(3):
         _close(gamma[i], jg[i], atol=GAMMA_TOL)
@@ -227,53 +265,103 @@ def test_hmm_scan_recursions_and_what_raises():
 # --------------------------------------------------------------------------- #
 
 
+def _range_embeddings():
+    x = _sticky_sequences(2, 2, 80)
+    return {"a": x[0], "b": x[1][:70]}
+
+
+def _prior_embeddings():
+    """Two sequences and their priors, one shorter and one longer than its
+    sequence."""
+    x = _sticky_sequences(3, 2, 90)
+    rng = np.random.default_rng(4)
+    priors = {"a": rng.dirichlet(np.ones(3) * 0.3, size=80), "b": rng.dirichlet(np.ones(3) * 0.3, size=90)}
+    return {"a": x[0], "b": x[1][:75]}, priors
+
+
+PRIOR_KWARGS = ({"n_states": 3}, {"min_confidence": 0.6, "prior_weight": 0.5}, {"min_confidence": None})
+CONTRASTIVE_CASES = ("int", "bic", "aic", "priors")
+
+
+def _contrastive_kwargs(case):
+    if case == "priors":
+        rng = np.random.default_rng(8)
+        return {"soft_counts": {"a": rng.dirichlet(np.ones(3) * 0.3, size=300)}, "min_confidence": 0.5}
+    return {"int": {"states": 3}, "bic": {"states": "bic", "max_states": 3},
+            "aic": {"states": "aic", "max_states": 3}}[case]
+
+
 @pytest.fixture(scope="module")
-def hmm_pair():
+def jax_hmm_results():
+    """The JAX package's side of the HMM tests, run in threads at once (XLA
+    compiles and runs without the interpreter lock): the 6-iteration fit of
+    ``hmm_pair`` with its log-likelihood and decodes, ``fit_hmm_range`` by
+    each criterion, ``get_soft_counts_hmm`` with each PRIOR_KWARGS and
+    ``get_contrastive_soft_counts`` in each case. -> {name: result}."""
     x = _sticky_sequences(0, 3, 120)
-    return x, jmsm.GaussianHMM(3, n_iter=6).fit(x), msm.GaussianHMM(3, n_iter=6, device="cpu").fit(x)
+    bias = np.log(np.random.default_rng(1).dirichlet(np.ones(3), size=120))
+
+    def pair():
+        jm = jmsm.GaussianHMM(3, n_iter=6).fit(x)
+        return jm, jm.log_probability(x), [jm.predict_proba(x[1], log_bias=b) for b in (None, bias)]
+
+    embs, priors = _prior_embeddings()
+    tasks = {"pair": pair}
+    for crit in ("aic", "bic"):
+        tasks["range", crit] = lambda crit=crit: jmsm.fit_hmm_range(_range_embeddings(), crit, 2, 3)
+    for i, kw in enumerate(PRIOR_KWARGS):
+        kw = kw if i == 0 else {"soft_counts": priors, **kw}
+        tasks["soft_counts", i] = lambda kw=kw: jmsm.get_soft_counts_hmm(embs, **kw)
+    for case in CONTRASTIVE_CASES:
+        tasks["contrastive", case] = lambda case=case: jmsm.get_contrastive_soft_counts(
+            None, _contrastive_embeddings(), **_contrastive_kwargs(case))
+    with ThreadPoolExecutor(len(tasks)) as pool:
+        futures = {name: pool.submit(fn) for name, fn in tasks.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
+@pytest.fixture(scope="module")
+def hmm_pair(jax_hmm_results):
+    x = _sticky_sequences(0, 3, 120)
+    return x, jax_hmm_results["pair"], msm.GaussianHMM(3, n_iter=6, device="cpu").fit(x)
 
 
 def test_gaussian_hmm_fit_matches_jax(hmm_pair):
     """Six EM iterations from the same numpy init draw: every parameter and
     the log-likelihood trace; log_probability; the decode with and without
     a log bias; n_params."""
-    x, jm, pm = hmm_pair
+    x, (jm, j_ll, j_decodes), pm = hmm_pair
     for got, want in zip(pm.params, jm.params):
         assert got.dtype == np.float32
         _close(got, want, rtol=EM_RTOL, atol=EM_RTOL)
     _close(pm.log_likelihoods_, jm.log_likelihoods_, rtol=EM_RTOL)
-    _close(pm.log_probability(x), jm.log_probability(x), rtol=EM_RTOL)
+    _close(pm.log_probability(x), j_ll, rtol=EM_RTOL)
     bias = np.log(np.random.default_rng(1).dirichlet(np.ones(3), size=120))
-    for b in (None, bias):
-        got, want = pm.predict_proba(x[1], log_bias=b), jm.predict_proba(x[1], log_bias=b)
+    for b, want in zip((None, bias), j_decodes):
+        got = pm.predict_proba(x[1], log_bias=b)
         _close(got, want, atol=PROB_TOL)
         assert (got.argmax(1) == want.argmax(1)).all()
     assert pm.n_params(4) == jm.n_params(4) == 3 * 8 + 6
 
 
 @pytest.mark.parametrize("crit", ["aic", "bic"])
-def test_fit_hmm_range_matches_jax(crit):
+def test_fit_hmm_range_matches_jax(jax_hmm_results, crit):
     """State selection over 2..3 states (30 EM iterations each): the same
     chosen count and scores."""
-    x = _sticky_sequences(2, 2, 80)
-    embs = {"a": x[0], "b": x[1][:70]}
-    jbest, jscores = jmsm.fit_hmm_range(embs, crit, 2, 3)
-    pbest, pscores = msm.fit_hmm_range(embs, crit, 2, 3, device="cpu")
+    jbest, jscores = jax_hmm_results["range", crit]
+    pbest, pscores = msm.fit_hmm_range(_range_embeddings(), crit, 2, 3, device="cpu")
     assert pbest.n_states == jbest.n_states
     _close(pscores, jscores, rtol=EM_RTOL)
 
 
-def test_get_soft_counts_hmm_matches_jax():
+def test_get_soft_counts_hmm_matches_jax(jax_hmm_results):
     """n_states, then priors (one shorter and one longer than its sequence,
     padded and truncated, with min_confidence gating and a prior weight);
     the raises."""
-    x = _sticky_sequences(3, 2, 90)
-    embs = {"a": x[0], "b": x[1][:75]}
-    rng = np.random.default_rng(4)
-    priors = {"a": rng.dirichlet(np.ones(3) * 0.3, size=80), "b": rng.dirichlet(np.ones(3) * 0.3, size=90)}
-    for kw in ({"n_states": 3}, {"soft_counts": priors, "min_confidence": 0.6, "prior_weight": 0.5},
-               {"soft_counts": priors, "min_confidence": None}):
-        want = jmsm.get_soft_counts_hmm(embs, **kw)
+    embs, priors = _prior_embeddings()
+    for i, kw in enumerate(PRIOR_KWARGS):
+        kw = kw if i == 0 else {"soft_counts": priors, **kw}
+        want = jax_hmm_results["soft_counts", i]
         got = msm.get_soft_counts_hmm(embs, device="cpu", **kw)
         assert list(got) == list(want)
         for key in want:
@@ -387,6 +475,26 @@ def test_minibatch_reassigns_light_centres():
     np.testing.assert_array_equal(got.labels_.numpy(), want.labels_)
 
 
+@pytest.mark.parametrize("rows,k,dtype", [(1024, 200, np.float32), (30_000, 10, np.float32), (500, 7, np.float64)])
+def test_cluster_sums_add_rows_in_order(rows, k, dtype):
+    """Each cluster's sum adds its rows in row order, as numpy's ``add.at``
+    does, at any intra-op thread count: what the k-means fits' steps rely
+    on to repeat bit for bit (chip_smoke.py holds the card to the same)."""
+    rng = np.random.default_rng(rows + k)
+    x = (rng.normal(size=(rows, 8)) * 10).astype(dtype)
+    labels = rng.integers(0, k, rows)
+    want = np.zeros((k, 8), dtype)
+    np.add.at(want, labels, x)
+    threads = torch.get_num_threads()
+    try:
+        for n in (1, 8):
+            torch.set_num_threads(n)
+            got = gmm.cluster_sums(torch.as_tensor(x), torch.as_tensor(labels), k)
+            np.testing.assert_array_equal(got.numpy(), want)
+    finally:
+        torch.set_num_threads(threads)
+
+
 # --------------------------------------------------------------------------- #
 # MSM + PCCA+
 # --------------------------------------------------------------------------- #
@@ -498,18 +606,12 @@ def _contrastive_embeddings():
     return {"a": x[0], "b": x[1]}
 
 
-@pytest.mark.parametrize("case", ["int", "bic", "aic", "priors"])
-def test_contrastive_soft_counts_match_jax(case):
+@pytest.mark.parametrize("case", CONTRASTIVE_CASES)
+def test_contrastive_soft_counts_match_jax(jax_hmm_results, case):
     """The sticky-HMM extractor: an int state count, BIC and AIC over 2..3,
     and priors (their width fixes K); plain dicts without coordinates."""
-    embs = _contrastive_embeddings()
-    kw = {"int": {"states": 3}, "bic": {"states": "bic", "max_states": 3},
-          "aic": {"states": "aic", "max_states": 3}}.get(case)
-    if case == "priors":
-        rng = np.random.default_rng(8)
-        kw = {"soft_counts": {"a": rng.dirichlet(np.ones(3) * 0.3, size=300)}, "min_confidence": 0.5}
-    want = jmsm.get_contrastive_soft_counts(None, embs, **kw)
-    got = msm.get_contrastive_soft_counts(None, embs, device="cpu", **kw)
+    want = jax_hmm_results["contrastive", case]
+    got = msm.get_contrastive_soft_counts(None, _contrastive_embeddings(), device="cpu", **_contrastive_kwargs(case))
     assert list(got) == list(want)
     for key in want:
         assert got[key].shape == want[key].shape
@@ -714,27 +816,37 @@ def test_chaos_gates_match_jax(project):
 
 @pytest.fixture(scope="module")
 def served(project):
+    """The VaDE carried from flax params in both packages, and
+    ``run(method)``: both packages' ``embedding_per_video`` with that
+    extraction method, computed on first use and shared by the tests that
+    read it."""
     (j_coords, j_ggd), (p_coords, p_ggd) = project["jax"], project["port"]
     j_bundle, p_bundle = _vade_bundles(p_ggd[1], p_ggd[2])
-    return j_bundle, p_bundle
+    cache = {}
+
+    def run(method):
+        if method not in cache:
+            kw = dict(softcounts_extraction_method=method, n_micro=12, batch_size=64)
+            env = pytest.MonkeyPatch()
+            env.setenv("DEEPOF_TPU_DEVICE_SCALE", "1")
+            try:
+                want = jax_embed(j_coords, j_ggd[3], j_bundle, j_ggd[1], global_scaler=j_ggd[4], **kw)
+            finally:
+                env.undo()
+            got = embedding_per_video(p_coords, p_ggd[3], p_bundle, p_ggd[1], global_scaler=p_ggd[4], **kw)
+            cache[method] = (want, got)
+        return cache[method]
+
+    return j_bundle, p_bundle, run
 
 
 @pytest.mark.parametrize("method", ["gmm", "msm", "hmm", "combined"])
-def test_embedding_per_video_extraction_matches_jax(project, served, method):
+def test_embedding_per_video_extraction_matches_jax(served, method):
     """embedding_per_video of a VaDE carried from flax params with each
     extraction method: the embeddings at 1e-5 and the extracted soft counts
     at the posterior bar, equal shapes ((W, 3 x 4) gated, (W, 4) hmm, (W,
     16) combined)."""
-    (j_coords, j_ggd), (p_coords, p_ggd) = project["jax"], project["port"]
-    j_bundle, p_bundle = served
-    kw = dict(softcounts_extraction_method=method, n_micro=12, batch_size=64)
-    mp = pytest.MonkeyPatch()
-    mp.setenv("DEEPOF_TPU_DEVICE_SCALE", "1")
-    try:
-        j_emb, j_counts = jax_embed(j_coords, j_ggd[3], j_bundle, j_ggd[1], global_scaler=j_ggd[4], **kw)
-    finally:
-        mp.undo()
-    p_emb, p_counts = embedding_per_video(p_coords, p_ggd[3], p_bundle, p_ggd[1], global_scaler=p_ggd[4], **kw)
+    (j_emb, j_counts), (p_emb, p_counts) = served[2](method)
     width = {"gmm": 12, "msm": 12, "hmm": 4, "combined": 16}[method]
     for key in KEYS:
         _close(p_emb[key], j_emb[key].to_numpy(), atol=1e-5, rtol=1e-5)
@@ -746,13 +858,14 @@ def test_embedding_per_video_extraction_matches_jax(project, served, method):
 
 
 def test_embedding_per_video_gate_selection(project, served):
-    """extract_pair picks the pair's gate; a behaviour-gated run warns and
-    falls back to its first gate; a bad pair raises."""
-    (_, _), (p_coords, p_ggd) = project["port"], project["port"]
-    _, p_bundle = served
+    """extract_pair picks the pair's gate (against the shared "gmm" run); a
+    behaviour-gated run warns and falls back to its first gate; a bad pair
+    raises."""
+    p_coords, p_ggd = project["port"]
+    _, p_bundle, run = served
     args = (p_coords, p_ggd[3], p_bundle, p_ggd[1])
     kw = dict(global_scaler=p_ggd[4], softcounts_extraction_method="gmm", batch_size=64)
-    _, base = embedding_per_video(*args, **kw)
+    _, base = run("gmm")[1]
     _, picked = embedding_per_video(*args, extract_pair=["W", "B"], **kw)
     for key in KEYS:
         np.testing.assert_array_equal(picked[key], base[key])

@@ -457,8 +457,8 @@ def test_bundle_save_load_and_what_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         ModelBundle.load(str(flax_file), device="cpu")
     ds = ((({}, {}), {}, ADJ))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        pharness.train_deepof_model(ds, ADJ, model_name="Contrastive", device="cpu")
+    with pytest.raises(ValueError, match="Unknown model_name"):
+        pharness.train_deepof_model(ds, ADJ, model_name="GMVAE", device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         pharness.train_deepof_model(ds, ADJ, model_name="VQVAE", checkpoint_dir=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="use_amp"):

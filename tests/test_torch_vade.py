@@ -474,8 +474,9 @@ def test_default_embedding_trains_a_vade_saves_and_serves(trained, jax_forwards)
 
 def test_gmm_init_and_what_raises(trained, tmp_path):
     """fit_vade writes the GMM fitted to the pretrained latents into the
-    prior before the main phase; the teacher, checkpoints, mixed
-    precision, Contrastive and the TCN encoder raise, naming their items."""
+    prior before the main phase; the teacher, checkpoints and mixed
+    precision raise, naming their items, and so do an unknown encoder and
+    an unknown model."""
     coords, ggd, _, _ = trained
     common = pconfig.CommonFitCfg(batch_size=16, latent_dim=LATENT, epochs=0, n_components=K, seed=0)
     train_ds = pharness._dataset_from_preprocessed(ggd[0][0])
@@ -496,9 +497,7 @@ def test_gmm_init_and_what_raises(trained, tmp_path):
         coords.deep_unsupervised_embedding(ggd[:3], checkpoint_dir=str(tmp_path), **kw)
     with pytest.raises(NotImplementedError, match="use_amp"):
         coords.deep_unsupervised_embedding(ggd[:3], use_amp=True, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        coords.deep_unsupervised_embedding(ggd[:3], embedding_model="Contrastive", **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        coords.deep_unsupervised_embedding(ggd[:3], encoder_type="TCN", **kw)
+    with pytest.raises(NotImplementedError, match="invalid encoder type"):
+        coords.deep_unsupervised_embedding(ggd[:3], encoder_type="GRU", **kw)
     with pytest.raises(ValueError, match="Unknown model"):
         coords.deep_unsupervised_embedding(ggd[:3], embedding_model="GMVAE", **kw)
