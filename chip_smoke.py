@@ -178,7 +178,27 @@
    outputs. Then the card's VQ-VAE-TCN and VaDE-transformer against the JAX
    package's outputs in tests/data/tcn_reference.npz and
    transformer_reference.npz within 1e-5.
-13. Prints a stage line of each path, a kernels line, and last
+13. Teacher: VaDE's TURTLE teacher and resumable checkpoints on the
+   training phase's project. Card vs the CPU's plain versions from the same
+   inputs and LeCun draws: the teacher on 2,048 training windows at 20 outer
+   x 100 inner steps (tau_star and class weights at 1e-4 of max(1, |value|),
+   float32), ``initialize_gmm_from_teacher`` (1e-6, float64) and one VaDE
+   main step with distillation (loss and every gradient at the training
+   phase's bars). Then ``deep_unsupervised_embedding`` at its default model
+   with ``use_turtle_teacher=True`` at the teacher's defaults (500 outer x
+   100 inner steps, a batch of 2,048), ``teacher_refresh_every=2``,
+   ``reinit_gmm_on_refresh=True``, ``checkpoint_dir`` in a temporary
+   directory, ``checkpoint_every=1`` and ``save_checkpoints=True``, for one
+   pretrain and 4 main epochs of 50 + 5 batches, each stage and teacher fit
+   timed and the kernels' launches counted from a reset; every fit's
+   tau_star finite with rows summing to 1 within 1e-5, the alignment
+   scores in [0, 1], the best-score bundle returned, saved, reloaded and
+   served by ``embedding_per_video``; then the same call with ``epochs=5``,
+   which resumes at epoch 4 from the saved state (model and optimiser equal
+   bit for bit); checkpoint save and restore seconds and bytes; and the
+   default teacher's outer step timed (ms, launches and device ms a step
+   under the profiler).
+14. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -2747,6 +2767,328 @@ def _encoders_phase(torch, card, data, prefix):
     return line, {f"encoders_{k}": v["launches"] for k, v in serving.items()}
 
 
+# Phase 13: VaDE's TURTLE teacher and resumable checkpoints on the training
+# phase's project, at the teacher's defaults (500 outer x 100 inner steps, a
+# batch of 2,048, PCA views of 32 dimensions, K 10).
+TEACHER_EPOCHS = 4  # main epochs of the first call; the second asks for one more and resumes
+TEACHER_REFRESH_EVERY = 2
+TEACHER_CHECK = (2_048, 20, 100)  # windows, outer and inner steps of the card-vs-CPU fit
+TEACHER_RTOL = 1e-4  # tau_star and class weights card vs CPU, of max(1, |value|)
+GMM_INIT_RTOL = 1e-6  # initialize_gmm_from_teacher card vs CPU (float64 both)
+TEACHER_TIMED_STEPS = 20
+TEACHER_PROFILED_STEPS = 2
+
+
+def _rel(got, want) -> float:
+    got, want = (v.detach().double().cpu() for v in (got, want))
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def _teacher_card_vs_cpu(torch, data):
+    """The teacher fit on TEACHER_CHECK's subset of the training windows,
+    ``initialize_gmm_from_teacher`` and one distilled VaDE main step, each
+    on the card and on the CPU from the same inputs and draws (float32; the
+    GMM init in float64 on both)."""
+    from deepof_tpu_torch.models import build_model
+    from deepof_tpu_torch.models.blocks import lecun_normal
+    from deepof_tpu_torch.train import harness, teacher
+    from deepof_tpu_torch.train.config import CommonFitCfg, TurtleTeacherCfg, VaDECfg
+    from deepof_tpu_torch.train.dataset import WindowDataset
+    from deepof_tpu_torch.train.losses import vade_params_from_cfg
+
+    n, outer, inner = TEACHER_CHECK
+    train_ds = harness._dataset_from_preprocessed(data["ggd"][0][0])
+    sub = WindowDataset({"subset": (train_ds.x[:n], train_ds.a[:n], train_ds.angles[:n])})
+    latents = np.random.default_rng(13).normal(size=(n, LATENT)).astype(np.float32)
+    common = CommonFitCfg(n_components=N_COMPONENTS, seed=0)
+    cfg = TurtleTeacherCfg(use_turtle_teacher=True, teacher_outer_steps=outer, teacher_inner_steps=inner)
+    g = torch.Generator().manual_seed(13)
+    dims = [32, 32, LATENT]
+    draws = teacher.TeacherDraws(task=[lecun_normal((d, N_COMPONENTS), d, g) for d in dims],
+                                 heads=[[lecun_normal((d, N_COMPONENTS), d, g) for d in dims] for _ in range(outer)])
+    fits, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        fits[dev] = teacher.fit_turtle_teacher(latents, sub, common, cfg, verbose=False, device=dev, draws=draws)
+        torch.cuda.synchronize()
+        secs[f"fit_{dev}_s"] = time.perf_counter() - t0
+    errs = {"tau_star": _rel(fits["cuda"][0], fits["cpu"][0]), "class_weight": _rel(fits["cuda"][1], fits["cpu"][1])}
+    gmm = {dev: teacher.initialize_gmm_from_teacher(torch.as_tensor(latents, device=dev), fits["cpu"][0].to(dev))
+           for dev in ("cuda", "cpu")}
+    errs["gmm_init"] = max(_rel(a, b) for a, b in zip(gmm["cuda"], gmm["cpu"]))
+    _log(f"teacher on {n} windows at {outer} x {inner} steps, card vs CPU (float32): {errs} "
+         f"(tol {TEACHER_RTOL:.0e}, GMM init {GMM_INIT_RTOL:.0e}); {secs}")
+    if not (errs["tau_star"] <= TEACHER_RTOL and errs["class_weight"] <= TEACHER_RTOL):
+        _fail(f"the teacher fit differs card vs CPU: {errs}")
+    if not errs["gmm_init"] <= GMM_INIT_RTOL:
+        _fail(f"initialize_gmm_from_teacher differs card vs CPU: {errs['gmm_init']}")
+
+    x, a, adjacency = data["x"], data["a"], data["ggd"][2]
+    params = vade_params_from_cfg(CommonFitCfg(n_components=N_COMPONENTS), VaDECfg(), cfg, False)
+    gen = torch.Generator().manual_seed(14)
+    eps_z, eps_kl = torch.randn(TRAIN_BATCH, LATENT, generator=gen), torch.randn(32, TRAIN_BATCH, LATENT, generator=gen)
+    tau_b, cw = fits["cpu"][0][:TRAIN_BATCH], fits["cpu"][1]
+    cpu_model = build_model("VaDE", x.shape[1:], a.shape[1:], adjacency, LATENT, N_COMPONENTS,
+                            generator=torch.Generator().manual_seed(0), device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+
+    def loss_fn(m, dev):
+        total, logs = harness.vade_step_loss(
+            m, torch.as_tensor(x, device=dev), torch.as_tensor(a, device=dev), None, params, 0.5, eps_z.to(dev),
+            eps_kl.to(dev), tau_star_batch=tau_b.to(dev), lambda_distill=cfg.lambda_distill, class_weight=cw.to(dev))
+        if not logs["distill_loss"].item() > 0:
+            _fail(f"the distilled step's distillation term is {logs['distill_loss'].item()}")
+        return total
+
+    errs["step_loss"], errs["step_grads"], _ = _step_grads_vs_cpu(torch, loss_fn, cpu_model, card_model,
+                                                                  "one distilled VaDE main step")
+    return errs, secs
+
+
+def _outer_step_cost(torch, data, bundle):
+    """The default teacher's outer step on the card (the views of the
+    training windows and the trained bundle's latents): ms over
+    TEACHER_TIMED_STEPS steps, and kernel launches and device ms a step
+    over TEACHER_PROFILED_STEPS profiled ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepof_tpu_torch.train import harness, teacher
+    from deepof_tpu_torch.train.config import TurtleTeacherCfg
+
+    cfg = TurtleTeacherCfg()
+    train_ds = harness._dataset_from_preprocessed(data["ggd"][0][0])
+    views = teacher.build_views(train_ds.x, harness.extract_latents(bundle.model, train_ds, TRAIN_BATCH),
+                                pca_nodes_dim=cfg.pca_nodes_dim, device="cuda")
+    dims = [v.shape[1] for v in views]
+    init_fn, step_fn = teacher.make_turtle_step(
+        dims, N_COMPONENTS, outer_steps=cfg.teacher_outer_steps, inner_steps=cfg.teacher_inner_steps,
+        head_temp=cfg.teacher_head_temp, task_temp=cfg.teacher_task_temp, gamma=cfg.teacher_gamma,
+        alpha_sample_entropy=cfg.teacher_alpha_sample_entropy)
+    draws = teacher.TeacherDraws(torch.Generator(device="cuda").manual_seed(0))
+    task, opt = init_fn(draws.task_weights(dims, N_COMPONENTS, "cuda", torch.float32))
+    batch = min(cfg.teacher_batch_size, len(train_ds))
+    idx = torch.as_tensor(np.random.default_rng(0).choice(len(train_ds), batch, replace=False), device="cuda")
+
+    def step(i):
+        return step_fn(task, opt, [v[idx] for v in views], draws.head_weights(i, dims, N_COMPONENTS, "cuda",
+                                                                              torch.float32), 0.1, bool(i % 2))
+
+    step(0), step(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TEACHER_TIMED_STEPS):
+        loss = step(i)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / TEACHER_TIMED_STEPS * 1e3
+    if not np.isfinite(loss.item()):
+        _fail(f"the teacher's outer loss is {loss.item()}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(TEACHER_PROFILED_STEPS):
+            step(i)
+        torch.cuda.synchronize()
+    kernels = [evt for evt in prof.key_averages() if evt.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(evt, "is_user_annotation", False)]
+    device_us = sum(float(getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0.0)))
+                    for evt in kernels)
+    return {"ms": ms, "launches": sum(evt.count for evt in kernels) / TEACHER_PROFILED_STEPS,
+            "device_ms": device_us / 1e3 / TEACHER_PROFILED_STEPS, "dims": dims,
+            "timed_steps": TEACHER_TIMED_STEPS}
+
+
+def _teacher_phase(torch, card, data):
+    """Phase 13: VaDE's TURTLE teacher and resumable checkpoints. Card vs
+    CPU (``_teacher_card_vs_cpu``); then ``deep_unsupervised_embedding``
+    at its default model with the teacher at its defaults, refreshed every
+    TEACHER_REFRESH_EVERY epochs with the prior re-initialised, checkpoints
+    every epoch and the bundles saved, for one pretrain and TEACHER_EPOCHS
+    main epochs of TRAIN_BATCHES + VAL_BATCHES batches; then the same call
+    for one epoch more, which resumes. Checks tau_star of every teacher fit
+    (finite, rows summing to 1), the alignment scores, the best-score
+    bundle reloaded and served, the resumed state equal to the saved one bit
+    for bit, and the GRU kernels' launches. Returns (stage line, launches of
+    the first call)."""
+    from deepof_tpu_torch.train import diagnostics, harness
+    from deepof_tpu_torch.train.checkpoint import TrainCheckpointer
+    from deepof_tpu_torch.train.inference import embedding_per_video
+
+    t_phase = time.perf_counter()
+    errs, check_s = _teacher_card_vs_cpu(torch, data)
+    coords, ggd = data["coords"], data["ggd"]
+    _, meta, adjacency, tab_dict, scaler = ggd
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_checkpoints_")
+    events, saves, resumes = [], {}, []
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            events.append((name, t0, time.perf_counter(), out if name == "teacher" else None))
+            return out
+        return wrapper
+
+    def save(self, epoch, state, force=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = original_save(self, epoch, state, force)
+        saves[epoch] = {"s": time.perf_counter() - t0, "bytes": os.path.getsize(self._path(epoch)),
+                        "state": copy.deepcopy({k: v for k, v in state.items()})}
+        return done
+
+    def resume(checkpointer, model, optimizer):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = original_resume(checkpointer, model, optimizer)
+        torch.cuda.synchronize()
+        if checkpointer is not None:
+            resumes.append({"start": start, "s": time.perf_counter() - t0, "model": copy.deepcopy(model.state_dict()),
+                            "optimizer": copy.deepcopy(optimizer.state_dict())})
+        return start
+
+    originals = {k: getattr(harness, k) for k in ("fit_turtle_teacher", "extract_latents",
+                                                  "initialize_gmm_from_teacher", "_resume")}
+    original_save, original_resume = TrainCheckpointer.save, originals["_resume"]
+    harness.fit_turtle_teacher = timed("teacher", originals["fit_turtle_teacher"])
+    harness.extract_latents = timed("latents", originals["extract_latents"])
+    harness.initialize_gmm_from_teacher = timed("gmm_init", originals["initialize_gmm_from_teacher"])
+    harness._resume = resume
+    TrainCheckpointer.save = save
+    kw = dict(adjacency_matrix=adjacency, batch_size=TRAIN_BATCH, latent_dim=LATENT, n_clusters=N_COMPONENTS,
+              pretrain_epochs=1, save_checkpoints=True, verbose=False, limit_train_batches=TRAIN_BATCHES,
+              limit_val_batches=VAL_BATCHES, use_turtle_teacher=True, teacher_refresh_every=TEACHER_REFRESH_EVERY,
+              reinit_gmm_on_refresh=True, checkpoint_dir=ckdir, checkpoint_every=1)
+    try:
+        _kernel_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle, first_score, _, summary = coords.deep_unsupervised_embedding(ggd[:3], epochs=TEACHER_EPOCHS, **kw)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = _kernel_counts()
+        first_events = list(events)
+        _kernel_counts(reset=True)
+        t1 = time.perf_counter()
+        resumed, score, _, resumed_summary = coords.deep_unsupervised_embedding(ggd[:3], epochs=TEACHER_EPOCHS + 1,
+                                                                                **kw)
+        torch.cuda.synchronize()
+        resume_call_s = time.perf_counter() - t1
+        resume_launches = _kernel_counts()
+        files = sorted(os.listdir(ckdir))
+    finally:
+        for k, fn in originals.items():
+            setattr(harness, k, fn)
+        TrainCheckpointer.save = original_save
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    # Every teacher fit: tau_star finite, each row summing to 1; its
+    # confidence and usage, and the served model's against the last one.
+    fits = [e for e in events if e[0] == "teacher"]
+    teacher_diag = [{k.split("/")[1]: v for k, v in diagnostics.compute_diagnostics(tau).items()}
+                    | {"marginal": tau.double().mean(0).tolist()} for _, _, _, (tau, _) in fits]
+    val_x, val_a, _, _ = next(harness._dataset_from_preprocessed(ggd[0][1]).batches(4 * TRAIN_BATCH, shuffle=False))
+    q = resumed.group(val_x, val_a)
+    served_diag = {**diagnostics.alignment_score(q, fits[-1][3][0]), "marginal": q.double().mean(0).tolist(),
+                   **{k.split("/")[1]: v for k, v in diagnostics.compute_diagnostics(q).items()},
+                   **{k.split("/")[1]: v for k, v in
+                      diagnostics.compute_gmm_diagnostics(resumed.model.state_dict()).items()}}
+    _log(f"teacher fits: {teacher_diag}; the resumed bundle on {4 * TRAIN_BATCH} validation windows: {served_diag}")
+    n_first = sum(e[0] == "teacher" for e in first_events)
+    want_fits = 1 + sum(1 for ep in range(1, TEACHER_EPOCHS) if (ep + 1) % TEACHER_REFRESH_EVERY == 0)
+    if n_first != want_fits or len(fits) != want_fits + 1:
+        _fail(f"{n_first} teacher fits in the first call (not {want_fits}), {len(fits)} in both")
+    for _, _, _, (tau, cw) in fits:
+        row_err = float((tau.double().sum(1) - 1.0).abs().max())
+        if not (torch.isfinite(tau).all() and torch.isfinite(cw).all() and row_err <= 1e-5):
+            _fail(f"tau_star: finite {bool(torch.isfinite(tau).all())}, max |row sum - 1| {row_err}")
+    scores = bundle.history.get("val_alignment_score", []) + resumed.history.get("val_alignment_score", [])
+    if len(scores) != TEACHER_EPOCHS + 1 or not all(0.0 <= s <= 1.0 for s in scores):
+        _fail(f"alignment scores {scores}")
+    for losses in (summary, resumed_summary):
+        if not losses or not all(np.isfinite(v) for v in losses.values()) or not losses["distill_loss"] > 0:
+            _fail(f"teacher-distilled VaDE losses: {losses}")
+    for name in ("gru_scan", "gru_scan_bwd"):
+        if launches[name] <= 0:
+            _fail(f"kernel {name} was not launched on the teacher path: {launches}")
+
+    # The best-score bundle: the rule takes epochs after max(3, ceil(0.1 *
+    # epochs)), so the first call (epochs 0-3) keeps none and the resumed
+    # one keeps epoch 4's; it is returned, saved, reloaded and served.
+    if first_score is not None:
+        _fail(f"the first call kept a best-score bundle at {first_score.best_score} before the rule's start")
+    models = os.path.join(coords._project_path, coords._project_name, "Trained_models", "models")
+    path = os.path.join(models, f"VaDE_recurrent_latent{LATENT}_k{N_COMPONENTS}_run0_best_score.ckpt")
+    if score is None or not os.path.exists(path) or not 0.0 <= score.best_score <= 1.0:
+        _fail(f"no best-score bundle (score {score}, file {os.path.exists(path)})")
+    loaded = harness.ModelBundle.load(path)
+    outs = [embedding_per_video(coords, tab_dict, b, meta, global_scaler=scaler, batch_size=BLOCK)
+            for b in (score, loaded)]
+    _check_public_outputs(outs, PUBLIC_FRAMES)
+    for key in PUBLIC_KEYS:
+        if not np.array_equal(outs[0][1][key], outs[1][1][key]):
+            _fail(f"the reloaded best-score bundle serves other soft counts than the returned one on {key}")
+
+    # The resumed call: it starts after the last saved epoch, from that
+    # epoch's state, bit for bit.
+    last = TEACHER_EPOCHS - 1
+    if len(resumes) != 2 or resumes[1]["start"] != TEACHER_EPOCHS:
+        _fail(f"resumes {[r['start'] for r in resumes]}, not [0, {TEACHER_EPOCHS}]")
+    saved = saves[last]["state"]
+    for part in ("model", "optimizer"):
+        unequal = _unequal_leaves(resumes[1][part], saved[part])
+        if unequal:
+            _fail(f"the resumed {part} state differs from the saved one at {unequal[:5]}")
+    main_keys = [k for k in resumed.history if not k.startswith("pretrain/")]
+    if not main_keys or any(len(resumed.history[k]) != 1 for k in main_keys):
+        _fail(f"the resumed call ran {[len(resumed.history[k]) for k in main_keys]} main epochs, not 1")
+    if files != [f"epoch_{e}.pt" for e in range(TEACHER_EPOCHS - 2, TEACHER_EPOCHS + 1)] + ["teacher_init.pkl"]:
+        _fail(f"checkpoint files {files}")
+
+    def span(name, which=0):
+        hits = [e for e in first_events if e[0] == name]
+        return hits[which][1], hits[which][2]
+
+    lat0, teach0, gmm0 = span("latents"), span("teacher"), span("gmm_init")
+    phases_s = {"pretrain": lat0[0] - t0, "latents": lat0[1] - lat0[0], "teacher": teach0[1] - teach0[0],
+                "gmm_init": gmm0[1] - gmm0[0], "main": t_end - gmm0[1],
+                "refreshes": sum(e[2] - e[1] for e in first_events[first_events.index(
+                    next(e for e in first_events if e[0] == "gmm_init")) + 1:]), "fit": t_end - t0}
+    outer = _outer_step_cost(torch, data, bundle)
+    _log(f"teacher path: phases {phases_s}, launches {launches}, resumed call {resume_call_s:.2f} s "
+         f"{resume_launches}, outer step {outer}")
+    line = {
+        "path": "teacher", "batch": TRAIN_BATCH, "latent": LATENT, "n_components": N_COMPONENTS,
+        "main_epochs": TEACHER_EPOCHS, "fit_batches": [TRAIN_BATCHES, VAL_BATCHES],
+        "teacher_fit_s": phases_s["teacher"], "teacher_fits_s": [e[2] - e[1] for e in fits],
+        "outer_steps": 500, "outer_step_ms": outer["ms"], "launches_per_outer_step": outer["launches"],
+        "outer_step_device_ms": outer["device_ms"], "views": outer["dims"], "phases_s": phases_s,
+        "resume_call_s": resume_call_s, "launches": launches, "resume_launches": resume_launches,
+        "checkpoint": {"save_s": [saves[e]["s"] for e in sorted(saves)], "bytes": saves[last]["bytes"],
+                       "restore_s": resumes[1]["s"]},
+        "alignment_scores": scores, "best_score": score.best_score, "losses": summary,
+        "resumed_losses": resumed_summary,
+        "teacher_diagnostics": teacher_diag, "served_diagnostics": served_diag,
+        "card_vs_cpu": errs, "card_vs_cpu_s": check_s, "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    return line, launches
+
+
+def _unequal_leaves(got, want, where=""):
+    """The paths where two nested states (dicts, lists, tensors, numbers)
+    differ, tensors compared bit for bit on the CPU."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [where + "/keys"]
+        return [p for k in want for p in _unequal_leaves(got[k], want[k], f"{where}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [where + "/len"]
+        return [p for i, (g, w) in enumerate(zip(got, want)) for p in _unequal_leaves(g, w, f"{where}/{i}")]
+    if hasattr(want, "dtype") and hasattr(want, "cpu"):
+        return [] if got.dtype == want.dtype and got.cpu().equal(want.cpu()) else [where]
+    return [] if got == want else [where]
+
+
 def main() -> int:
     import torch
 
@@ -2826,9 +3168,10 @@ def main() -> int:
     launches["gru_scan_bwd"] = bwd_launches
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
-    # Phases 4-11: the public path, the getters, supervised annotation,
+    # Phases 4-13: the public path, the getters, supervised annotation,
     # training and VaDE on its project, then the cohort, its group
-    # comparison and its soft counts.
+    # comparison and its soft counts, the other encoders, and VaDE's
+    # teacher and checkpoints.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
     try:
         public_line, public_launches, full, tables = _public_phase(torch, card, tmp)
@@ -2843,6 +3186,7 @@ def main() -> int:
         softcounts_line, softcounts_launches, hmm_res = _softcounts_phase(torch, card, cohort)
         del cohort
         encoders_line, encoders_launches = _encoders_phase(torch, card, data, os.path.join(tmp, "prefix"))
+        teacher_line, teacher_launches = _teacher_phase(torch, card, data)
         del data
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2857,6 +3201,7 @@ def main() -> int:
     print(json.dumps(posthoc_line), flush=True)
     print(json.dumps(softcounts_line), flush=True)
     print(json.dumps(encoders_line), flush=True)
+    print(json.dumps(teacher_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,
         "first_stages_s": first_stages, "first_run_s": first_run_s,
@@ -2872,7 +3217,7 @@ def main() -> int:
                       "training": train_launches[name], **{p: c[name] for p, c in vade_launches.items()},
                       "cohort": cohort_launches[name], "posthoc": posthoc_launches[name],
                       **{f"softcounts_{p}": c[name] for p, c in softcounts_launches.items() if name in c},
-                      **{p: c[name] for p, c in encoders_launches.items()}}
+                      **{p: c[name] for p, c in encoders_launches.items()}, "teacher": teacher_launches[name]}
                for name in ("window_streams", "gru_scan", "gru_scan_bwd")}
     hmm_abs, hmm_rel, hmm_timed = hmm_res
     kernels = [
@@ -2895,7 +3240,8 @@ def main() -> int:
          "source": "deepof_tpu_torch/csrc/hmm_scan.cu",
          "replaces": "deepof_tpu/msm.py:39 (no TPU kernel: XLA's lax.scan of _forward_backward)",
          "launches": softcounts_launches["hmm"]["hmm_scan"],
-         "launches_by_path": {f"softcounts_{p}": c["hmm_scan"] for p, c in softcounts_launches.items()},
+         "launches_by_path": {**{f"softcounts_{p}": c["hmm_scan"] for p, c in softcounts_launches.items()},
+                              "teacher": teacher_launches["hmm_scan"]},
          "max_abs_err": hmm_abs, "max_rel_err": hmm_rel, **hmm_timed[0], "library_ms": None,
          "at_shapes": hmm_timed},
     ]

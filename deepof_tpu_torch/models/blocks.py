@@ -45,9 +45,11 @@ def lecun_normal(shape, fan_in: int, generator: Optional[torch.Generator]) -> to
     """Flax's ``lecun_normal``: a normal truncated at +-2 standard deviations
     and rescaled by 1 / 0.8796, std fan_in**-0.5. Drawn by inverse CDF, as
     ``jax.random.truncated_normal`` draws it: a uniform between erf(-2/sqrt2)
-    and erf(2/sqrt2), mapped through sqrt(2) erfinv."""
+    and erf(2/sqrt2), mapped through sqrt(2) erfinv, on the generator's
+    device."""
     bound = math.erf(2.0 / math.sqrt(2.0))
-    u = torch.rand(shape, generator=generator, dtype=torch.float64) * (2.0 * bound) - bound
+    device = None if generator is None else generator.device
+    u = torch.rand(shape, generator=generator, dtype=torch.float64, device=device) * (2.0 * bound) - bound
     z = (math.sqrt(2.0) * torch.erfinv(u)).clamp(-2.0, 2.0)
     return (z * ((1.0 / max(fan_in, 1)) ** 0.5 / _TRUNC_STD)).float()
 

@@ -6,8 +6,8 @@
 The JAX package's other common fields are ``train_deepof_model`` arguments
 (the output paths, the run number), raise there (``use_amp``), or are read
 by neither fit and raise there too (``UNREAD_COMMON_FIELDS``). The teacher
-config is carried whole, since the VaDE loss reads its ``distill_*``
-fields; the TURTLE teacher itself raises (ROADMAP queue 1 item 14).
+config is carried whole: ``fit_vade`` reads it for the TURTLE teacher, its
+refreshes and the distillation term.
 """
 
 from __future__ import annotations
@@ -146,16 +146,3 @@ class ContrastiveCfg:
     aug_noise_sigma: float = 0.03
     aug_p_noise: float = 0.0
 
-
-TEACHER = (
-    "the TURTLE teacher (use_turtle_teacher, teacher_refresh_every, reinit_gmm_on_refresh) "
-    "comes with ROADMAP queue 1 item 14"
-)
-
-
-def raise_if_teacher(teacher_cfg: TurtleTeacherCfg) -> None:
-    """The TURTLE teacher is not ported: asking for it, or for its
-    refreshes, raises."""
-    if (teacher_cfg.use_turtle_teacher or teacher_cfg.teacher_refresh_every is not None
-            or teacher_cfg.reinit_gmm_on_refresh):
-        raise NotImplementedError(TEACHER)

@@ -6,11 +6,11 @@ deepof_tpu/train/harness.py: ``ModelBundle`` :75-166, ``_make_optimizer``
 :187 and ``_make_vade_main_optimizer`` :210 (``ClippedAdam``),
 ``make_vqvae_step``, ``make_vqvae_eval_step``, ``make_vade_step``,
 ``make_vade_eval_step`` and ``make_contrastive_step`` :275-405,
-``_epoch_mean`` and ``_run_epochs`` :410-550, ``fit_vqvae`` :567-675,
-``fit_vade`` :691-1006, ``extract_latents`` :1009, ``fit_contrastive``
-:1031-1122, ``_dataset_from_preprocessed`` :1125-1144,
-``train_deepof_model`` :1147-1324 and ``deep_unsupervised_embedding``
-:1327-1367).
+``_epoch_mean``, ``_chain_hooks`` and ``_run_epochs`` :410-530,
+``fit_vqvae`` :567-675, ``fit_vade`` :691-1006, ``extract_latents`` :1009,
+``fit_contrastive`` :1031-1122, ``_dataset_from_preprocessed``
+:1125-1144, ``train_deepof_model`` :1147-1324 and
+``deep_unsupervised_embedding`` :1327-1367).
 
 The JAX package jits one train step over a device mesh; here the step runs
 eagerly on one device, its GRU layers (recurrent encoders) through the
@@ -21,15 +21,25 @@ dropout on); evaluation and latent extraction run it in eval mode, as the
 JAX package runs them at ``train=False``. Every random draw of a fit
 (VaDE's sampling noise, dropout's keep masks, the contrastive
 augmentations) comes from one ``torch.Generator`` on the fit's device,
-seeded with the fit's seed; VaDE's GMM init runs there too
-(``train.gmm``). The TURTLE teacher, Orbax checkpoints, mixed precision and
-the JAX package's flax checkpoint files raise, naming their ROADMAP queue 1
-items. Bundles are saved with ``torch.save`` (state dict with the BatchNorm
-running statistics, rebuild spec, history).
+seeded with the fit's seed; VaDE's GMM init (``train.gmm``, or from the
+TURTLE teacher's assignments, ``train.teacher``) runs there too.
+
+With a ``checkpoint_dir`` every fit saves its model and optimiser state at
+the end of every ``checkpoint_every``-th epoch (VaDE: of its main phase;
+``train.checkpoint``) and a later call resumes after the latest saved
+epoch: the schedules' iteration restarts at ``start_epoch * n_batches``,
+the batch order and the fit's generator start from the seed again (the
+JAX package draws each call's batches from ``np.random.default_rng(seed)``
+and derives its key from ``PRNGKey(seed)``), so a resumed run does not draw
+what an uninterrupted one would. Mixed precision and the JAX package's
+flax checkpoint files raise, naming their ROADMAP queue 1 items. Bundles
+are saved with ``torch.save`` (state dict with the BatchNorm running
+statistics, rebuild spec, history).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import zipfile
@@ -52,15 +62,16 @@ from deepof_tpu_torch.train.augment import (
     recompute_edges,
     slice_time_per_sample,
 )
+from deepof_tpu_torch.train.checkpoint import TrainCheckpointer, make_epoch_checkpoint_hook, maybe_resume
 from deepof_tpu_torch.train.config import (
     UNREAD_COMMON_FIELDS,
     CommonFitCfg,
     ContrastiveCfg,
     TurtleTeacherCfg,
     VaDECfg,
-    raise_if_teacher,
 )
 from deepof_tpu_torch.train.dataset import WindowDataset, prefetch
+from deepof_tpu_torch.train.diagnostics import alignment_score
 from deepof_tpu_torch.train.gmm import fit_gmm_init
 from deepof_tpu_torch.train.losses import (
     VadeLossParams,
@@ -69,6 +80,7 @@ from deepof_tpu_torch.train.losses import (
     vade_params_from_cfg,
 )
 from deepof_tpu_torch.train.schedules import WeightSchedule
+from deepof_tpu_torch.train.teacher import fit_turtle_teacher, initialize_gmm_from_teacher
 
 # --------------------------------------------------------------------------- #
 # Model bundle (the rebuild_spec checkpoint contract)
@@ -88,13 +100,16 @@ def _model_from_spec(spec: Dict, device) -> nn.Module:
 class ModelBundle:
     """A model and the spec it is rebuilt from (``rebuild_spec["model"]``,
     ``["input_shape"]``, ...), its training history and, where validation
-    ran, the state with the best validation loss."""
+    ran, the state with the best validation loss; where a teacher drove
+    VaDE's distillation, the state with the best alignment score."""
 
     model: nn.Module
     rebuild_spec: Dict = field(default_factory=dict)
     history: Dict[str, List[float]] = field(default_factory=dict)
     best_state: Optional[Dict[str, torch.Tensor]] = None
     best_val: Optional[float] = None
+    best_score_state: Optional[Dict[str, torch.Tensor]] = None
+    best_score: Optional[float] = None
 
     def save(self, path: str, state: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """``torch.save`` of the state dict (the model's, or ``state``), the
@@ -114,7 +129,7 @@ class ModelBundle:
         if not zipfile.is_zipfile(path):
             raise NotImplementedError(
                 f"{path} is not a checkpoint of this package (torch.save): the JAX package's "
-                "flax checkpoints come with the checkpoint port, ROADMAP queue 1 item 9"
+                "flax checkpoints come with their converter, ROADMAP queue 1 item 9"
             )
         payload = torch.load(path, map_location="cpu", weights_only=True)
         spec = payload["rebuild_spec"]
@@ -162,7 +177,8 @@ class ClippedAdam(torch.optim.Adam):
     A param group may carry a ``"schedule"``: update count -> lr, evaluated
     at the number of updates taken so far (from 0), as optax evaluates a
     learning-rate schedule. A group at lr 0 keeps its parameters while its
-    moments tick, as optax's do."""
+    moments tick, as optax's do. The state dict holds the update count and
+    not the schedules, which loading keeps from the optimiser loaded into."""
 
     def __init__(self, params, lr: float, clip: float = 0.75):
         super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
@@ -177,6 +193,20 @@ class ClippedAdam(torch.optim.Adam):
                 group["lr"] = group["schedule"](self.updates)
         self.updates += 1
         return super().step(closure)
+
+    def state_dict(self):
+        state = super().state_dict()
+        state["param_groups"] = [{k: v for k, v in g.items() if k != "schedule"} for g in state["param_groups"]]
+        return {**state, "updates": self.updates}
+
+    def load_state_dict(self, state_dict) -> None:
+        schedules = [g.get("schedule") for g in self.param_groups]
+        state = dict(state_dict)
+        self.updates = int(state.pop("updates"))
+        super().load_state_dict(state)
+        for group, schedule in zip(self.param_groups, schedules):
+            if schedule is not None:
+                group["schedule"] = schedule
 
 
 def _grouped_adam(named_parameters, label, schedules: Dict[str, Callable[[int], float]],
@@ -289,25 +319,32 @@ def make_vqvae_eval_step(model: nn.Module) -> Callable:
 def vade_step_loss(model: nn.Module, x: torch.Tensor, a: torch.Tensor, ang: Optional[torch.Tensor],
                    loss_params: VadeLossParams, kl_weight: float, eps_z: Optional[torch.Tensor] = None,
                    eps_kl: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
-                   train: bool = True):
+                   train: bool = True, tau_star_batch: Optional[torch.Tensor] = None,
+                   lambda_distill: float = 0.0, class_weight: Optional[torch.Tensor] = None):
     """(total, logs) of one batch through VaDE's training forward (z
-    sampled with ``train``) and ``vade_loss``. ``eps_z`` (B, D) and
+    sampled with ``train``) and ``vade_loss`` (with the distillation term
+    where the teacher's ``tau_star_batch`` is given). ``eps_z`` (B, D) and
     ``eps_kl`` (S, B, D) are the two standard-normal draws the JAX step
     takes from its split key; each not given is drawn from ``generator``,
     z's first."""
     out = model.training_forward(x, a, ang, eps=eps_z, train=train, generator=generator)
-    logs = vade_loss(out, x, loss_params, kl_weight, eps=eps_kl, generator=generator)
+    logs = vade_loss(out, x, loss_params, kl_weight, eps=eps_kl, generator=generator,
+                     tau_star_batch=tau_star_batch, lambda_distill=lambda_distill, class_weight=class_weight)
     return logs["total_loss"], logs
 
 
 def make_vade_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_params: VadeLossParams,
                    generator: Optional[torch.Generator] = None) -> Callable:
-    """step(x, a, ang=None, kl_weight=0.0) -> logs: loss (its noise drawn
-    from ``generator``), backward, clip + Adam update. Without a teacher the
-    JAX step's distillation term is exactly 0 and is not computed."""
+    """step(x, a, ang=None, kl_weight=0.0, tau_star_batch=None,
+    lambda_distill=0.0, class_weight=None) -> logs: loss (its noise drawn
+    from ``generator``), backward, clip + Adam update. Without the teacher's
+    assignments the JAX step's distillation term is exactly 0 and is not
+    computed."""
 
-    def step(x, a, ang=None, kl_weight=0.0):
-        total, logs = vade_step_loss(model, x, a, ang, loss_params, kl_weight, generator=generator)
+    def step(x, a, ang=None, kl_weight=0.0, tau_star_batch=None, lambda_distill=0.0, class_weight=None):
+        total, logs = vade_step_loss(model, x, a, ang, loss_params, kl_weight, generator=generator,
+                                     tau_star_batch=tau_star_batch, lambda_distill=lambda_distill,
+                                     class_weight=class_weight)
         optimizer.zero_grad(set_to_none=False)
         total.backward()
         optimizer.step()
@@ -393,6 +430,23 @@ def _epoch_mean(logs_list: List[Dict], weights: List[int] = None) -> Dict[str, f
     return {k: float(np.sum([float(l[k]) * wi for l, wi in zip(logs_list, w)])) for k in keys}
 
 
+def _chain_hooks(*hooks):
+    """The epoch-end hooks given (Nones dropped) run in order as one; it
+    returns True, which stops training, when any of them does."""
+    hooks = [h for h in hooks if h is not None]
+    if not hooks:
+        return None
+
+    def combined(epoch, train_logs, val_logs):
+        stop = False
+        for h in hooks:
+            if h(epoch, train_logs, val_logs) is True:
+                stop = True
+        return stop
+
+    return combined
+
+
 def _run_epochs(
     *,
     n_epochs: int,
@@ -410,17 +464,29 @@ def _run_epochs(
     limit_val_batches: Optional[int] = None,
     verbose: bool = True,
     phase: str = "",
+    start_epoch: int = 0,
     on_best=None,
+    score_fn=None,
+    on_best_score=None,
 ):
-    """Epoch loop with best-validation tracking; returns the best validation
-    loss. ``on_best(epoch, val_loss)`` fires whenever it improves; an
-    ``on_epoch_end(epoch, train_logs, val_logs)`` returning True stops
-    training. Batches come from one ``np.random.default_rng(rng_seed)``,
-    drawn as the JAX package draws them. History keys are
-    ``f"{phase}{key}"`` and ``f"{phase}val_{key}"``."""
+    """Epoch loop from ``start_epoch`` with best-validation tracking;
+    returns the best validation loss. ``on_best(epoch, val_loss)`` fires
+    whenever it improves; an ``on_epoch_end(epoch, train_logs, val_logs)``
+    returning True stops training. Batches come from one
+    ``np.random.default_rng(rng_seed)``, drawn as the JAX package draws
+    them. History keys are ``f"{phase}{key}"`` and ``f"{phase}val_{key}"``.
+
+    With ``score_fn(epoch) -> float`` its value goes into the validation
+    logs as ``alignment_score``, and ``on_best_score(epoch, score,
+    val_loss)`` fires under the reference's rule: the score improves, or ties
+    within 0.01 at a lower validation loss, after more than max(3, ceil(0.1
+    * n_epochs)) epochs."""
     best_val = np.inf
+    best_score, best_score_val = -np.inf, np.inf
+    score_start_epoch = max(3, int(np.ceil(0.1 * n_epochs)))
+    score_tol = 0.01
     np_rng = np.random.default_rng(rng_seed)
-    for epoch in range(n_epochs):
+    for epoch in range(start_epoch, n_epochs):
         t0 = time.time()
         logs_list = []
         batches = prefetch(train_ds.batches(
@@ -448,6 +514,17 @@ def _run_epochs(
                 best_val = epoch_val
                 if on_best is not None:
                     on_best(epoch, float(epoch_val))
+            if score_fn is not None:
+                score_value = float(score_fn(epoch))
+                val_logs["alignment_score"] = score_value
+                improved = np.isfinite(score_value) and (
+                    score_value > best_score
+                    or (abs(score_value - best_score) <= score_tol and epoch_val < best_score_val)
+                )
+                if improved and epoch > score_start_epoch:
+                    best_score, best_score_val = score_value, epoch_val
+                    if on_best_score is not None:
+                        on_best_score(epoch, score_value, float(epoch_val))
 
         for k, v in train_logs.items():
             history.setdefault(f"{phase}{k}", []).append(v)
@@ -510,16 +587,37 @@ def _rebuild_spec(name: str, x0, a0, ang0, adjacency, common: CommonFitCfg, use_
     }
 
 
+def _cpu_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
 def _best_tracker(model: nn.Module):
     """(best, on_best): ``on_best`` keeps a CPU copy of the model's state in
     ``best["state"]`` and its validation loss in ``best["val"]``."""
     best: Dict = {}
 
     def on_best(epoch, val_loss):
-        best["state"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        best["state"] = _cpu_state(model)
         best["val"] = val_loss
 
     return best, on_best
+
+
+def _fit_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> Callable[[], Dict]:
+    """The state a checkpoint holds: the model's parameters and buffers and
+    the optimiser's state."""
+    return lambda: {"model": model.state_dict(), "optimizer": optimizer.state_dict()}
+
+
+def _resume(checkpointer: Optional[TrainCheckpointer], model: nn.Module,
+            optimizer: torch.optim.Optimizer) -> int:
+    """Load the latest checkpoint's model and optimiser state, if any; ->
+    the epoch to start from."""
+    start_epoch, state = maybe_resume(checkpointer)
+    if state is not None:
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state["optimizer"])
+    return start_epoch
 
 
 def fit_vqvae(
@@ -539,16 +637,17 @@ def fit_vqvae(
 ) -> ModelBundle:
     """Train a VQ-VAE on ``train_ds`` (validated on ``val_ds`` after every
     epoch) on ``device``. Weights are drawn from ``common.seed`` on the CPU,
-    dropout's masks from a generator of that seed on ``device``. Returns its
-    bundle, in eval mode."""
-    if checkpointer is not None:
-        raise NotImplementedError("resumable checkpoints (Orbax in the JAX package) come with ROADMAP queue 1 item 9")
+    dropout's masks from a generator of that seed on ``device``. With a
+    ``checkpointer`` it resumes after its latest epoch and saves at epoch
+    ends. Returns its bundle, in eval mode."""
     dev = resolve_device(device)
     x0, a0, ang0, use_angles = _first_batch(train_ds, common, use_angles)
     model = _new_model("VQVAE", x0, a0, ang0, adjacency, common, use_gnn, use_angles, kmeans_loss, dev)
     use_dropout_draws(model, DropoutDraws(torch.Generator(device=dev).manual_seed(common.seed or 0)))
-    step = make_vqvae_step(model, _make_optimizer(model.named_parameters(), common.learning_rate))
+    optimizer = _make_optimizer(model.named_parameters(), common.learning_rate)
+    step = make_vqvae_step(model, optimizer)
     eval_step = make_vqvae_eval_step(model)
+    start_epoch = _resume(checkpointer, model, optimizer)
 
     def train_fn(x, a, ang, idx, epoch):
         return step(*_batch_to(dev, use_angles, x, a, ang))
@@ -563,7 +662,9 @@ def fit_vqvae(
         rng_seed=common.seed or 0, train_fn=train_fn, eval_fn=eval_fn, history=history,
         bootstrap=bootstrap, bootstrap_block_len=bootstrap_block_len,
         limit_train_batches=common.limit_train_batches, limit_val_batches=common.limit_val_batches,
-        verbose=verbose, on_epoch_end=epoch_callback, on_best=on_best,
+        verbose=verbose, start_epoch=start_epoch, on_best=on_best,
+        on_epoch_end=_chain_hooks(make_epoch_checkpoint_hook(checkpointer, _fit_state(model, optimizer)),
+                                  epoch_callback),
     )
     spec = _rebuild_spec("VQVAE", x0, a0, ang0, adjacency, common, use_gnn, use_angles)
     return ModelBundle(model.eval(), spec, history, best.get("state"), best.get("val"))
@@ -603,19 +704,25 @@ def fit_vade(
 ) -> ModelBundle:
     """Train a VaDE on ``device`` in the JAX package's phases: pretrain
     (history keys ``"pretrain/..."``, KL to N(0, I), lr
-    ``learning_rate_pretrain``), the GMM init of the mixture prior from the
-    pretrained latents, then the main phase against that prior (its KL
-    schedule from ``vade_cfg.kl_annealing_mode`` / ``kl_warmup``, with
-    best-validation tracking and ``epoch_callback``). Each phase gets a
-    fresh optimiser. The sampling noise and dropout's masks come from one
-    generator of ``common.seed`` on ``device``. Returns the bundle, in eval
-    mode."""
-    if checkpointer is not None:
-        raise NotImplementedError(
-            "resumable checkpoints and the post-GMM-init snapshot (teacher_init.pkl) come with "
-            "ROADMAP queue 1 item 9"
-        )
-    raise_if_teacher(teacher_cfg)
+    ``learning_rate_pretrain``); with ``use_turtle_teacher`` the TURTLE
+    teacher on the pretrained latents; the GMM init of the mixture prior
+    (from the teacher's assignments, else a GMM fitted to the latents); then
+    the main phase against that prior (its KL schedule from
+    ``vade_cfg.kl_annealing_mode`` / ``kl_warmup``, with best-validation
+    tracking and ``epoch_callback``). Each phase gets a fresh optimiser. The
+    sampling noise and dropout's masks come from one generator of
+    ``common.seed`` on ``device``.
+
+    With a teacher the main phase adds the distillation term (its weight
+    from ``lambda_distill``'s linear schedule), refits the teacher every
+    ``teacher_refresh_every`` epochs up to ``teacher_freeze_at`` (and with
+    ``reinit_gmm_on_refresh`` re-initialises the prior from it), and, given
+    validation data, keeps the state of the best alignment score. With a
+    ``checkpointer`` the main phase resumes after its latest epoch and saves
+    at epoch ends, and the state after the GMM init is written beside the
+    epochs as ``teacher_init.pkl`` (a ``torch.save`` file); pretrain and the
+    teacher run again on a resumed call, as in the JAX package. Returns the
+    bundle, in eval mode."""
     dev = resolve_device(device)
     x0, a0, ang0, use_angles = _first_batch(train_ds, common, use_angles)
     seed = common.seed or 0
@@ -625,30 +732,81 @@ def fit_vade(
     n_batches = max(1, train_ds.n_batches(common.batch_size))
     history: Dict[str, List[float]] = {}
     best, on_best = _best_tracker(model)
+    tau_star = class_weight = None
 
-    def run_phase(phase, n_epochs, lr, pretrain, kl_schedule, optimizer=None, track_best=False):
+    def set_prior(means, log_vars):
+        with torch.no_grad():
+            model.latent_space.gmm_means.copy_(means)
+            model.latent_space.gmm_log_vars.copy_(log_vars)
+
+    def teacher_refresh_hook(epoch, train_logs, val_logs):
+        """Refit the teacher on the current latents (and re-initialise the
+        prior from it) every ``teacher_refresh_every`` epochs."""
+        nonlocal tau_star, class_weight
+        every, freeze = teacher_cfg.teacher_refresh_every, teacher_cfg.teacher_freeze_at
+        if not (teacher_cfg.use_turtle_teacher and every and epoch > 0 and (epoch + 1) % every == 0
+                and (freeze is None or epoch + 1 <= freeze)):
+            return
+        if verbose:
+            print(f"--- Refreshing TURTLE teacher at epoch {epoch + 1} ---")
+        z = extract_latents(model, train_ds, common.batch_size, use_angles)
+        tau_star, class_weight = fit_turtle_teacher(z, train_ds, common, teacher_cfg, verbose=verbose)
+        if teacher_cfg.reinit_gmm_on_refresh:
+            set_prior(*initialize_gmm_from_teacher(z, tau_star)[:2])
+
+    @torch.no_grad()
+    def score_fn(epoch):
+        """The alignment score of the posteriors of up to 4 validation
+        batches against the teacher's marginal."""
+        qs = []
+        for bi, (x, a, ang, _) in enumerate(val_ds.batches(common.batch_size, shuffle=False)):
+            if bi >= 4:
+                break
+            qs.append(model.group(*_batch_to(dev, use_angles, x, a, ang)))
+        return alignment_score(torch.cat(qs), tau_star)["alignment_score"] if qs else float("nan")
+
+    def on_best_score(epoch, score, val_loss):
+        best["score_state"] = _cpu_state(model)
+        best["score"] = score
+
+    def run_phase(phase, n_epochs, lr, pretrain, kl_schedule, lambda_schedule=None, optimizer=None,
+                  ckpt=None, track_best=False):
         loss_params = vade_params_from_cfg(common, vade_cfg, teacher_cfg, pretrain)
         if optimizer is None:
             optimizer = _make_optimizer(model.named_parameters(), lr, gmm_lr=vade_cfg.gmm_learning_rate)
         step = make_vade_step(model, optimizer, loss_params, generator)
         eval_step = make_vade_eval_step(model, loss_params, generator)
-        iteration = {"t": 0}
+        start_epoch = _resume(ckpt, model, optimizer)
+        iteration = {"t": start_epoch * n_batches}
 
         def train_fn(x, a, ang, idx, epoch):
             kl_weight = kl_schedule.weight_at(iteration["t"])
+            lam = lambda_schedule.weight_at(iteration["t"]) if lambda_schedule else 0.0
             iteration["t"] += 1
-            return step(*_batch_to(dev, use_angles, x, a, ang), kl_weight=kl_weight)
+            distill = {}
+            if tau_star is not None and lam > 0.0:
+                distill = dict(tau_star_batch=tau_star[torch.as_tensor(idx, device=dev)], lambda_distill=lam,
+                               class_weight=class_weight)
+            return step(*_batch_to(dev, use_angles, x, a, ang), kl_weight=kl_weight, **distill)
 
         def eval_fn(x, a, ang, idx, epoch):
             return eval_step(*_batch_to(dev, use_angles, x, a, ang), kl_weight=kl_schedule.weight_at(iteration["t"]))
 
+        # Score tracking only where a teacher drives distillation, as the
+        # reference's apply_distill gate.
+        track_score = track_best and tau_star is not None and val_ds is not None and len(val_ds) > 0
         _run_epochs(
             n_epochs=n_epochs, train_ds=train_ds, val_ds=val_ds, batch_size=common.batch_size,
             rng_seed=seed, train_fn=train_fn, eval_fn=eval_fn, history=history,
             bootstrap=bootstrap, bootstrap_block_len=bootstrap_block_len,
             limit_train_batches=common.limit_train_batches, limit_val_batches=common.limit_val_batches,
-            verbose=verbose, phase=phase, on_epoch_end=epoch_callback if track_best else None,
+            verbose=verbose, phase=phase, start_epoch=start_epoch,
+            on_epoch_end=_chain_hooks(make_epoch_checkpoint_hook(ckpt, _fit_state(model, optimizer)),
+                                      teacher_refresh_hook if track_best else None,
+                                      epoch_callback if track_best else None),
             on_best=on_best if track_best else None,
+            score_fn=score_fn if track_score else None,
+            on_best_score=on_best_score if track_score else None,
         )
 
     # Pretrain: VAE mode, KL to N(0, I).
@@ -660,30 +818,45 @@ def fit_vade(
         )
         run_phase("pretrain/", vade_cfg.pretrain_epochs, vade_cfg.learning_rate_pretrain, True, kl_schedule)
 
-    # GMM init of the mixture prior from the pretrained latents.
+    # The teacher on the pretrained latents, then the GMM init of the
+    # mixture prior: from the teacher's assignments, else a GMM fit.
     latents = extract_latents(model, train_ds, common.batch_size, use_angles)
-    if latents.shape[0] >= common.n_components:
-        means, log_vars = fit_gmm_init(latents, common.n_components, seed)
-        with torch.no_grad():
-            model.latent_space.gmm_means.copy_(means)
-            model.latent_space.gmm_log_vars.copy_(log_vars)
+    if teacher_cfg.use_turtle_teacher:
+        tau_star, class_weight = fit_turtle_teacher(latents, train_ds, common, teacher_cfg, verbose=verbose)
+    if tau_star is not None and latents.shape[0] == tau_star.shape[0]:
+        set_prior(*initialize_gmm_from_teacher(latents, tau_star)[:2])
+    elif latents.shape[0] >= common.n_components:
+        set_prior(*fit_gmm_init(latents, common.n_components, seed))
+    if checkpointer is not None:
+        path = os.path.join(checkpointer.directory, "teacher_init.pkl")
+        torch.save({"model": model.state_dict()}, path + ".tmp")
+        os.replace(path + ".tmp", path)
 
-    # Main phase against the GMM prior.
+    # Main phase against the GMM prior, distilled from the teacher.
     kl_schedule = WeightSchedule(
         n_batches_per_epoch=n_batches, mode=vade_cfg.kl_annealing_mode, warmup_epochs=vade_cfg.kl_warmup,
         max_weight=vade_cfg.kl_max_weight, cooldown_epochs=vade_cfg.kl_cooldown,
         end_weight=vade_cfg.kl_end_weight,
     )
+    lambda_schedule = None
+    if tau_star is not None:
+        lambda_schedule = WeightSchedule(
+            n_batches_per_epoch=n_batches, mode="linear", warmup_epochs=0, max_weight=teacher_cfg.lambda_distill,
+            at_max_epochs=teacher_cfg.lambda_decay_start, cooldown_epochs=teacher_cfg.lambda_cooldown,
+            end_weight=teacher_cfg.lambda_end_weight,
+        )
     optimizer = None
     if vade_cfg.freeze_gmm_epochs or vade_cfg.freeze_decoder_epochs:
         optimizer = _make_vade_main_optimizer(
             model.named_parameters(), common.learning_rate, vade_cfg.gmm_learning_rate, n_batches,
             vade_cfg.freeze_gmm_epochs, vade_cfg.freeze_decoder_epochs,
         )
-    run_phase("", common.epochs, common.learning_rate, False, kl_schedule, optimizer, track_best=True)
+    run_phase("", common.epochs, common.learning_rate, False, kl_schedule, lambda_schedule, optimizer,
+              ckpt=checkpointer, track_best=True)
 
     spec = _rebuild_spec("VaDE", x0, a0, ang0, adjacency, common, use_gnn, use_angles)
-    return ModelBundle(model.eval(), spec, history, best.get("state"), best.get("val"))
+    return ModelBundle(model.eval(), spec, history, best.get("state"), best.get("val"),
+                       best.get("score_state"), best.get("score"))
 
 
 def graph_edges(adjacency: np.ndarray) -> np.ndarray:
@@ -713,17 +886,18 @@ def fit_contrastive(
     (``make_contrastive_step``); there is no validation, as in the JAX
     package, so ``val_ds`` is not read. Weights are drawn from
     ``common.seed`` on the CPU, the augmentations and dropout's masks from a
-    generator of that seed on ``device``. Returns the bundle, in eval mode."""
-    if checkpointer is not None:
-        raise NotImplementedError("resumable checkpoints (Orbax in the JAX package) come with ROADMAP queue 1 item 9")
+    generator of that seed on ``device``. With a ``checkpointer`` it resumes
+    after its latest epoch and saves at epoch ends. Returns the bundle, in
+    eval mode."""
     dev = resolve_device(device)
     x0, a0, ang0, _ = _first_batch(train_ds, common, False)
     model = _new_model("Contrastive", x0, a0, ang0, adjacency, common, use_gnn, False, 0.0, dev)
     edge_index = graph_edges(adjacency)
     precomp = build_rotation_precomp(edge_index, np.asarray(adjacency).shape[0])
     generator = torch.Generator(device=dev).manual_seed(common.seed or 0)
-    step = make_contrastive_step(model, _make_optimizer(model.named_parameters(), common.learning_rate),
-                                 contrastive_cfg, edge_index, precomp, generator)
+    optimizer = _make_optimizer(model.named_parameters(), common.learning_rate)
+    step = make_contrastive_step(model, optimizer, contrastive_cfg, edge_index, precomp, generator)
+    start_epoch = _resume(checkpointer, model, optimizer)
 
     def train_fn(x, a, ang, idx, epoch):
         return step(torch.as_tensor(x, device=dev))
@@ -734,7 +908,9 @@ def fit_contrastive(
         rng_seed=common.seed or 0, train_fn=train_fn, eval_fn=None, history=history,
         bootstrap=bootstrap, bootstrap_block_len=bootstrap_block_len,
         limit_train_batches=common.limit_train_batches, limit_val_batches=common.limit_val_batches,
-        verbose=verbose, on_epoch_end=epoch_callback,
+        verbose=verbose, start_epoch=start_epoch,
+        on_epoch_end=_chain_hooks(make_epoch_checkpoint_hook(checkpointer, _fit_state(model, optimizer)),
+                                  epoch_callback),
     )
     spec = {
         "model": "Contrastive",
@@ -805,6 +981,7 @@ def train_deepof_model(
     use_turtle_teacher: bool = False,
     verbose: bool = True,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
     epoch_callback=None,
     device="cuda",
     **kwargs,
@@ -813,8 +990,10 @@ def train_deepof_model(
     ``encoder_type``'s encoder, on a graph dataset ``(dataset (train,
     test), metainfo, adjacency)``.
 
-    Returns (model_bundle, model_score (None without the TURTLE teacher),
-    None, log_summary), as the JAX package does. ``CommonFitCfg`` fields
+    Returns (model_bundle, model_score, None, log_summary), as the JAX
+    package does: model_score is the bundle of the best alignment score
+    where the TURTLE teacher drove a VaDE's distillation and validation ran,
+    else None. ``CommonFitCfg`` fields
     given as keywords (``learning_rate``, ``limit_train_batches``,
     ``limit_val_batches``) set the fit's configuration; for a VaDE so do
     ``VaDECfg`` and ``TurtleTeacherCfg`` fields (``kl_annealing_mode`` and
@@ -823,9 +1002,12 @@ def train_deepof_model(
     loss, its similarity and temperature, the augmentations' ``aug_*``).
     The JAX package's common fields that no fit reads raise when set to
     another value than their default; other keywords are accepted and
-    unused, as in the JAX package. With ``save_weights`` the
-    bundle (and its best-validation twin, ``_best.ckpt``) is written under
-    ``output_path/models`` as
+    unused, as in the JAX package. With ``checkpoint_dir`` the fit saves
+    every ``checkpoint_every``-th epoch there (``train.checkpoint``, the
+    newest 3 kept) and a later call with the same directory resumes after
+    the latest. With ``save_weights`` the bundle (its best-validation twin,
+    ``_best.ckpt``, and its best-score twin, ``_best_score.ckpt``) is
+    written under ``output_path/models`` as
     ``{model_name}_{encoder_type}_latent{L}_k{K}_run{run}.ckpt``.
     """
     if pretrained:  # before any raise, as the JAX package returns it
@@ -839,9 +1021,6 @@ def train_deepof_model(
     unread = sorted(k for k, default in UNREAD_COMMON_FIELDS.items() if kwargs.get(k, default) != default)
     if unread:
         raise ValueError(f"{unread}: no fit reads such a setting")
-    if checkpoint_dir:
-        raise NotImplementedError("checkpoint_dir: resumable checkpoints (Orbax in the JAX package) come with "
-                                  "ROADMAP queue 1 item 9")
     vade = model_name in ("VaDE", "vade")
     if vade:
         vade_cfg = VaDECfg(reg_cat_clusters=reg_cat_clusters, recluster=recluster,
@@ -853,7 +1032,6 @@ def train_deepof_model(
             for k, v in kwargs.items():
                 if hasattr(cfg, k):
                     setattr(cfg, k, v)
-        raise_if_teacher(teacher_cfg)
 
     train_part, test_part = preprocessed_object[0], preprocessed_object[1]
     if isinstance(preprocessed_object, tuple) and len(preprocessed_object) >= 2 and \
@@ -868,29 +1046,40 @@ def train_deepof_model(
     for f in fields(common):
         if f.name in kwargs:
             setattr(common, f.name, kwargs[f.name])
+    checkpointer = TrainCheckpointer(checkpoint_dir, save_interval_epochs=checkpoint_every) if checkpoint_dir else None
     fit_kw = dict(use_gnn=use_gnn, use_angles=use_angles, bootstrap=bootstrap_training,
-                  bootstrap_block_len=bootstrap_block_len, verbose=verbose, epoch_callback=epoch_callback,
-                  device=device)
-    if vade:
-        bundle = fit_vade(train_ds, val_ds, adjacency_matrix, common, vade_cfg, teacher_cfg, **fit_kw)
-    elif model_name.lower() == "contrastive":
-        ccfg = ContrastiveCfg(temperature=temperature, contrastive_similarity_function=contrastive_similarity_function,
-                              contrastive_loss_function=contrastive_loss_function, beta=beta, tau=tau)
-        for k, v in kwargs.items():
-            if hasattr(ccfg, k):
-                setattr(ccfg, k, v)
-        fit_kw.pop("use_angles")
-        bundle = fit_contrastive(train_ds, val_ds, adjacency_matrix, common, ccfg, **fit_kw)
-    else:
-        bundle = fit_vqvae(train_ds, val_ds, adjacency_matrix, common, kmeans_loss=kmeans_loss, **fit_kw)
+                  bootstrap_block_len=bootstrap_block_len, verbose=verbose, checkpointer=checkpointer,
+                  epoch_callback=epoch_callback, device=device)
+    with checkpointer or contextlib.nullcontext():
+        if vade:
+            bundle = fit_vade(train_ds, val_ds, adjacency_matrix, common, vade_cfg, teacher_cfg, **fit_kw)
+        elif model_name.lower() == "contrastive":
+            ccfg = ContrastiveCfg(temperature=temperature,
+                                  contrastive_similarity_function=contrastive_similarity_function,
+                                  contrastive_loss_function=contrastive_loss_function, beta=beta, tau=tau)
+            for k, v in kwargs.items():
+                if hasattr(ccfg, k):
+                    setattr(ccfg, k, v)
+            fit_kw.pop("use_angles")
+            bundle = fit_contrastive(train_ds, val_ds, adjacency_matrix, common, ccfg, **fit_kw)
+        else:
+            bundle = fit_vqvae(train_ds, val_ds, adjacency_matrix, common, kmeans_loss=kmeans_loss, **fit_kw)
     log_summary = {k: v[-1] if v else None for k, v in bundle.history.items()}
+    score_bundle = None
+    if bundle.best_score_state is not None:
+        score_model = _model_from_spec(bundle.rebuild_spec, next(bundle.model.parameters()).device)
+        score_model.load_state_dict(bundle.best_score_state)
+        score_bundle = ModelBundle(score_model.eval(), bundle.rebuild_spec, bundle.history,
+                                   best_score=bundle.best_score)
     if save_weights:
         name = f"{model_name}_{encoder_type}_latent{latent_dim}_k{n_clusters}_run{run}.ckpt"
         path = os.path.join(output_path, "models", name)
         bundle.save(path)
         if bundle.best_state is not None:
             bundle.save(path.replace(".ckpt", "_best.ckpt"), bundle.best_state)
-    return bundle, None, None, log_summary
+        if score_bundle is not None:
+            score_bundle.save(path.replace(".ckpt", "_best_score.ckpt"))
+    return bundle, score_bundle, None, log_summary
 
 
 def deep_unsupervised_embedding(

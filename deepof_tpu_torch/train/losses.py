@@ -1,20 +1,21 @@
 """The contrastive losses and the VaDE loss (port of
 deepof_tpu/train/losses.py: the similarity matrices and the nce / dcl / fc /
 hard-dcl losses with ``select_contrastive_loss`` :34-148;
-``cluster_frequencies_regularizer``, ``VadeLossParams``, ``vade_loss`` and
-``vade_params_from_cfg`` :162-450).
+``cluster_frequencies_regularizer``, ``VadeLossParams``, ``vade_loss`` with
+its distillation term :351-385, and ``vade_params_from_cfg`` :162-450).
 
 The composite loss: the masked-Normal reconstruction NLL; the KL to N(0, I)
 in pretrain and a 32-sample Monte-Carlo KL to the GMM prior in the main
 phase; k-means, activity L1, repel and non-empty terms; and in the main
 phase the tf-cluster, prior, cluster-frequency, temporal-cohesion and
-scatter terms, with the JAX package's clips and stop-gradients
+scatter terms; and, given the TURTLE teacher's assignments of the batch,
+the distillation term, with the JAX package's clips and stop-gradients
 (``.detach()``). ``torch.clamp`` passes no gradient below a clip, as
 ``jnp.clip``; the two differ only at exact ties.
 
-The teacher-distillation term waits for the TURTLE teacher (ROADMAP queue 1
-item 14): without a teacher the JAX package's step runs it on zero
-assignments at weight 0, so it is exactly 0, and here ``distill_loss`` is 0.
+Without a teacher, or at a distillation weight of 0, the JAX package's step
+runs the distillation term on zero assignments at weight 0, so it is
+exactly 0: here it is not computed, and ``distill_loss`` is 0.
 """
 
 from __future__ import annotations
@@ -195,6 +196,26 @@ def _monte_carlo_kl(eps, z_mean, z_log_var, gmm_means, gmm_log_vars, prior, para
     return (log_q - log_p).mean().clamp(min=0.0)
 
 
+def _distill(q: torch.Tensor, tau_b: torch.Tensor, params: VadeLossParams,
+             class_weight: Optional[torch.Tensor]) -> torch.Tensor:
+    """Cross-entropy of the clipped posterior q against the teacher's
+    assignments, sharpened at ``distill_sharpen_T``; weighted by the
+    teacher's confidence (``distill_conf_weight``) and by its class weights
+    normalised to the batch mean, the weights held constant."""
+    if params.distill_sharpen_T and params.distill_sharpen_T > 0.0:
+        tau_b = torch.softmax(torch.log(tau_b.clamp(min=1e-8)) / params.distill_sharpen_T, dim=-1)
+    per_sample = -(tau_b * torch.log(q.clamp(min=1e-8))).sum(-1)
+    w_total = None
+    if params.distill_conf_weight:
+        thr = params.distill_conf_thresh
+        w_total = ((tau_b.max(1).values - thr) / max(1e-6, 1.0 - thr)).clamp(0.0, 1.0).detach()
+    if class_weight is not None:
+        w_class = tau_b @ class_weight
+        w_class = (w_class / w_class.mean().clamp(min=1e-8)).detach()
+        w_total = w_class if w_total is None else w_total * w_class
+    return (w_total * per_sample).mean() if w_total is not None else per_sample.mean()
+
+
 def vade_loss(
     outputs: Dict,
     x_original: torch.Tensor,
@@ -202,6 +223,9 @@ def vade_loss(
     kl_weight: float,
     eps: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    tau_star_batch: Optional[torch.Tensor] = None,
+    lambda_distill: float = 0.0,
+    class_weight: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """The composite VaDE loss of one batch.
 
@@ -212,6 +236,10 @@ def vade_loss(
         kl_weight: the scheduled KL weight.
         eps: (S, B, D) standard-normal draws for the main phase's
             Monte-Carlo KL; drawn from ``generator`` when not given.
+        tau_star_batch: (B, K) teacher assignments of the batch, or None
+            (no distillation term).
+        lambda_distill: the scheduled distillation weight.
+        class_weight: (K,) teacher class weights, or None.
 
     Returns:
         {"total_loss", "reconstruct_loss", "kl_div", "kl_weight", ...}: the
@@ -286,6 +314,10 @@ def vade_loss(
             w = ((pi_b / pi_b.mean()) ** (-params.reg_scatter_beta))[:, None]
             scatter_loss = params.reg_scatter_weight * torch.mean(w * scat_c)
 
+    distill_loss = zero
+    if tau_star_batch is not None:
+        distill_loss = lambda_distill * _distill(q, tau_star_batch, params, class_weight)
+
     total = (
         reconstruction_loss
         + kl_batch
@@ -298,6 +330,7 @@ def vade_loss(
         + activity_l1
         + scatter_loss
         + repel_loss
+        + distill_loss
     )
     return {
         "total_loss": total,
@@ -309,7 +342,7 @@ def vade_loss(
         "kmeans_loss": kmeans_term,
         "activity_l1": activity_l1,
         "cat_clust_loss": cat_cluster_loss,
-        "distill_loss": zero,
+        "distill_loss": distill_loss,
         "nonempty_loss": nonempty_loss,
         "temporal_loss": temporal_loss,
         "scatter_loss": scatter_loss,

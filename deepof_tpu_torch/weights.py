@@ -14,7 +14,9 @@ modules (the inverse direction of ``tests/torch_to_flax.py``):
   ``bhn`` (H,), the flax form the GRU kernel consumes;
 - attention kernels query / key / value (in, heads, head_dim) and out
   (heads, head_dim, out), CensNet leaves, the (D, K) codebook and the GMM
-  prior's (K, D) means and log-variances as they are.
+  prior's (K, D) means and log-variances as they are;
+- the TURTLE teacher's task parameters, a list of {"w" (d, K), "b" (K,)}
+  a view, as they are (``kind="TaskEncoder"``).
 
 flax numbers a module's children of one kind in creation order, across the
 stream cores: the transformer encoder's ``Dense_0`` and layers 0..L-1 are
@@ -363,10 +365,22 @@ def _contrastive(p: dict, s: dict, where: str) -> State:
     return _nest("encoder", _encoder(p["encoder"], _stats(s, "encoder"), f"{where}/encoder"))
 
 
+def _task_encoder(p, s: dict, where: str) -> State:
+    """The TURTLE teacher's task parameters: a list of {"w" (d_v, K), "b"
+    (K,)} a view (or a dict keyed "0", "1", ...) -> ``w.{v}``, ``b.{v}``."""
+    views = list(p) if isinstance(p, (list, tuple)) else [p[k] for k in sorted(p, key=int)]
+    state: State = {}
+    for i, view in enumerate(views):
+        _keys(view, f"{where}/{i}", ("w", "b"))
+        state[f"w.{i}"], state[f"b.{i}"] = _t(view["w"]), _t(view["b"])
+    return state
+
+
 _CONVERTERS: Dict[str, Callable[[dict, dict, str], State]] = {
     "VQVAE": _vqvae,
     "VaDE": _vade,
     "Contrastive": _contrastive,
+    "TaskEncoder": _task_encoder,
     "GaussianMixtureLatent": _gaussian_mixture_latent,
     "RecurrentEncoder": _recurrent_encoder,
     "TCNEncoder": _tcn_encoder,

@@ -472,11 +472,10 @@ def test_default_embedding_trains_a_vade_saves_and_serves(trained, jax_forwards)
     torch.testing.assert_close(q, head["categorical"], rtol=0, atol=0)
 
 
-def test_gmm_init_and_what_raises(trained, tmp_path):
+def test_gmm_init_and_what_raises(trained):
     """fit_vade writes the GMM fitted to the pretrained latents into the
-    prior before the main phase; the teacher, checkpoints and mixed
-    precision raise, naming their items, and so do an unknown encoder and
-    an unknown model."""
+    prior before the main phase; mixed precision raises, naming its item,
+    and so do an unknown encoder and an unknown model."""
     coords, ggd, _, _ = trained
     common = pconfig.CommonFitCfg(batch_size=16, latent_dim=LATENT, epochs=0, n_components=K, seed=0)
     train_ds = pharness._dataset_from_preprocessed(ggd[0][0])
@@ -489,12 +488,6 @@ def test_gmm_init_and_what_raises(trained, tmp_path):
     torch.testing.assert_close(pre.model.latent_space.gmm_log_vars.data, log_vars.float())
 
     kw = dict(adjacency_matrix=ggd[2], batch_size=16, latent_dim=LATENT, n_clusters=K, epochs=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        coords.deep_unsupervised_embedding(ggd[:3], use_turtle_teacher=True, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        coords.deep_unsupervised_embedding(ggd[:3], teacher_refresh_every=2, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        coords.deep_unsupervised_embedding(ggd[:3], checkpoint_dir=str(tmp_path), **kw)
     with pytest.raises(NotImplementedError, match="use_amp"):
         coords.deep_unsupervised_embedding(ggd[:3], use_amp=True, **kw)
     with pytest.raises(NotImplementedError, match="invalid encoder type"):
