@@ -198,7 +198,30 @@
    bit for bit); checkpoint save and restore seconds and bytes; and the
    default teacher's outer step timed (ms, launches and device ms a step
    under the profiler).
-14. Prints a stage line of each path, a kernels line, and last
+14. Imputation: the Kalman/RTS kernel (csrc/kalman_rts.cu, ``kalman_rts``)
+   held against ``kalman_rts_plain`` on the card at one animal's block of a
+   public recording (45,000, 28), at a ragged (7, 33) and at one frame
+   (1e-5 of max(1, |value|)), timed there against its bytes bound and its
+   plain version; the public recordings with seeded occlusion runs of 4-60
+   frames on a third of their bodyparts and W absent for 150 frames of
+   "test", through ``Project(iterative_imputation="full").create(test=True)``
+   -> ``get_graph_dataset(window_size=25)`` -> ``embedding_per_video
+   (batch_size=4096)`` card vs CPU (float32 both) on the 2,000-frame copy at
+   1e-4 of max(1, max |value|) (tables, scaled frames, embeddings, soft
+   counts), then at full width from a reset of the kernels' counts (one
+   ``kalman_rts`` launch an animal and recording, one window launch a
+   block, four GRU launches a block), create timed by step (ridge, Kalman,
+   constraints) beside a "partial" create of the same tables, every
+   present animal's positions finite; then path B: the imputed project
+   served in budget and with ``DEVICE_SCALE_BUDGET_BYTES`` and
+   ``DEVICE_FRAMES_BYTES`` below one recording's scaled frame (restored in
+   a finally), at the default settings (the general route in place of the
+   device route, 1e-4) and with robust scaling (the general route both
+   times, 1e-8), every frame kept on the host and uploaded to serve, the
+   peak device memory of each run; then ``pca`` (linear, rbf),
+   ``random_projection`` (1e-8) and ``scale_tables`` (exactly) card vs
+   CPU.
+15. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -2226,10 +2249,11 @@ def _kernel_counts(reset=False):
     """{kernel: launches since the last reset}, or set every count to 0."""
     from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_backward
     from deepof_tpu_torch.ops.hmm_kernels import hmm_scan
+    from deepof_tpu_torch.ops.kalman_kernels import kalman_rts
     from deepof_tpu_torch.ops.window_kernels import window_streams
 
     fns = {"window_streams": window_streams, "gru_scan": gru_scan, "gru_scan_bwd": gru_scan_backward,
-           "hmm_scan": hmm_scan}
+           "hmm_scan": hmm_scan, "kalman_rts": kalman_rts}
     if reset:
         for fn in fns.values():
             fn.launches = 0
@@ -2496,7 +2520,7 @@ def _encoders_serving(torch, data, prefix, bundles):
         call_s = time.perf_counter() - t0
         launches = _kernel_counts()
         n_blocks = len(PUBLIC_KEYS) * -(-(PUBLIC_FRAMES - window + 1) // BLOCK)
-        want = {"window_streams": n_blocks, "gru_scan": 0, "gru_scan_bwd": 0, "hmm_scan": 0}
+        want = {"window_streams": n_blocks, "gru_scan": 0, "gru_scan_bwd": 0, "hmm_scan": 0, "kalman_rts": 0}
         if launches != want:
             _fail(f"serving {name} launched {launches}, not {want}")
         _check_encoder_outputs(name, outs, PUBLIC_FRAMES, window)
@@ -3073,6 +3097,332 @@ def _teacher_phase(torch, card, data):
     return line, launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 14: full imputation, and a project past the device residency budgets
+# --------------------------------------------------------------------------- #
+
+KALMAN_CHECK = ((PUBLIC_FRAMES, 28), (7, 33), (1, 28))  # one animal's block, a ragged one, one frame
+KALMAN_TOL = 1e-5  # of max(1, |plain|); the kernel rounds as the plain version does (equal bits seen)
+OCCLUSION_RUNS = 40  # runs of 4-60 frames a bodypart, on a third of each recording's bodyparts
+ABSENT = (1_200, 1_350)  # frames of "test" where W is absent (inside the prefix copy too)
+PROJECTION_RTOL = 1e-8  # pca / random_projection card vs CPU (float64 both; other eigensolvers)
+# The imputation copy's scaled frames card vs CPU, of max(1, |value|): the
+# ridge sweep's float32 Gram matrices and solves run in other orders on the
+# two devices (tables 3.7e-7 apart), and the scaling divides an imputed
+# sample's last bits by the local deviation of its speeds and distances
+# (4.1e-4 seen on an H100 80GB HBM3 at 700 W). Tables, embeddings and soft
+# counts keep PATH_RTOL.
+IMPUTED_FRAME_RTOL = 1e-3
+
+
+def _check_time_kalman(torch):
+    """kalman_rts against kalman_rts_plain on the card at KALMAN_CHECK, then
+    timed at one animal's block of a public recording against its bytes
+    bound and its plain version (once). Returns (max abs err, timing)."""
+    from deepof_tpu_torch.ops.kalman_kernels import kalman_rts, kalman_rts_plain
+
+    rng = np.random.default_rng(0)
+    worst, inputs = (0.0, 0.0), {}
+    for t, c in KALMAN_CHECK:
+        z = (rng.normal(size=(t, c)).cumsum(axis=0) * 2.0 + 300.0 + rng.normal(size=(t, c))).astype(np.float32)
+        inputs[(t, c)] = z = torch.as_tensor(z, device="cuda")
+        got = kalman_rts(z)
+        torch.cuda.synchronize()
+        want = kalman_rts_plain(z)
+        abs_err = float((got - want).abs().max())
+        worst = (max(worst[0], abs_err), max(worst[1], abs_err / max(1.0, float(want.abs().max()))))
+    _log(f"kalman_rts vs plain on the card at {list(KALMAN_CHECK)}: max|diff| {worst[0]:.3e}, "
+         f"max|diff| / max(1, |plain|) {worst[1]:.3e} (tol {KALMAN_TOL:.0e})")
+    if not worst[1] <= KALMAN_TOL:
+        _fail(f"kalman_rts disagrees with its plain version: {worst}")
+    t, c = KALMAN_CHECK[0]
+    z = inputs[(t, c)]
+    ms = _cuda_ms(torch, lambda: kalman_rts(z), reps=10, warmup=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kalman_rts_plain(z)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_bytes = 2 * 4 * t * c  # z read once, the output written once
+    flop = 20 * t * c  # filter and smoother: ~20 FP32 operations a channel-step
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flop / PEAK_FP32 * 1e3
+    timed = {"shape": f"z ({t}, {c}) float32", "ms": ms, "ns_per_step": ms * 1e6 / t, "plain_ms": plain_ms,
+             "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+             "library_ms": None}
+    _log(f"kalman_rts timed: {timed}")
+    return worst[0], timed
+
+
+def _occluded_tables(tables, seed=0):
+    """The public recordings with occlusions past the 3-frame linear limit:
+    on a third of each recording's bodyparts, OCCLUSION_RUNS runs of 4-60
+    frames at likelihood 0.05; W absent (every bodypart at 0.05) over
+    ABSENT of "test"."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, (values, cols) in tables.items():
+        values = values.copy()
+        lik = [i for i, c in enumerate(cols) if c[3] == "likelihood"]
+        for i in rng.choice(lik, len(lik) // 3, replace=False):
+            for start, length in zip(rng.integers(0, len(values) - 60, OCCLUSION_RUNS),
+                                     rng.integers(4, 61, OCCLUSION_RUNS)):
+                values[start:start + length, i] = 0.05
+        if key == "test":
+            values[ABSENT[0]:ABSENT[1], [i for i in lik if cols[i][1] == "W"]] = 0.05
+        out[key] = (values, cols)
+    return out
+
+
+def _imputation_project(root, device, iterative_imputation="full", precision="auto"):
+    """(Project, Coordinates) of the csv project under ``root``."""
+    from deepof_tpu_torch.data import Project
+
+    proj = Project(
+        project_path=root, project_name="imputation", video_path=f"{root}/Videos", table_path=f"{root}/Tables",
+        arena="circular-autodetect", video_scale="380 mm", table_format="csv", frame_rate=FPS,
+        animal_ids=ANIMALS, iterative_imputation=iterative_imputation, precision=precision, device=device,
+    )
+    return proj, proj.create(force=True, test=True, verbose=False)
+
+
+class _StepTimer:
+    """The three steps of full imputation timed (synchronised) while the
+    block runs: seconds summed by step into ``stages``."""
+
+    STEPS = {"iterative_ridge_impute": "ridge", "kalman_rts_smooth": "kalman",
+             "enforce_skeleton_constraints": "constraints"}
+
+    def __init__(self, torch, stages):
+        from deepof_tpu_torch.ops import imputation
+
+        self.torch, self.stages, self.module = torch, stages, imputation
+        self.originals = {name: getattr(imputation, name) for name in self.STEPS}
+
+    def __enter__(self):
+        def wrap(fn, stage):
+            def timed(*args, **kwargs):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                self.torch.cuda.synchronize()
+                self.stages[stage] = self.stages.get(stage, 0.0) + time.perf_counter() - t0
+                return out
+            return timed
+
+        for name, stage in self.STEPS.items():
+            setattr(self.module, name, wrap(self.originals[name], stage))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.originals.items():
+            setattr(self.module, name, fn)
+
+
+def _serve(torch, coords, bundle, device="cuda", **settings):
+    """get_graph_dataset(window_size=25, **settings) -> embedding_per_video
+    (batch 4096). Returns (graph dataset, embeddings, soft counts, seconds,
+    peak device GiB)."""
+    from deepof_tpu_torch.train.inference import embedding_per_video
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ggd = coords.get_graph_dataset(window_size=WINDOW, **settings)
+    emb, sc = embedding_per_video(coords, ggd[3], bundle, ggd[1], global_scaler=ggd[4], batch_size=BLOCK)
+    if device != "cuda":
+        return ggd, emb, sc, time.perf_counter() - t0, None
+    torch.cuda.synchronize()
+    return ggd, emb, sc, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _imputation_budgets(torch, coords, bundle):
+    """Path B: the imputed project served in budget and with both budgets
+    below one recording's bytes (restored in a finally), at the default
+    settings (the device route gives way to the general route) and with
+    robust scaling (the general route both times). Returns ({case: report},
+    {case: launches past the budgets})."""
+    from deepof_tpu_torch.core import table_dict as ptd
+    from deepof_tpu_torch.core.storage import get_dt
+
+    n_blocks = len(PUBLIC_KEYS) * -(-(PUBLIC_FRAMES - WINDOW + 1) // BLOCK)
+    reports, launches = {}, {}
+    for case, settings, rtol in (("default", {}, PATH_RTOL), ("robust", {"scale": "robust"}, GENERAL_RTOL)):
+        inb = _serve(torch, coords, bundle, **settings)
+        one = min(f.numel() * 4 for f in inb[0][3]._scaled_device.values())  # a recording's float32 frame
+        saved = (ptd.DEVICE_SCALE_BUDGET_BYTES, ptd.DEVICE_FRAMES_BYTES)
+        try:
+            ptd.DEVICE_SCALE_BUDGET_BYTES = ptd.DEVICE_FRAMES_BYTES = one // 2
+            _kernel_counts(reset=True)
+            past = _serve(torch, coords, bundle, **settings)
+            launches[case] = _kernel_counts()
+        finally:
+            ptd.DEVICE_SCALE_BUDGET_BYTES, ptd.DEVICE_FRAMES_BYTES = saved
+        tab = past[0][3]
+        if sorted(tab._scaled_host) != sorted(PUBLIC_KEYS) or tab._scaled_device:
+            _fail(f"past the budgets ({case}): frames on the host {sorted(tab._scaled_host)}, on the device "
+                  f"{sorted(tab._scaled_device)}")
+        if launches[case]["window_streams"] != n_blocks or launches[case]["gru_scan"] != 4 * n_blocks:
+            _fail(f"past the budgets ({case}): launches {launches[case]} for {n_blocks} blocks")
+        errs = {}
+        for key in PUBLIC_KEYS:
+            pairs = (("scaled frame", get_dt(tab._scaled_frames, key), get_dt(inb[0][3]._scaled_frames, key)),
+                     ("embeddings", past[1][key], inb[1][key]), ("soft counts", past[2][key], inb[2][key]))
+            for name, got, want in pairs:
+                err = float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+                errs[f"{key} {name}"] = err
+                if not err <= rtol:
+                    _fail(f"past the budgets ({case}) {key} {name} differs from the in-budget run: {err}")
+        reports[case] = {"in_budget_s": inb[3], "past_budget_s": past[3], "in_budget_peak_gib": inb[4],
+                         "past_budget_peak_gib": past[4], "frames_on_host": len(tab._scaled_host),
+                         "budgets_bytes": one // 2, "max_rel_err": max(errs.values()), "tol": rtol}
+        _log(f"budgets {case}: {reports[case]}, launches {launches[case]}")
+    return reports, launches
+
+
+def _item4_card_vs_cpu(torch, proj, coords, root):
+    """pca (linear and rbf), random_projection and scale_tables on the card
+    against the CPU, from the same inputs, each timed (second call)."""
+    from deepof_tpu_torch.core import table_dict as ptd
+    from deepof_tpu_torch.io.readers import load_table
+
+    ggd = coords.get_graph_dataset(window_size=WINDOW)
+    frames = ggd[3]._scaled_device
+    card_td = ptd.TableDict(dict(ggd[3]._scaled_frames), typ="merged")
+    card_td._device_frames = dict(frames)
+    cpu_td = ptd.TableDict(dict(card_td), typ="merged")
+    cpu_td._device_frames = {k: v.cpu() for k, v in frames.items()}
+    raws = {key: load_table(f"{key}DLC_chip_smoke.csv", f"{root}/Tables", "csv").positions for key in PUBLIC_KEYS}
+    cpu_proj = copy.copy(proj)
+    cpu_proj.device = "cpu"
+    calls = {
+        "pca": lambda td: td.pca()[0],
+        "pca_rbf": lambda td: td.pca(kernel="rbf")[0],
+        "random_projection": lambda td: (np.random.seed(0), td.random_projection()[0])[1],
+    }
+    report = {}
+    for name, fn in calls.items():
+        fn(card_td)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(card_td)
+        s = time.perf_counter() - t0
+        want = fn(cpu_td)
+        err = float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+        report[name] = {"s": s, "max_rel_err": err}
+        if not err <= PROJECTION_RTOL:
+            _fail(f"{name} card vs CPU: {err}")
+    proj.scale_tables(raws)
+    t0 = time.perf_counter()
+    got = proj.scale_tables(raws)
+    s = time.perf_counter() - t0
+    want = cpu_proj.scale_tables(raws)
+    if any(not np.array_equal(got[k], want[k], equal_nan=True) for k in PUBLIC_KEYS):
+        _fail("scale_tables differs card vs CPU")
+    report["scale_tables"] = {"s": s, "max_rel_err": 0.0}
+    _log(f"item 4 card vs CPU: {report} (tol {PROJECTION_RTOL:.0e}; scale_tables exactly)")
+    return report
+
+
+def _imputation_phase(torch, card, tmp, tables):
+    """Phase 14: full imputation and a project past the device budgets. The
+    Kalman/RTS kernel against its plain version and timed; the public
+    recordings with occlusion runs (``_occluded_tables``) through
+    ``Project(iterative_imputation="full").create(test=True)`` ->
+    ``get_graph_dataset(window_size=25)`` -> ``embedding_per_video`` card
+    vs CPU on the 2,000-frame copy (float32 both), then at full width from a
+    reset of the kernels' counts, create timed by step beside a "partial"
+    create of the same tables; then path B (``_imputation_budgets``) and the
+    rest of item 4 (``_item4_card_vs_cpu``). Returns (stage line, launches
+    by path, kernel error, kernel timing)."""
+    from deepof_tpu_torch.core.storage import get_dt
+    from deepof_tpu_torch.train.inference import ModelBundle
+
+    t_phase = time.perf_counter()
+    kernel_err, kernel_t = _check_time_kalman(torch)
+    occluded = _occluded_tables(tables)
+    full_root = _write_public_project(os.path.join(tmp, "occluded"), occluded, PUBLIC_FRAMES)
+    prefix_root = _write_public_project(os.path.join(tmp, "occluded_prefix"), occluded, PREFIX)
+    _, _, bundles = _public_bundles(torch)
+    bundle = bundles[0]
+
+    # Card vs the CPU plain versions (float32 both) on the prefix copy.
+    t0 = time.perf_counter()
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        b = bundle if dev == "cuda" else ModelBundle(copy.deepcopy(bundle.model).to("cpu"), bundle.rebuild_spec)
+        _, coords = _imputation_project(prefix_root, dev, precision="float32")
+        ggd, emb, sc, _, _ = _serve(torch, coords, b, device=dev)
+        sides[dev] = (coords, ggd, emb, sc)
+    copy_err = {}
+    for key in PUBLIC_KEYS:
+        (c_co, c_ggd, c_emb, c_sc), (p_co, p_ggd, p_emb, p_sc) = sides["cuda"], sides["cpu"]
+        pairs = (("table", c_co._tables[key], p_co._tables[key]),
+                 ("scaled frame", get_dt(c_ggd[3]._scaled_frames, key), get_dt(p_ggd[3]._scaled_frames, key)),
+                 ("embeddings", c_emb[key], p_emb[key]), ("soft counts", c_sc[key], p_sc[key]))
+        for name, got, want in pairs:
+            if not np.array_equal(np.isnan(got), np.isnan(want)):
+                _fail(f"imputation copy {key} {name}: NaN patterns differ card vs CPU")
+            ok = ~np.isnan(want)
+            copy_err[f"{key} {name}"] = float(np.abs(got[ok] - want[ok]).max()) / max(
+                1.0, float(np.abs(want[ok]).max()))
+    copy_s = time.perf_counter() - t0
+    _log(f"imputation copy of {PREFIX} frames, card vs CPU plain: {copy_err} (tol {PATH_RTOL:.0e}, scaled "
+         f"frames {IMPUTED_FRAME_RTOL:.0e})")
+    if any(not err <= (IMPUTED_FRAME_RTOL if "scaled" in name else PATH_RTOL) for name, err in copy_err.items()):
+        _fail(f"card and CPU disagree on the imputation copy: {copy_err}")
+
+    # Path A at full width: the partial create of the same tables, then the
+    # full path from a reset of the counts.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, partial = _imputation_project(full_root, "cuda", iterative_imputation="partial")
+    partial_s = time.perf_counter() - t0
+    _kernel_counts(reset=True)
+    steps = {}
+    t0 = time.perf_counter()
+    with _StepTimer(torch, steps):
+        proj, coords = _imputation_project(full_root, "cuda")
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    ggd, emb, sc, serve_s, peak = _serve(torch, coords, bundle)
+    launches = {"imputation": _kernel_counts()}
+    n_blocks = len(PUBLIC_KEYS) * -(-(PUBLIC_FRAMES - WINDOW + 1) // BLOCK)
+    n_animal_blocks = len(PUBLIC_KEYS) * len(ANIMALS)
+    want = {"kalman_rts": n_animal_blocks, "window_streams": n_blocks, "gru_scan": 4 * n_blocks,
+            "gru_scan_bwd": 0, "hmm_scan": 0}
+    if launches["imputation"] != want:
+        _fail(f"the imputation path launched {launches['imputation']}, not {want}")
+    _check_public_outputs([(emb, sc)], PUBLIC_FRAMES)
+    filled = {}
+    for key in PUBLIC_KEYS:
+        tab, part, pres = coords._tables[key], partial._tables[key], coords._presence[key]
+        if tab.shape != (PUBLIC_FRAMES, 28, 2):
+            _fail(f"imputed table {key}: shape {tab.shape}")
+        for ai, (lo, hi) in enumerate(((0, 14), (14, 28))):
+            present = np.asarray(pres[:, ai], bool)
+            if not np.isfinite(tab[present, lo:hi]).all() or not np.isnan(tab[~present, lo:hi]).all():
+                _fail(f"imputed table {key}, animal {ANIMALS[ai]}: NaN where present or values where absent")
+        filled[key] = int(np.isnan(part).sum() - np.isnan(tab).sum())
+        if filled[key] <= 0:
+            _fail(f"full imputation filled nothing in {key}")
+    _log(f"imputation path: create {create_s:.3f} s ({steps}), partial create {partial_s:.3f} s, serve "
+         f"{serve_s:.3f} s, launches {launches['imputation']}, samples filled {filled}")
+
+    budgets, budget_launches = _imputation_budgets(torch, coords, bundle)
+    launches.update({f"imputation_budgets_{k}": v for k, v in budget_launches.items()})
+    item4 = _item4_card_vs_cpu(torch, proj, coords, full_root)
+    line = {
+        "path": "imputation", "frames": len(PUBLIC_KEYS) * PUBLIC_FRAMES, "recordings": len(PUBLIC_KEYS),
+        "create_s": create_s, "imputation_steps_s": steps,
+        "imputation_s": sum(steps.values()), "partial_create_s": partial_s, "serve_s": serve_s,
+        "peak_mem_gib": peak, "samples_filled": filled, "launches": launches["imputation"],
+        "copy_max_rel_err": max(copy_err.values()), "copy_s": copy_s, "kalman": kernel_t,
+        "budgets": budgets, "item4": item4, "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    return line, launches, kernel_err, kernel_t
+
+
 def _unequal_leaves(got, want, where=""):
     """The paths where two nested states (dicts, lists, tensors, numbers)
     differ, tensors compared bit for bit on the CPU."""
@@ -3168,10 +3518,11 @@ def main() -> int:
     launches["gru_scan_bwd"] = bwd_launches
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
-    # Phases 4-13: the public path, the getters, supervised annotation,
+    # Phases 4-14: the public path, the getters, supervised annotation,
     # training and VaDE on its project, then the cohort, its group
-    # comparison and its soft counts, the other encoders, and VaDE's
-    # teacher and checkpoints.
+    # comparison and its soft counts, the other encoders, VaDE's teacher
+    # and checkpoints, and full imputation with a project past the device
+    # budgets.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
     try:
         public_line, public_launches, full, tables = _public_phase(torch, card, tmp)
@@ -3188,6 +3539,7 @@ def main() -> int:
         encoders_line, encoders_launches = _encoders_phase(torch, card, data, os.path.join(tmp, "prefix"))
         teacher_line, teacher_launches = _teacher_phase(torch, card, data)
         del data
+        imputation_line, imputation_launches, kalman_err, kalman_t = _imputation_phase(torch, card, tmp, tables)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3202,6 +3554,7 @@ def main() -> int:
     print(json.dumps(softcounts_line), flush=True)
     print(json.dumps(encoders_line), flush=True)
     print(json.dumps(teacher_line), flush=True)
+    print(json.dumps(imputation_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,
         "first_stages_s": first_stages, "first_run_s": first_run_s,
@@ -3217,7 +3570,8 @@ def main() -> int:
                       "training": train_launches[name], **{p: c[name] for p, c in vade_launches.items()},
                       "cohort": cohort_launches[name], "posthoc": posthoc_launches[name],
                       **{f"softcounts_{p}": c[name] for p, c in softcounts_launches.items() if name in c},
-                      **{p: c[name] for p, c in encoders_launches.items()}, "teacher": teacher_launches[name]}
+                      **{p: c[name] for p, c in encoders_launches.items()}, "teacher": teacher_launches[name],
+                      **{p: c[name] for p, c in imputation_launches.items()}}
                for name in ("window_streams", "gru_scan", "gru_scan_bwd")}
     hmm_abs, hmm_rel, hmm_timed = hmm_res
     kernels = [
@@ -3241,9 +3595,20 @@ def main() -> int:
          "replaces": "deepof_tpu/msm.py:39 (no TPU kernel: XLA's lax.scan of _forward_backward)",
          "launches": softcounts_launches["hmm"]["hmm_scan"],
          "launches_by_path": {**{f"softcounts_{p}": c["hmm_scan"] for p, c in softcounts_launches.items()},
-                              "teacher": teacher_launches["hmm_scan"]},
+                              "teacher": teacher_launches["hmm_scan"],
+                              **{p: c["hmm_scan"] for p, c in imputation_launches.items()}},
          "max_abs_err": hmm_abs, "max_rel_err": hmm_rel, **hmm_timed[0], "library_ms": None,
          "at_shapes": hmm_timed},
+        {"name": "kalman_rts", "route": "cuda",
+         "source": "deepof_tpu_torch/csrc/kalman_rts.cu",
+         "replaces": "deepof_tpu/ops/imputation.py:44 (no TPU kernel: XLA's lax.scan of _kalman_rts_1d)",
+         "launches": imputation_launches["imputation"]["kalman_rts"],
+         "launches_by_path": {**{f"softcounts_{p}": c["kalman_rts"] for p, c in softcounts_launches.items()
+                                 if "kalman_rts" in c},
+                              **{p: c["kalman_rts"] for p, c in encoders_launches.items()},
+                              "teacher": teacher_launches["kalman_rts"],
+                              **{p: c["kalman_rts"] for p, c in imputation_launches.items()}},
+         "max_abs_err": kalman_err, **kalman_t},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,12 @@ the same order. Float sums run in other orders than sklearn's BLAS and
 cython loops; where a comparison decides a draw or a stop (a candidate's
 potential, a near tie of two distances) the two can part, in principle.
 Each cluster's sum adds its rows in row order on every device
-(``gmm.cluster_sums``), so a fit on the card repeats bit for bit.
+(``gmm.cluster_sums``), so a fit on the card repeats bit for bit. The
+labels' distances and the inertia's per-row distances are summed feature
+by feature in elementwise operations, which round alike on every device (a
+matrix product sums in its library's order, which differs between the
+card and the CPU and flipped near-ties of the MSM decoder's 200
+microstates, so the two devices' macrostates parted on some fits).
 
 Host reads: k-means++ copies each centre's distances (its draws are
 numpy's), each Lloyd or EM iteration reads its convergence scalars, each
@@ -128,18 +133,33 @@ def kmeans_plusplus(x: torch.Tensor, k: int, random_state: np.random.RandomState
     return torch.as_tensor(indices, device=x.device)
 
 
+def _feature_sum(fn, n_features: int) -> torch.Tensor:
+    """fn(0) + fn(1) + ... + fn(n_features - 1), added in that order."""
+    acc = fn(0)
+    for j in range(1, n_features):
+        acc = acc + fn(j)
+    return acc
+
+
 def _labels(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """Nearest centre by ``|c|^2 - 2 x.c`` in x's dtype (sklearn's
-    ``_update_chunk_dense``), the first on a tie."""
-    cn = (centers * centers).sum(1)
-    return torch.cat([torch.addmm(cn[None], x[s:s + _ROWS], centers.T, alpha=-2.0).argmin(1)
-                      for s in range(0, max(x.shape[0], 1), _ROWS)])[:x.shape[0]]
+    ``_update_chunk_dense``), the first on a tie; both sums taken feature by
+    feature (the same bits on every device)."""
+    d = centers.shape[1]
+    cn = _feature_sum(lambda j: centers[:, j] * centers[:, j], d)
+
+    def nearest(xs):
+        return (cn[None] - 2.0 * _feature_sum(lambda j: xs[:, j, None] * centers[:, j][None], d)).argmin(1)
+
+    return torch.cat([nearest(x[s:s + _ROWS]) for s in range(0, max(x.shape[0], 1), _ROWS)])[:x.shape[0]]
 
 
 def _inertia(x: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Sum of squared distances to the assigned centres, a float64 sum
-    rounded to x's dtype (a 0-d tensor)."""
-    d = ((x - centers[labels]) ** 2).sum(1)
+    """Sum of squared distances to the assigned centres (each row's summed
+    feature by feature), a float64 sum rounded to x's dtype (a 0-d
+    tensor)."""
+    diff = x - centers[labels]
+    d = _feature_sum(lambda j: diff[:, j] * diff[:, j], x.shape[1])
     return d.to(torch.float64).sum().to(x.dtype)
 
 

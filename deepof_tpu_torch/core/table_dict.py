@@ -24,9 +24,15 @@ them:
 
 Either way each scaled frame ends as float32 on the device, in
 ``_device_frames`` / ``_deferred_f32``, for the window kernel and the
-encoder. The global fit uses every taken row: the JAX package draws a
+encoder, while the frames kept there fit ``DEVICE_FRAMES_BYTES``; past it
+a frame stays on the host (``_host_f32``) and serving uploads it. Past
+``DEVICE_SCALE_BUDGET_BYTES`` the device formulation gives way to the
+general route. The global fit uses every taken row: the JAX package draws a
 ``RandomState(2)`` permutation of them, which leaves the fit unchanged but
 for summation order (ROADMAP queue 3).
+
+``random_projection`` and ``pca`` restate the JAX package's sklearn
+estimators on the tables' device and return a :class:`Projection`.
 """
 
 from __future__ import annotations
@@ -62,13 +68,15 @@ from deepof_tpu_torch.ops.scaling import (
 from deepof_tpu_torch.ops.windows import aggregate_windows, aggregate_windows_labels, rolling_windows_host
 from deepof_tpu_torch.utils import filter_columns
 
-BUDGETS = "ROADMAP queue 1 item 4 (scaling past the device residency budgets)"
-PROJECTIONS = "the random, PCA and UMAP projections are not ported yet: ROADMAP queue 1 item 4"
-
-# Device residency budgets of the scaling passes (table_dict.py:557,747): the
-# inputs and scaled frames held at once, and the scaled frames kept.
+# Device residency budgets of the scaling passes, the JAX package's numbers
+# (table_dict.py:557,747): the device route's inputs and scaled frames held
+# at once (past it the general route runs, recording by recording, and
+# keeps no pass-1 scaling for pass 3), and the scaled frames kept on the
+# device (past it a frame is kept on the host, and serving uploads it).
 DEVICE_SCALE_BUDGET_BYTES = 8_000_000_000
 DEVICE_FRAMES_BYTES = 4_000_000_000
+
+KERNELS = ("linear", "rbf", "poly", "sigmoid", "cosine")
 
 
 class TableDict(dict):
@@ -110,7 +118,7 @@ class TableDict(dict):
     def _keep_frames(self, out: "TableDict") -> "TableDict":
         """``out`` with this dict's device frames (and fused-lane mark) of
         its keys."""
-        for name in ("_device_frames", "_deferred_f32"):
+        for name in ("_device_frames", "_deferred_f32", "_host_f32"):
             frames = getattr(self, name, None)
             if frames is not None:
                 setattr(out, name, {k: v for k, v in frames.items() if k in out})
@@ -163,14 +171,50 @@ class TableDict(dict):
         out._device_frames = frames
         return out
 
-    def random_projection(self, n_components: int = 2, kernel: str = "linear"):
-        raise NotImplementedError(PROJECTIONS)
+    def _prepare_projection(self, device) -> torch.Tensor:
+        """(n_tables, F) float64: each table's column means (NaN where a
+        column holds one), on ``device`` (default: its device frames', else
+        "cuda")."""
+        frames = getattr(self, "_device_frames", None) or {}
+        if device is None:
+            device = next(iter(frames.values())).device if frames else "cuda"
+        dev = resolve_device(device)
+        means = []
+        for key in self.keys():
+            x = frames.get(key)
+            if x is None:
+                x = torch.as_tensor(np.asarray(get_dt(self, key), np.float64))
+            means.append(x.to(device=dev, dtype=torch.float64).mean(dim=0))
+        return torch.stack(means)
 
-    def pca(self, n_components: int = 2, kernel: str = "linear"):
-        raise NotImplementedError(PROJECTIONS)
+    def random_projection(self, n_components: int = 2, kernel: str = "linear", device=None):
+        """Each table's column means through a Gaussian random projection
+        (``deepof_tpu/core/table_dict.py:118-149``,
+        ``GaussianRandomProjection(n_components)``): the (n_components, F)
+        matrix drawn as sklearn draws it with ``random_state=None``, from
+        numpy's global state. Returns (x (n_tables, n_components) numpy,
+        the fitted :class:`Projection`)."""
+        x = self._prepare_projection(device)
+        proj = Projection.random(n_components, x.shape[1], x.device)
+        return proj.transform_tensor(x).cpu().numpy(), proj
+
+    def pca(self, n_components: int = 2, kernel: str = "linear", device=None):
+        """Each table's column means through a kernel PCA
+        (``KernelPCA(n_components, kernel=kernel)`` at sklearn's defaults,
+        restated: the kernel centred, ``torch.linalg.eigh`` in float64,
+        sklearn's eigenvalue checks, sign and order rules). Returns (x
+        (n_tables, n_components) numpy, the fitted :class:`Projection`)."""
+        x = self._prepare_projection(device)
+        proj = Projection.kernel_pca(x, n_components, kernel)
+        return proj.fitted.cpu().numpy(), proj
 
     def umap(self, n_components: int = 2):
-        raise NotImplementedError(PROJECTIONS)
+        """UMAP needs umap-learn, which the port does not carry."""
+        try:
+            import umap  # noqa: F401
+        except ImportError as e:
+            raise ImportError("UMAP projections require the optional 'umap-learn' package.") from e
+        raise NotImplementedError("UMAP projections are not ported: umap-learn runs on the host")
 
     def merge(self, *args, ignore_index=False, file_name="merged", save_as_paths=False) -> "TableDict":
         """Concatenate several TableDicts column-wise per experiment. Where
@@ -291,8 +335,7 @@ class TableDict(dict):
 
         x_train, x_test, test_index = self.get_training_set(table_temp, test_videos)
         for part in (x_train, x_test):
-            part._device_frames = {k: table_temp._device_frames[k] for k in part.keys()}
-            part._deferred_f32 = {k: table_temp._deferred_f32[k] for k in part.keys()}
+            table_temp._keep_frames(part)
         metainfo = {"dist_standardize": dist_standardize, "speed_standardize": speed_standardize,
                     "coord_standardize": coord_standardize}
         if not return_windows:
@@ -355,10 +398,7 @@ class TableDict(dict):
                 return None
             live_bytes += 2 * x.numel() * 4
             if live_bytes > DEVICE_SCALE_BUDGET_BYTES:
-                raise NotImplementedError(
-                    f"the scaling pass would hold {live_bytes} bytes on the device, over its "
-                    f"{DEVICE_SCALE_BUDGET_BYTES} budget; that takes {BUDGETS}"
-                )
+                return None
             xs, cnt, sm = stage12(x.to(torch.float32), plan, sizes)
             pend[key] = (xs, *column_totals(cnt, sm))
 
@@ -373,7 +413,7 @@ class TableDict(dict):
         vectors = _global_scaler_vectors(global_scaler, plan)
         if vectors is None:
             return None
-        outs = {key: (finish(pend.pop(key)[0], vectors, plan), plan["columns"]) for key in list(pend)}
+        outs = ((key, finish(pend.pop(key)[0], vectors, plan), plan["columns"]) for key in list(pend))
         return self._scaled_dict(outs), global_scaler
 
     def _preprocess_scale_general(
@@ -382,13 +422,16 @@ class TableDict(dict):
         dist_standardize, speed_standardize, coord_standardize,
     ):
         """The JAX package's host passes (table_dict.py:284-473), in float64
-        on the tables' device. Pass 1 scales each recording locally and
+        on the tables' device, recording by recording (a host table is
+        uploaded when it is read). Pass 1 scales each recording locally and
         collects the global fit's samples (every taken row); pass 2 fits the
         global section scalers; pass 3 applies them, clips and
-        re-interpolates. The local scaling of pass 1 is kept for pass 3
-        within the device budget (without ``filter_low_variance``, whose
-        columns pass 3 reinstates as zeros). Returns (table_temp,
-        global_scaler); all-NaN tables are dropped."""
+        re-interpolates, and each finished frame goes to ``_scaled_dict``
+        before the next is made. The local scaling of pass 1 is kept for
+        pass 3 within ``DEVICE_SCALE_BUDGET_BYTES`` (without
+        ``filter_low_variance``, whose columns pass 3 reinstates as zeros),
+        and made again past it. Returns (table_temp, global_scaler); all-NaN
+        tables are dropped."""
         modes = dict(dist_standardize=dist_standardize, speed_standardize=speed_standardize)
         samples = {"speed": [], "dist": [], "coord": [], "inner": [], "intra": []}
         fit = bool(scale) and pretrained_scaler is None
@@ -434,43 +477,51 @@ class TableDict(dict):
         )
         finish_args = (global_scaler if scale else None, scale, interpolate_normalized,
                        speed_standardize, dist_standardize, coord_standardize)
-        outs = {}
-        for key in valid:
-            x, columns = self._table(key, device)
-            local = cache.pop(key, None)
-            if local is None:
-                x = _take_rows(x, bin_info[key]).to(torch.float64)
-                if filter_low_variance:
-                    outs[key] = (_finish_filtered(x, columns, filter_low_variance, animal_ids,
-                                                  log_distances, finish_args), columns)
-                    continue
-                local = scale_table(x, columns, scale, animal_ids, coord_standardize=None,
-                                    log_distances=log_distances, **modes) if scale else x
-            outs[key] = (finish_general(local, columns, *finish_args), columns)
-        return self._scaled_dict(outs, keep64=True), global_scaler
+        def finished():
+            for key in valid:
+                x, columns = self._table(key, device)
+                local = cache.pop(key, None)
+                if local is None:
+                    x = _take_rows(x, bin_info[key]).to(torch.float64)
+                    if filter_low_variance:
+                        yield key, _finish_filtered(x, columns, filter_low_variance, animal_ids,
+                                                    log_distances, finish_args), columns
+                        continue
+                    local = scale_table(x, columns, scale, animal_ids, coord_standardize=None,
+                                        log_distances=log_distances, **modes) if scale else x
+                yield key, finish_general(local, columns, *finish_args), columns
 
-    def _scaled_dict(self, outs: Dict[str, tuple], keep64: bool = False) -> "TableDict":
-        """The scaled frames ({key: (frame, columns)}) as a TableDict of
-        LazyFrames: each frame float32 on the device (``_device_frames``,
-        ``_deferred_f32``), and where ``keep64`` (the general route) also
-        the float64 frame, which the host views read."""
+        return self._scaled_dict(finished(), keep64=True), global_scaler
+
+    def _scaled_dict(self, outs, keep64: bool = False) -> "TableDict":
+        """The scaled frames ((key, frame, columns), each taken as it comes)
+        as a TableDict of LazyFrames. A frame is kept on the device, float32
+        (``_device_frames``, ``_deferred_f32``) and, where ``keep64`` (the
+        general route), float64 beside it for the host views, while the
+        frames kept there stay within ``DEVICE_FRAMES_BYTES`` (each frame
+        that fits is kept, as the JAX package's table_dict.py:771-813
+        pins them); a frame that does not fit is copied to the host, its
+        float32 copy in ``_host_f32`` for windowing and serving, and
+        dropped from the device."""
         table_temp = self.new_dict_same_header({})
-        dev_frames, deferred = {}, {}
-        frames_bytes = 0
-        for key, (out, columns) in outs.items():
+        dev_frames, deferred, host_f32 = {}, {}, {}
+        budget = DEVICE_FRAMES_BYTES
+        for key, out, columns in outs:
             out32 = out.to(torch.float32)
-            frames_bytes += out32.numel() * 4 + (out.numel() * 8 if keep64 else 0)
-            if frames_bytes > DEVICE_FRAMES_BYTES:
-                raise NotImplementedError(
-                    f"the scaled frames would hold {frames_bytes} bytes on the device, over "
-                    f"their {DEVICE_FRAMES_BYTES} budget; that takes {BUDGETS}"
-                )
-            holder = _DeferredScaledFrame(out32, out if keep64 else None)
-            dev_frames[key] = out32
+            nbytes = out32.numel() * 4 + (out.numel() * 8 if keep64 else 0)
+            if nbytes <= budget:
+                budget -= nbytes
+                holder = _DeferredScaledFrame(out32, out if keep64 else None)
+                dev_frames[key] = out32
+            else:
+                host_f32[key] = out32.cpu().numpy()
+                holder = _DeferredScaledFrame(None, host=out.cpu().numpy() if keep64 else host_f32[key])
             deferred[key] = holder
             table_temp[key] = LazyFrame(holder.host, columns, int(out.shape[0]))
+            del out, out32  # a host-kept frame leaves the device before the next one is made
         table_temp._device_frames = dev_frames
         table_temp._deferred_f32 = deferred
+        table_temp._host_f32 = host_f32
         return table_temp
 
     # ------------------------------------------------------------------ #
@@ -537,19 +588,149 @@ class TableDict(dict):
 _META_ORDER = ("shape_train", "shape_test", "dist_standardize", "speed_standardize", "coord_standardize")
 
 
+def _pairwise_kernel(x: torch.Tensor, y: torch.Tensor, kernel: str, gamma: float) -> torch.Tensor:
+    """sklearn's ``pairwise_kernels(x, y, metric=kernel, gamma=gamma)`` at
+    its defaults (degree 3, coef0 1), in its order of operations; ``y is
+    x`` zeroes the rbf distances' diagonal, as sklearn does for one input."""
+    if kernel == "cosine":
+        def unit(a):
+            norm = torch.sqrt((a * a).sum(dim=1))
+            return a / torch.where(norm == 0, torch.ones_like(norm), norm)[:, None]
+        return unit(x) @ unit(y).T
+    if kernel == "rbf":
+        xx, yy = (x * x).sum(dim=1), (y * y).sum(dim=1)
+        d = -2 * (x @ y.T) + xx[:, None] + yy[None, :]
+        d = d.clamp_min(0)
+        if y is x:
+            d.fill_diagonal_(0)
+        return torch.exp(d * -gamma)
+    k = x @ y.T
+    if kernel == "linear":
+        return k
+    if kernel == "poly":
+        return (k * gamma + 1) ** 3
+    if kernel == "sigmoid":
+        return torch.tanh(k * gamma + 1)
+    raise ValueError(f"Unknown kernel {kernel!r}: use one of {KERNELS}")
+
+
+class Projection:
+    """A fitted projection, in place of the sklearn estimator that the JAX
+    package's ``random_projection`` / ``pca`` return: ``kind`` ("random" or
+    "pca"), its float64 matrices on the fit's device, and :meth:`transform`
+    for new rows. ``random``: ``components`` (n_components, F). ``pca``: the
+    training rows ``x_fit``, the kernel's centring terms, ``eigenvalues``
+    and ``eigenvectors`` (sklearn's names without the trailing underscore)
+    and ``fitted``, the training rows' projection."""
+
+    def __init__(self, kind: str, **state):
+        self.kind = kind
+        for name, value in state.items():
+            setattr(self, name, value)
+
+    @classmethod
+    def random(cls, n_components: int, n_features: int, device) -> "Projection":
+        """sklearn's ``GaussianRandomProjection(n_components).fit``: N(0,
+        1 / n_components) entries drawn by numpy's global state."""
+        if n_components <= 0 or n_features <= 0:
+            raise ValueError(f"n_components ({n_components}) and n_features ({n_features}) must be positive")
+        if n_components > n_features:
+            warnings.warn(
+                "The number of components is higher than the number of features: n_features < "
+                f"n_components ({n_features} < {n_components}).The dimensionality of the problem will "
+                "not be reduced."
+            )
+        comp = np.random.normal(loc=0.0, scale=1.0 / np.sqrt(n_components), size=(n_components, n_features))
+        return cls("random", n_components=n_components, components=torch.as_tensor(comp, device=device))
+
+    @classmethod
+    def kernel_pca(cls, x: torch.Tensor, n_components: int, kernel: str = "linear") -> "Projection":
+        """sklearn's ``KernelPCA(n_components, kernel=kernel).fit_transform``
+        with its dense solver (sklearn takes ARPACK past 200 rows at fewer
+        than 10 components; the port is exact at every size): the kernel
+        centred as ``KernelCenterer``, every eigenpair from
+        ``torch.linalg.eigh`` and the top ``n_components`` kept,
+        ``_check_psd_eigenvalues``, ``svd_flip``'s signs, the descending
+        order of ``argsort()[::-1]``, then eigenvectors * sqrt(eigenvalues)."""
+        if kernel not in KERNELS:
+            raise ValueError(f"Unknown kernel {kernel!r}: use one of {KERNELS}")
+        if not bool(torch.isfinite(x).all()):
+            raise ValueError("Input X contains NaN or infinity.")
+        n = x.shape[0]
+        gamma = 1.0 / x.shape[1]
+        k = _pairwise_kernel(x, x, kernel, gamma)
+        fit_rows = k.sum(dim=0) / n
+        fit_all = fit_rows.sum() / n
+        k = k - fit_rows - (k.sum(dim=1) / n)[:, None] + fit_all
+        n_comp = min(n, n_components)
+        values, vectors = torch.linalg.eigh(k)
+        values = _check_psd_eigenvalues(values[n - n_comp:].cpu().numpy())
+        vectors = vectors[:, n - n_comp:]
+        # svd_flip: each column's largest |entry| made positive.
+        pivot = vectors.abs().argmax(dim=0)
+        vectors = vectors * torch.sign(vectors[pivot, torch.arange(n_comp, device=vectors.device)])
+        order = values.argsort()[::-1].copy()
+        values = values[order]
+        vectors = vectors[:, torch.as_tensor(order, device=vectors.device)]
+        eigenvalues = torch.as_tensor(values, device=vectors.device)
+        return cls("pca", n_components=n_components, kernel=kernel, gamma=gamma, x_fit=x, fit_rows=fit_rows,
+                   fit_all=fit_all, eigenvalues=eigenvalues, eigenvectors=vectors,
+                   fitted=vectors * torch.sqrt(eigenvalues))
+
+    def transform_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "random":
+            return x @ self.components.T
+        k = _pairwise_kernel(x, self.x_fit, self.kernel, self.gamma)
+        k = k - self.fit_rows - (k.sum(dim=1) / self.fit_rows.shape[0])[:, None] + self.fit_all
+        nonzero = self.eigenvalues != 0
+        alphas = torch.where(nonzero, self.eigenvectors / torch.sqrt(self.eigenvalues), 0.0)
+        return k @ alphas
+
+    def transform(self, x) -> np.ndarray:
+        """(n, F) rows (numpy or tensor) -> (n, n_components) numpy, float64,
+        computed on the fit's device."""
+        ref = self.components if self.kind == "random" else self.x_fit
+        x = torch.as_tensor(np.asarray(x, np.float64)) if not isinstance(x, torch.Tensor) else x
+        return self.transform_tensor(x.to(device=ref.device, dtype=torch.float64)).cpu().numpy()
+
+
+def _check_psd_eigenvalues(values: np.ndarray) -> np.ndarray:
+    """sklearn's ``_check_psd_eigenvalues`` on float64 eigenvalues, its
+    warnings off: raise where they are not PSD, zero the small negative and
+    the badly conditioned ones."""
+    values = np.array(values, np.float64)
+    max_eig = values.max()
+    if max_eig < 0:
+        raise ValueError(
+            f"All eigenvalues are negative (maximum is {max_eig:g}). Either the matrix is not PSD, or "
+            "there was an issue while computing the eigendecomposition of the matrix.")
+    min_eig = values.min()
+    if min_eig < -1e-5 * max_eig and min_eig < -1e-10:
+        raise ValueError(
+            f"There are significant negative eigenvalues ({-min_eig / max_eig:g} of the maximum positive). "
+            "Either the matrix is not PSD, or there was an issue while computing the eigendecomposition "
+            "of the matrix.")
+    values[values < 0] = 0
+    values[(0 < values) & (values < 1e-12 * max_eig)] = 0
+    return values
+
+
 class _DeferredScaledFrame:
     """A scaled (T, F) frame on the device, float32 (``dev``, what the
     window kernel and the encoder read), with the float64 frame it was cast
     from where the general route made it (``dev64``); fetched to the host
     once, on first host access, in the finer of the two, and shared by every
-    lazy host view of it."""
+    lazy host view of it. A frame kept on the host past the frames budget
+    has no device tensor and holds that host copy (``host``) from the
+    start."""
 
     __slots__ = ("dev", "dev64", "_host")
 
-    def __init__(self, dev: torch.Tensor, dev64: Optional[torch.Tensor] = None):
+    def __init__(self, dev: Optional[torch.Tensor], dev64: Optional[torch.Tensor] = None,
+                 host: Optional[np.ndarray] = None):
         self.dev = dev
         self.dev64 = dev64
-        self._host = None
+        self._host = host
 
     def host(self) -> np.ndarray:
         if self._host is None:

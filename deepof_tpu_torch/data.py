@@ -40,6 +40,7 @@ from deepof_tpu_torch.device import resolve_device, to_device, working_dtype
 from deepof_tpu_torch.io.conditions import load_exp_conditions, load_start_markers
 from deepof_tpu_torch.io.readers import RawTable, load_table, natural_sorted
 from deepof_tpu_torch.ops.alignment import align_trajectories
+from deepof_tpu_torch.ops import imputation
 from deepof_tpu_torch.ops.geometry import point_in_polygon
 from deepof_tpu_torch.ops.interp import masked_linear_interpolate
 from deepof_tpu_torch.ops.kinematics import (
@@ -313,10 +314,6 @@ def _first_value(table, name):
 # Project
 # --------------------------------------------------------------------------- #
 
-_FULL_IMPUTATION = (
-    'iterative_imputation="full" (Kalman/RTS smoothing, iterative ridge, skeleton '
-    "constraints) is not ported yet: ROADMAP queue 1 item 11"
-)
 _ARENA_DETECTION = (
     "arena detection and manual annotation (SAM, OpenCV) are not ported yet: ROADMAP "
     "queue 1 item 7; pass test=True for the fixed test arenas or arena_path for saved "
@@ -366,8 +363,6 @@ class Project:
     ):
         if precision not in ("auto", "float32", "float64"):
             raise ValueError(f"precision must be auto, float32 or float64, got {precision!r}")
-        if iterative_imputation == "full":
-            raise NotImplementedError(_FULL_IMPUTATION)
         resolve_device(device)
         self.device = device
         self.precision = precision
@@ -564,6 +559,8 @@ class Project:
                 3,  # lin_interp_limit (deepof/utils.py:230)
                 self._animal_slices, device=dev,
             )
+            if self.iterative_imputation == "full":
+                out_pos = self._full_imputation(out_pos, presence)
             pending.append((key, out_pos, presence, np.asarray(ordered.likelihood, dtype)))
 
         tab_dict, lik_dict, presence_dict = {}, {}, {}
@@ -573,6 +570,37 @@ class Project:
             lik_dict[key] = lik
         self._presence = presence_dict
         return tab_dict, lik_dict
+
+    def _full_imputation(self, pos: torch.Tensor, presence: torch.Tensor) -> torch.Tensor:
+        """Iterative ridge + Kalman/RTS + skeleton constraints for the gaps
+        that linear interpolation left (deepof_tpu/data.py:770-818), on
+        ``pos``'s device, in float32 whatever its dtype, written back in
+        place. Per animal, the block is its columns over the frames where
+        it is present; a block without NaN, of fewer than 2 frames or
+        without a complete frame is left as it is (the last with a
+        warning)."""
+        edges_all = [(int(i), int(j)) for i, j in self.body_graph.edges]
+        for ai, aid in enumerate(self.animal_ids):
+            lo, hi = self._animal_slices[ai]
+            rows = torch.nonzero(presence[:, ai]).flatten()
+            block = pos[rows, lo:hi]  # (Tp, Ba, 2)
+            if block.shape[0] < 2 or not bool(torch.isnan(block).any()):
+                continue
+            edges = [(i - lo, j - lo) for i, j in edges_all if lo <= i < hi and lo <= j < hi]
+            try:
+                constraints = imputation.estimate_skeleton_constraints(block, edges)
+            except ValueError:
+                warnings.warn(f"Animal {aid} has not enough data. Skipping full imputation.")
+                continue
+            original = torch.isfinite(block)
+            t_p, b_a, _ = block.shape
+            block32 = block.to(torch.float32)
+            imputed = imputation.iterative_ridge_impute(block32.reshape(t_p, -1)).reshape(t_p, b_a, 2)
+            imputed = torch.where(original, block32, imputed)
+            smoothed = torch.where(original, block32, imputation.kalman_rts_smooth(imputed))
+            constrained = imputation.enforce_skeleton_constraints(smoothed, constraints, original)
+            pos[rows, lo:hi] = constrained.to(pos.dtype)
+        return pos
 
     def get_arena(self, tables=None, arena_path: str = None, debug: bool = False,
                   test: bool = False, verbose: bool = False, load_also_rois: bool = False):
@@ -675,6 +703,28 @@ class Project:
         if verbose:
             print("Done!")
         return coordinates
+
+    def scale_tables(self, tab_dict: dict) -> dict:
+        """Pixel tables -> mm with the arena scales (deepof_tpu/data.py:945),
+        each table multiplied on the project's device in its own dtype: a
+        numpy table comes back as numpy, a tensor stays on its device.
+        Needs the scales that :meth:`get_arena` (or ``create``) sets."""
+        scales = getattr(self, "scales", None)
+        if scales is None:
+            raise ValueError(
+                "run get_arena() (or create()) before scale_tables(): per-video "
+                "px->mm scales are produced by arena detection"
+            )
+        dev = resolve_device(self.device)
+        out = {}
+        for key, tab in tab_dict.items():
+            ratio = scales[key][3] / scales[key][2]
+            if isinstance(tab, torch.Tensor):
+                out[key] = tab * ratio
+            else:
+                arr = np.asarray(tab)
+                out[key] = (torch.as_tensor(arr, device=dev) * ratio).cpu().numpy()
+        return out
 
     def extend(self, project_to_extend: str, video_path: str = None, table_path: str = None,
                verbose: bool = True, debug: bool = False, test: bool = False) -> "Coordinates":

@@ -8,7 +8,8 @@ per-column modes) builds each recording's merged frame in one device
 program (``Coordinates.merged_graph_features_device``). The other lane runs
 the getters' device route (arena-centred, aligned coordinates, speeds,
 angles, skeleton-edge distances, for the selected animal) and merges their
-tables on the device. Either way ``TableDict.preprocess`` scales the frames
+tables on the device; a ``precomputed_tab_dict`` takes the place of those
+tables. Either way ``TableDict.preprocess`` scales the frames
 where they lie, and windows exist on the host only when a caller reads the
 returned training tensors.
 """
@@ -22,8 +23,6 @@ from deepof_tpu_torch.core.storage import PATHS_MODE, LazyWindows
 from deepof_tpu_torch.core.table_dict import TableDict, _device_lazy, _device_scale_applicable
 from deepof_tpu_torch.device import resolve_device
 from deepof_tpu_torch.ops.windows import rolling_windows_host
-
-PRECOMPUTED = "precomputed_tab_dict graph datasets are not ported yet: ROADMAP queue 1 item 4"
 
 
 def reorder_and_reshape(data: np.ndarray) -> np.ndarray:
@@ -125,8 +124,6 @@ def get_graph_dataset(
         return_as_paths = coordinates._very_large_project
     if return_as_paths:
         raise NotImplementedError(PATHS_MODE)
-    if precomputed_tab_dict is not None:
-        raise NotImplementedError(PRECOMPUTED)
     if window_size is None:
         window_size = int(np.round(coordinates._frame_rate))
     window_step = int(kwargs.pop("window_step", 1))
@@ -135,7 +132,7 @@ def get_graph_dataset(
         raise NotImplementedError("preprocess=False graph datasets are not yet supported.")
     binned = bin_size is not None or bin_index is not None or precomputed_bins is not None
     fused = (
-        animal_id is None and not polar and align is None and not binned
+        precomputed_tab_dict is None and animal_id is None and not polar and align is None and not binned
         and _device_scale_applicable(
             scale, kwargs.get("filter_low_variance", False),
             dist_standardize, speed_standardize, coord_standardize,
@@ -151,6 +148,13 @@ def get_graph_dataset(
         tab_dict._device_frames = frames
         tab_dict._fused_lane = True
         angle_names = [tuple(b) for b in coordinates._bridge_names]
+    elif precomputed_tab_dict is not None:
+        # graph_dataset.py:109-115: the caller's merged tables, the angle
+        # labels read from the first recording's getter.
+        tab_dict = precomputed_tab_dict
+        first_key = next(iter(tab_dict))
+        angle_names = list(coordinates.get_angles_at_key(first_key, selected_id=animal_id, _device=True)[1])
+        feature_names = list(tab_dict[first_key].columns)
     else:
         tab_dict, angle_names = _getter_tables(coordinates, animal_id, align, polar, include_angles, device)
         feature_names = tab_dict[next(iter(tab_dict))].columns
@@ -187,6 +191,7 @@ def get_graph_dataset(
         tab_dict._scaled_device = {
             k: v for part in to_preprocess for k, v in part._device_frames.items()
         }
+        tab_dict._scaled_host = {k: v for part in to_preprocess for k, v in part._host_f32.items()}
         tab_dict._scaled_scaler = global_scaler
         tab_dict._scaled_sig = (scale, dist_standardize, speed_standardize, coord_standardize, samples_max)
 

@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cuda")
-SOURCES = ("window_gather", "gru_scan", "gru_scan_bwd", "hmm_scan")
+SOURCES = ("window_gather", "gru_scan", "gru_scan_bwd", "hmm_scan", "kalman_rts")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -177,7 +177,8 @@ def embedding_per_video(
         coordinates: the project's Coordinates.
         to_preprocess: the merged TableDict that ``get_graph_dataset``
             returns (its fourth item), from either of its lanes: each
-            recording's scaled frame is read on the device.
+            recording's scaled frame is read on the device, or uploaded
+            from the host where it was kept there past the frames budget.
         model: a ModelBundle whose ``rebuild_spec`` names the model, its
             input shape and ``use_angles``: one that ``train_deepof_model``
             returned, one ``ModelBundle.load`` read, or one built by hand.
@@ -228,6 +229,7 @@ def embedding_per_video(
     ):
         scaled_tables = to_preprocess._scaled_frames
         device_tables = to_preprocess._scaled_device
+        host_tables = getattr(to_preprocess, "_scaled_host", None) or {}
     else:
         processed, _, _ = to_preprocess.preprocess(
             coordinates=coordinates, scale=scale, window_size=window_size, window_step=1,
@@ -237,14 +239,21 @@ def embedding_per_video(
         )
         scaled_tables = processed[0]
         device_tables = scaled_tables._device_frames
+        host_tables = scaled_tables._host_f32
 
     use_angles = bool(model.rebuild_spec.get("use_angles"))
     pending = {}
     for key in to_preprocess.keys():
         if key not in scaled_tables.keys():
             continue  # all-NaN tables are dropped by preprocess
-        if key not in device_tables:
-            raise ValueError(f"recording {key!r} has no scaled frame on the device to embed")
+        # A frame kept on the host past the frames budget is uploaded for
+        # its own forward; the upload is dropped when the forward returns
+        # (deepof_tpu/train/inference.py:394-406).
+        feats = device_tables.get(key)
+        if feats is None:
+            feats = host_tables.get(key)
+            if feats is None:
+                feats = np.asarray(get_dt(scaled_tables, key), np.float32)
         all_cols = list(get_dt(scaled_tables, key, only_metainfo=True)["columns"])
         node_cols = meta_info.get("node_columns")
         if node_cols is not None:
@@ -264,7 +273,7 @@ def embedding_per_video(
                 "angle": None,
             }
         pending[key] = scanned_windowed_forward(
-            model, device_tables[key], layout, window_size, model_name,
+            model, feats, layout, window_size, model_name,
             block=batch_size, device=dev, fetch=False,
         )
 

@@ -440,9 +440,19 @@ def test_tutorial_trains_a_vade_and_serves(cohort, general_builds):
     for key in KEYS:
         assert np.isfinite(emb[key]).all()
         np.testing.assert_allclose(counts[key].sum(axis=1), 1.0, atol=1e-5)
-    del tab._scaled_device["test3"]
-    with pytest.raises(ValueError, match="no scaled frame on the device"):
-        embedding_per_video(p_coords, tab, bundle, meta, global_scaler=scaler)
+    # A recording whose scaled frame is not on the device (kept on the host
+    # past the frames budget) is uploaded from its host frame and embedded.
+    frame = tab._scaled_device.pop("test3")
+    tab._scaled_host["test3"] = frame.numpy()
+    emb2, counts2 = embedding_per_video(p_coords, tab, bundle, meta, animal_id="B", global_scaler=scaler,
+                                        batch_size=64)
+    for key in KEYS:
+        np.testing.assert_array_equal(emb2[key], emb[key])
+        np.testing.assert_array_equal(counts2[key], counts[key])
+    del tab._scaled_host["test3"]  # no host copy either: the table's float64 frame, cast
+    emb3, _ = embedding_per_video(p_coords, tab, bundle, meta, animal_id="B", global_scaler=scaler, batch_size=64)
+    np.testing.assert_array_equal(emb3["test3"], emb["test3"])
+    tab._scaled_device["test3"] = frame
 
 
 # --------------------------------------------------------------------------- #
@@ -522,8 +532,19 @@ def test_merge_filter_id_and_filter_condition_match_jax(cohort):
         assert only_b[key].columns == [c for c in merged[key].columns
                                       if c in set(jutils.filter_columns(merged[key].columns, "B"))]
         assert only_b._device_frames[key].shape[1] == len(only_b[key].columns)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    # The projections: NaN in the tables (absent animals) is refused by both
+    # packages; on the tables with NaN set to 0, the JAX package's kernel PCA.
+    j_merged = j_coords.get_coords(center="arena").merge(j_coords.get_distances())
+    with pytest.raises(ValueError, match="NaN"):
         merged.pca()
+    with pytest.raises(ValueError, match="NaN"):
+        j_merged.pca()
+    merged._device_frames = {k: torch.nan_to_num(v, nan=0.0) for k, v in merged._device_frames.items()}
+    j_filled = jtd.TableDict({k: j_merged[k].fillna(0.0) for k in KEYS}, typ="merged")
+    got, proj = merged.pca()
+    want, _ = j_filled.pca()
+    assert got.shape == (len(KEYS), 2) and proj.kind == "pca"
+    _close(got, want, TOL64)
 
 
 @pytest.mark.parametrize("provided", [False, True], ids=["random_block", "time_bins"])

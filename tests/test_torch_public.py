@@ -341,9 +341,9 @@ def test_unequal_lengths_raise(tmp_path, monkeypatch):
 
 
 def test_full_imputation_and_arena_detection_raise(tmp_path):
+    """Arena detection is not ported (full imputation is since; its tests
+    are in tests/test_torch_imputation.py)."""
     root = write_project(tmp_path, "csv")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Project(**_project_args(root, "csv"), iterative_imputation="full", device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         Project(**_project_args(root, "csv"), device="cpu").create(verbose=False)
 

@@ -495,6 +495,36 @@ def test_cluster_sums_add_rows_in_order(rows, k, dtype):
         torch.set_num_threads(threads)
 
 
+@pytest.mark.parametrize("rows,k,d", [(3_528, 200, 8), (700, 10, 3)])
+def test_kmeans_distances_sum_feature_by_feature(rows, k, d, monkeypatch):
+    """The labels' ``|c|^2 - 2 x.c`` and the inertia's squared distances are
+    float32 products and sums taken feature by feature, in order, in
+    elementwise operations, which round alike on every device, chunked or
+    not: numpy's float32 scalars of the same sequence give the same bits. (A
+    matrix product sums in its library's order: on the MSM decoder's 200
+    microstates the card and the CPU then split near-ties, and their
+    macrostates parted on some fits.)"""
+    rng = np.random.default_rng(rows)
+    x = rng.normal(size=(rows, d)).astype(np.float32)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    cn = c[:, 0] * c[:, 0]
+    xc = x[:, :1] * c[:, 0][None]
+    for j in range(1, d):
+        cn = cn + c[:, j] * c[:, j]
+        xc = xc + x[:, j:j + 1] * c[:, j][None]
+    want = (cn[None] - np.float32(2) * xc).argmin(1)
+    monkeypatch.setattr(cluster, "_ROWS", 256)
+    got = cluster._labels(torch.as_tensor(x), torch.as_tensor(c))
+    np.testing.assert_array_equal(got.numpy(), want)
+    diff = x - c[want]
+    per_row = diff[:, 0] * diff[:, 0]
+    for j in range(1, d):
+        per_row = per_row + diff[:, j] * diff[:, j]
+    inertia = cluster._inertia(torch.as_tensor(x), torch.as_tensor(c), got)
+    assert inertia.dtype == torch.float32
+    assert float(inertia) == np.float32(per_row.astype(np.float64).sum())
+
+
 # --------------------------------------------------------------------------- #
 # MSM + PCCA+
 # --------------------------------------------------------------------------- #
