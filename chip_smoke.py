@@ -71,10 +71,12 @@
    calls on the full project, the second timed, with its peak device
    memory, its host reads and its 33 columns checked.
 7. Training: the GRU layer's backward kernel (csrc/gru_scan_bwd.cu, through
-   ``gru_scan_backward``) held against ``gru_scan_backward_plain`` from the
-   carries the forward kernel stores, at every GRU shape of a training step
-   at batch 256 (the encoder's node and edge layers, the decoder's two under
-   frame-validity masks), a ragged B, H = 128 and T = 120, and timed there
+   ``gru_scan_backward``: dx and the weight and bias gradients, formed in
+   the kernel) held against ``gru_scan_backward_plain`` from the carries
+   the forward kernel stores, at every GRU shape of a training step at
+   batch 256 (the encoder's node and edge layers, the decoder's two under
+   frame-validity masks), a ragged B, H = 128 and T = 120, two calls equal
+   bit for bit, the launch plan logged; timed at the training shapes
    against its bound, its plain version and cuDNN's ``nn.GRU`` forward +
    backward; one train step card vs CPU (loss and every gradient) from the
    same weights and batch; the step's GRU launches (8 forward, 8 backward),
@@ -139,11 +141,13 @@
    package's outputs (tests/data/vade_reference.npz, written by
    scripts/make_torch_reference.py): embeddings and soft counts within
    1e-5, the count of differing hard labels reported.
-11. Soft counts: the HMM recursion kernel (csrc/hmm_scan.cu, ``hmm_scan``)
-   held against ``hmm_scan_plain`` on the card at K 2-32, N 1-24, T 1-1000
-   and at the cohort's (3, 26,976, 10) (the long-sequence rule: 1e-4 of
-   max(1, |value|), gamma's difference reported), timed there and at the
-   lab cohort's (24, 45,000, 10) against its bound; then on the cohort,
+11. Soft counts: the HMM recursion kernel (csrc/hmm_scan.cu, ``hmm_scan``,
+   a chunked parallel-in-time scan) held against ``hmm_scan_plain`` on the
+   card at K 2-32, N 1-24, T 1-1000, at T 5,000 (~100 chunks; against the
+   plain version in float64) and at the cohort's (3, 26,976, 10) (the
+   long-sequence rule: 1e-4 of max(1, |value|), gamma's difference
+   reported), timed there and at the lab cohort's (24, 45,000, 10) against
+   its bound, the chunk plans logged; then on the cohort,
    each call from a reset of the kernels' counts, ``embedding_per_video``
    with ``softcounts_extraction_method`` "gmm", "msm", "hmm" and
    "combined" at their defaults (shapes, rows summing to 1, hmm_scan
@@ -297,9 +301,10 @@ WINDOW_TOL = 1e-6
 GRU_TOL = 2e-5
 # GRU backward: the kernel recomputes the gates with the forward's SFU
 # exponentials (~1e-7 off), sums its recurrent products in another order
-# than the plain version's matmuls and carries dh over 25 steps; the
-# wrapper's products then sum up to B*T = 204,800 terms. Bar: max |diff|
-# <= 1e-4 * max(1, max |plain|) for each gradient tensor.
+# than the plain version's matmuls and carries dh over 25 steps; its weight
+# gradients then sum up to B*T = 204,800 terms (each CTA's in its own
+# order, then the CTAs' partials). Bar: max |diff| <= 1e-4 * max(1, max
+# |plain|) for each gradient tensor.
 GRU_BWD_RTOL = 1e-4
 # One train step, card vs CPU (float32 both, same weights and batch): the
 # loss at 1e-4 relative; each parameter's gradient at 1e-3 of its own max
@@ -1114,12 +1119,13 @@ def _gru_train_inputs(torch, g, dev, b, t, f, h, d, mask_kind, full=False):
 
 
 def _check_backward(torch):
-    """Phase 7a: the GRU backward kernel (through ``gru_scan_backward``, the
-    kernel and the wrapper's gradient products) against
-    ``gru_scan_backward_plain`` on the card, from the carries the forward
-    kernel stored, at every training shape, a ragged B with one reverse
-    direction, the widest H and a longer T. Returns (max abs error, max
-    error relative to each tensor's max(1, max |plain|))."""
+    """Phase 7a: the GRU backward kernel (through ``gru_scan_backward``: the
+    kernel forms dx and the weight and bias gradients, no matrix product
+    follows it) against ``gru_scan_backward_plain`` on the card, from the
+    carries the forward kernel stored, at every training shape, a ragged B
+    with one reverse direction, the widest H and a longer T; a second call
+    equal bit for bit. Returns (max abs error, max error relative to each
+    tensor's max(1, max |plain|))."""
     from deepof_tpu_torch.ops.gru_kernels import (
         gru_scan_backward, gru_scan_backward_plain, gru_scan_bwd_config, gru_scan_carries,
     )
@@ -1128,10 +1134,11 @@ def _check_backward(torch):
     g = torch.Generator().manual_seed(2)
     cases = [(b, WINDOW, f, h, 2, outputs, kind) for b, f, h, outputs, kind in GRU_TRAIN_SHAPES] + [
         (777, WINDOW, 13, 12, 1, True, "prefix"),    # ragged B, one reverse direction, F % 4 != 0
-        (3001, WINDOW, 128, 128, 2, True, "prefix"),  # widest H: a group spans warps
-        (301, 120, 16, 16, 2, True, "random"),        # longer T
+        (3001, WINDOW, 128, 128, 2, True, "prefix"),  # widest H: a group spans warps, the weight
+                                                      # gradients in global partials, dx partials
+        (301, 120, 16, 16, 2, True, "random"),        # longer T: walks in chunks, dx partials
     ]
-    names = ("dG", "dHn", "dx", "dW_i", "db_i", "dW_h", "db_hn")
+    names = ("dx", "dW_i", "db_i", "dW_h", "db_hn")
     abs_err = rel_err = 0.0
     for b, t, f, h, d, outputs, kind in cases:
         x, mask, w = _gru_train_inputs(torch, g, dev, b, t, f, h, d, kind)
@@ -1145,17 +1152,22 @@ def _check_backward(torch):
         # The decoder's layers get no gradient of their final carries.
         d_fin = torch.randn(b, d * h, generator=g).to(dev) if kind == "prefix" else None
         got = gru_scan_backward(x, mask, *w, reverse, hs, d_out, d_fin)
+        again = gru_scan_backward(x, mask, *w, reverse, hs, d_out, d_fin)
         want = gru_scan_backward_plain(x, mask, *w, reverse, hs, d_out, d_fin)
-        if got[0][~mask].any() or got[1][~mask].any():
-            _fail("gru_scan_backward wrote gate gradients at masked steps")
+        if len(got) != len(names) or any(a.shape != p.shape for a, p in zip(got, want)):
+            _fail(f"gru_scan_backward returned {[tuple(a.shape) for a in got]}, want "
+                  f"{[tuple(p.shape) for p in want]}")
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            _fail(f"two gru_scan_backward calls on the same inputs differ at B={b} T={t} F={f} H={h} D={d}")
         errs = {}
         for name, a, p in zip(names, got, want):
             err = (a - p).abs().max().item()
             errs[name] = err / max(1.0, p.abs().max().item())
             abs_err = max(abs_err, err)
-        _log(f"gru_scan_backward B={b} T={t} F={f} H={h} D={d} outputs={outputs} mask={kind} "
-             f"{gru_scan_bwd_config(t, f, h, d)}: carries max|diff| {hs_err:.3e}; max|diff| / max(1, max|plain|) "
-             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {GRU_BWD_RTOL:.0e})")
+        plan = gru_scan_bwd_config(b, t, f, h, d)
+        _log(f"gru_scan_backward B={b} T={t} F={f} H={h} D={d} outputs={outputs} mask={kind} plan {plan}: "
+             f"carries max|diff| {hs_err:.3e}; max|diff| / max(1, max|plain|) "
+             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {GRU_BWD_RTOL:.0e}); equal bits twice")
         if not max(errs.values()) <= GRU_BWD_RTOL:
             _fail(f"gru_scan_backward disagrees with its plain version: {errs}")
         rel_err = max(rel_err, max(errs.values()))
@@ -1165,24 +1177,25 @@ def _check_backward(torch):
 
 def _gru_bwd_cost(b, t, f, h, d, outputs, with_dfin, valid):
     """(bytes, FP32 FLOP) of ``gru_scan_backward``: x, mask, the carries,
-    the output and final-carry gradients and the weights read once; dG,
-    dHn, dx and the weight gradients written once; per valid stream-step
-    and direction the recomputed projections 6H(F + H), the carry gradient
-    6H^2 and ~20H of gate algebra, and over all B*T rows the products for
-    dx, dW_i (2 * 3H * F each a direction) and dW_h (2 * 3H * H)."""
+    the output and final-carry gradients and the weights read once; dx and
+    the weight and bias gradients written once; per valid stream-step and
+    direction the recomputed projections 6H(F + H), the carry gradient
+    6H^2 and ~20H of gate algebra, and the products for dx and dW_i (6HF
+    each) and dW_h (6H^2). The gate gradients dG and dHn stay in the
+    kernel and are no output."""
     n_w = d * (f * 3 * h + 3 * h + h * 3 * h + h)
     n_in = b * t * f + b * t * d * h + (b * t * d * h if outputs else 0) + (b * d * h if with_dfin else 0) + n_w
-    n_out = b * t * d * 4 * h + b * t * f + n_w
-    flop = valid * d * (6 * h * (f + h) + 6 * h * h + 20 * h) + b * t * d * (12 * h * f + 6 * h * h)
+    n_out = b * t * f + n_w
+    flop = valid * d * (6 * h * (f + h) + 6 * h * h + 20 * h + 12 * h * f + 6 * h * h)
     return 4 * (n_in + n_out) + b * t, flop
 
 
 def _time_backward(torch, g, b, f, h, outputs, kind):
-    """The GRU layer's backward at one training shape: the wrapper (kernel +
-    gradient products), its products alone, the plain version, the layer's
-    forward + backward through autograd (the training launch, then the
-    wrapper) and cuDNN's ``nn.GRU`` forward + backward (yardstick, never
-    called by the port), and the wrapper's bound."""
+    """The GRU layer's backward at one training shape: the wrapper (the W_h
+    transpose, the kernel and its reduction), the plain version, the
+    layer's forward + backward through autograd (the training launch, then
+    the wrapper) and cuDNN's ``nn.GRU`` forward + backward (yardstick,
+    never called by the port), and the wrapper's bound."""
     from deepof_tpu_torch.ops import gru_kernels as gk
 
     dev = torch.device("cuda")
@@ -1191,7 +1204,6 @@ def _time_backward(torch, g, b, f, h, outputs, kind):
     _, fin, hs = gk.gru_scan_carries(x, mask, *w, reverse, outputs)
     d_out = torch.randn(b, WINDOW, d * h, generator=g).to(dev) if outputs else None
     d_fin = torch.randn(b, d * h, generator=g).to(dev) if kind == "prefix" else None
-    dg, dhn = gk.gru_scan_backward(x, mask, *w, reverse, hs, d_out, d_fin)[:2]
     leaves = [x.clone().requires_grad_()] + [v.clone().requires_grad_() for v in w]
 
     def port_fwd_bwd():
@@ -1212,9 +1224,8 @@ def _time_backward(torch, g, b, f, h, outputs, kind):
     res = {
         "shape": f"x ({b}, {WINDOW}, {f}) float32, H={h}, D={d}, outputs={outputs}, mask={kind}, "
                  f"final-carry gradient={d_fin is not None}",
-        "plan": gk.gru_scan_bwd_config(WINDOW, f, h, d),
+        "plan": gk.gru_scan_bwd_config(b, WINDOW, f, h, d),
         "ms": _cuda_ms(torch, lambda: gk.gru_scan_backward(x, mask, *w, reverse, hs, d_out, d_fin)),
-        "products_ms": _cuda_ms(torch, lambda: gk._gradient_products(x, w[0], hs, dg, dhn)),
         "plain_ms": _cuda_ms(torch, lambda: gk.gru_scan_backward_plain(x, mask, *w, reverse, hs, d_out, d_fin),
                              reps=3, warmup=1),
         "fwd_bwd_ms": _cuda_ms(torch, port_fwd_bwd),
@@ -2147,6 +2158,12 @@ SOFTCOUNT_METHODS = {"gmm": 30, "msm": 30, "hmm": 10, "combined": 40}
 # HMM_TOL of max(1, |value|): the same float32 recursions, the kernel's
 # max and sum as trees, its expf / logf against PyTorch's.
 HMM_CHECK = [(k, n, t) for k in (2, 10, 25, 32) for n in (1, 3, 24) for t in (1, 2, 1_000)]
+# Lengths of ~100 chunks a sequence, held at HMM_TOL against hmm_scan_plain
+# in float64: there the float32 sequential chain drifts past HMM_TOL from
+# float64 itself (~3e-5 of |value| at K 2, where the scan stays within
+# ~2e-6; tests/test_torch_hmm_chunks.py states the scan on the CPU); its
+# difference from the float32 plain version is reported.
+HMM_CHUNKED = [(k, n, 5_000) for k in (2, 10, 32) for n in (1, 24)]
 HMM_TOL = 1e-5
 # The cohort's shape, where |log alpha| reaches ~1e5 and one float32 ulp is
 # ~0.008: the long-sequence rule, 1e-4 of max(1, |value|); gamma's
@@ -2192,9 +2209,10 @@ def _hmm_errs(torch, got, want):
 def _check_time_hmm(torch):
     """hmm_scan against hmm_scan_plain on the card at HMM_CHECK and at the
     cohort's length, then timed at HMM_TIMED against its bound (its plain
-    version timed once, at the cohort's shape). Returns (max abs err, max
-    rel err, the long-sequence report, the timing of each shape)."""
-    from deepof_tpu_torch.ops.hmm_kernels import hmm_scan, hmm_scan_plain
+    version timed once, at the cohort's shape), each with its chunk plan.
+    Returns (max abs err, max rel err, the long-sequence report, the timing
+    of each shape)."""
+    from deepof_tpu_torch.ops.hmm_kernels import hmm_scan, hmm_scan_config, hmm_scan_plain
 
     g = torch.Generator().manual_seed(0)
     worst = (0.0, 0.0)
@@ -2204,8 +2222,17 @@ def _check_time_hmm(torch):
         torch.cuda.synchronize()
         errs = _hmm_errs(torch, got, hmm_scan_plain(*args))
         worst = (max(worst[0], errs[0]), max(worst[1], errs[1]))
-    _log(f"hmm_scan vs plain at {len(HMM_CHECK)} shapes (K 2-32, N 1-24, T 1-1000): max|diff| {worst[0]:.3e}, "
-         f"max|diff| / max(1, |plain|) {worst[1]:.3e} (tol {HMM_TOL:.0e})")
+    for k, n, t in HMM_CHUNKED:
+        args = _hmm_inputs(torch, g, n, t, k)
+        got = hmm_scan(*args)
+        torch.cuda.synchronize()
+        errs = _hmm_errs(torch, [v.double() for v in got], hmm_scan_plain(*[v.double() for v in args]))
+        errs32 = _hmm_errs(torch, got, hmm_scan_plain(*args))
+        worst = (max(worst[0], errs[0]), max(worst[1], errs[1]))
+        _log(f"hmm_scan vs plain (float64) at (K, N, T) = {(k, n, t)}, plan {hmm_scan_config(n, t, k)}: max|diff| "
+             f"{errs[0]:.3e}, max|diff| / max(1, |plain|) {errs[1]:.3e}; vs plain (float32) {errs32[1]:.3e}")
+    _log(f"hmm_scan vs plain at {len(HMM_CHECK) + len(HMM_CHUNKED)} shapes (K 2-32, N 1-24, T 1-5000): max|diff| "
+         f"{worst[0]:.3e}, max|diff| / max(1, |plain|) {worst[1]:.3e} (tol {HMM_TOL:.0e})")
     if not worst[1] <= HMM_TOL:
         _fail(f"hmm_scan disagrees with its plain version: {worst}")
 
@@ -2224,7 +2251,7 @@ def _check_time_hmm(torch):
         return torch.softmax(alpha + beta - ll[:, None, None], dim=-1)
 
     g_card, g_plain = gamma(*got), gamma(*want)
-    long = {"shape": list(HMM_LONG), "max_rel_err": rel_err, "max_abs_err": abs_err,
+    long = {"shape": list(HMM_LONG), "plan": hmm_scan_config(n, t, k), "max_rel_err": rel_err, "max_abs_err": abs_err,
             "gamma_max_abs_diff": float((g_card - g_plain).abs().max()),
             "argmax_differing_share": float((g_card.argmax(-1) != g_plain.argmax(-1)).double().mean())}
     _log(f"hmm_scan vs plain at {HMM_LONG}: {long} (tol {HMM_LONG_TOL:.0e} on the recursions)")
@@ -2235,11 +2262,21 @@ def _check_time_hmm(torch):
     for n, t, k in HMM_TIMED:
         args = _hmm_inputs(torch, g, n, t, k)
         ms = _cuda_ms(torch, lambda: hmm_scan(*args), reps=5, warmup=1)
+        plan = hmm_scan_config(n, t, k)
         n_bytes = 4 * (3 * n * t * k + k + k * k)  # log_b, log_pi, log_a read; two outputs written
-        flop = 2 * n * t * k * (5 * k + 2)  # per state-step and pass: K adds, max, sub, exp, sum; log, add
+        # The function's own work, per state-step and recursion: K adds,
+        # max, sub, exp, sum; log, add. The bound counts only that.
+        flop = 2 * n * t * k * (5 * k + 2)
+        # What the chunked scan adds: K rows of the forward recursion over
+        # every chunk's frames (their max normalisation, ~2K more a
+        # state-step) and the carry's C K-wide steps in each direction.
+        extra = (n * (t - 1) * k * k * (7 * k + 2) + 2 * n * plan["chunks"] * k * (5 * k + 3)
+                 if plan["chunks"] > 1 else 0)
         by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flop / PEAK_FP32 * 1e3
-        timed.append({"shape": f"log_b ({n}, {t}, {k}) float32", "ms": ms, "ns_per_step": ms * 1e6 / t,
-                      "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"})
+        timed.append({"shape": f"log_b ({n}, {t}, {k}) float32", "plan": plan, "ms": ms, "ns_per_step": ms * 1e6 / t,
+                      "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                      "algorithm_extra_flop": extra,
+                      "algorithm_bound_ms": max(by_bytes, (flop + extra) / PEAK_FP32 * 1e3)})
     timed[0]["plain_ms"] = plain_ms
     _log(f"hmm_scan timed: {timed}")
     return worst[0], max(worst[1], rel_err), long, timed

@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -29,6 +29,31 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# {library: {function: (argtypes, restype)}}: pointers and the stream as
+# c_void_p, or ctypes would pass them as 32-bit ints.
+SIGNATURES = {
+    "window_gather": {
+        "window_streams_launch": ([_P] * 3 + [_I] * 4 + [_P] * 4, _I),
+        "window_streams_config": ([_I] * 4 + [_P] * 2, _I),
+    },
+    "gru_scan": {
+        "gru_scan_launch": ([_P] * 8 + [ctypes.c_float] + [_P] * 3 + [_I] * 6 + [_P], _I),
+        "gru_scan_config": ([_I] * 6 + [_P], _I),
+    },
+    "gru_scan_bwd": {
+        "gru_scan_bwd_launch": ([_P] * 13 + [_I] * 6 + [_P], _I),
+        "gru_scan_bwd_config": ([_I] * 5 + [_P], _I),
+    },
+    "hmm_scan": {
+        "hmm_scan_launch": ([_P] * 6 + [_I] * 3 + [_P], _I),
+        "hmm_scan_config": ([_I] * 3 + [_P], _I),
+    },
+    "kalman_rts": {
+        "kalman_rts_launch": ([_P] * 5 + [_I] * 2 + [_P], _I),
+    },
+}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -76,10 +101,31 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
+def _bind(name: str, path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if needed."""
+    """The built library for ``csrc/<name>.cu``, building it if needed,
+    its functions bound to their ``SIGNATURES`` on the first load."""
     with _lock:
         if name not in _loaded:
             build((name,))
-            _loaded[name] = ctypes.CDLL(library_path(name))
+            _loaded[name] = _bind(name, library_path(name))
         return _loaded[name]
+
+
+def use(name: str, path: Optional[str]) -> Optional[ctypes.CDLL]:
+    """Serve ``load(name)`` from the library at ``path`` (a variant of
+    ``csrc/<name>.cu`` built elsewhere, with the same C interface), bound
+    to the same signatures; ``path=None`` returns to the checkout's own.
+    Returns the library bound, or None."""
+    with _lock:
+        _loaded.pop(name, None)
+        if path is not None:
+            _loaded[name] = _bind(name, path)
+        return _loaded.get(name)

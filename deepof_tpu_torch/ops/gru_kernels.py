@@ -18,9 +18,9 @@ Training. The JAX package's Pallas GRU has no VJP (JAX trains through flax
 ``nn.scan`` and lets XLA differentiate it), so the backward is this port's
 own: ``GRULayerFunction``, whose forward launches the forward kernel with
 the carry store on (each step's starting carry, (B, T, D, H)) and whose
-backward launches ``csrc/gru_scan_bwd.cu`` (``gru_scan_backward``) for the
-serial part, the gate pre-activation gradients, then forms the input and
-weight gradients as matrix products over all stream-steps. On a CUDA
+backward launches ``csrc/gru_scan_bwd.cu`` (``gru_scan_backward``), which
+forms the input, weight and bias gradients itself: the gate gradients never
+leave the kernel, and no matrix product follows it. On a CUDA
 tensor ``gru_scan`` takes it whenever grad mode is on and x or a weight
 requires grad; with a LayerNorm it then runs ``F.layer_norm`` in front of
 an un-normed launch, which autograd differentiates (the fused norm stays on
@@ -34,7 +34,9 @@ source.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -145,8 +147,6 @@ def _launch_forward(x, mask, wi, bi, wh, bhn, reverse, norm, outputs, carries):
     if b == 0 or t == 0:
         return (out.zero_() if outputs else None), fin.zero_(), (hs.zero_() if carries else None)
     launch = cuda_build.load("gru_scan").gru_scan_launch
-    launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    launch.restype = ctypes.c_int
     rev_mask = sum(1 << k for k, r in enumerate(reverse) if r)
     gamma, beta, eps = (norm[0].data_ptr(), norm[1].data_ptr(), float(norm[2])) if norm is not None else (None, None, 0.0)
     with torch.cuda.device(x.device):
@@ -228,47 +228,12 @@ def gru_scan_carries(x, mask, wi, bi, wh, bhn, reverse, outputs=True):
     return _launch_forward(x, mask, wi, bi, wh, bhn, reverse, None, outputs, carries=True)
 
 
-def _sum_over_rows(a, b, rows: int = 1024):
-    """a^T b for a (n, p) and b (n, q) (unit column stride, any row
-    stride) over a long n, as a batched product of chunks of ``rows``
-    rows summed over the chunks: one product with a
-    small output and an n-long reduction runs on a handful of CTAs
-    (6.3 ms for the node layer's two at n = 179,200, H100)."""
-    n = a.shape[0]
-    c = n // rows
-    out = torch.bmm(a[:c * rows].view(c, rows, -1).transpose(1, 2), b[:c * rows].view(c, rows, -1)).sum(0) \
-        if c else a.new_zeros((a.shape[1], b.shape[1]))
-    return out + a[c * rows:].T @ b[c * rows:] if c * rows < n else out
-
-
-def _gradient_products(x, wi, hs, dg, dhn):
-    """(dx, dW_i, db_i, dW_h, db_hn) from the gate gradients, as products
-    over all B*T stream-steps: dx = sum_d dG_d W_i,d^T, dW_i = x^T dG,
-    db_i = sum dG, dW_h = h^T [dG_r | dG_z | dHn], db_hn = sum dHn."""
-    b, t, f = x.shape
-    d, h = dhn.shape[2:]
-    n = b * t
-    dgf = dg.reshape(n, d * 3 * h)
-    dhf = dhn.reshape(n, d * h)
-    hp = hs.reshape(n, d * h)
-    dx = (dgf @ wi.transpose(1, 2).reshape(d * 3 * h, f)).reshape(b, t, f)
-    dwi = _sum_over_rows(x.reshape(n, f), dgf).view(f, d, 3 * h).transpose(0, 1).contiguous()
-    # Both directions' carries against both directions' gradients, in two
-    # products whose diagonal blocks are each direction's dW_h. The products
-    # are latency-bound at the training shapes: per-direction products, half
-    # the multiply-adds, took longer on an H100 (PERF.md, PR 5 review round;
-    # ``scripts/torch_ab_path.py --products``).
-    hg, hn = _sum_over_rows(hp, dgf), _sum_over_rows(hp, dhf)
-    dwh = torch.stack([
-        torch.cat([hg[k * h:(k + 1) * h, 3 * k * h:3 * k * h + 2 * h], hn[k * h:(k + 1) * h, k * h:(k + 1) * h]], 1)
-        for k in range(d)
-    ])
-    return dx, dwi, dgf.sum(0).view(d, 3 * h), dwh, dhf.sum(0).view(d, h)
-
-
-def gru_scan_backward_plain(x, mask, wi, bi, wh, bhn, reverse, hs, d_out=None, d_fin=None):
-    """What the backward kernel writes, as a loop over T, then the gradient
-    products; same arguments and results as :func:`gru_scan_backward`."""
+def gru_gate_grads_plain(x, mask, wi, bi, wh, bhn, reverse, hs, d_out=None, d_fin=None):
+    """The gate pre-activation gradients of the un-normed layer, as a loop
+    over T from the carries ``hs``: (dG (B, T, D, 3H) = [da_r | da_z | da_n],
+    the gradients of x W_i + b_i; dHn (B, T, D, H), of h W_hn + b_hn). Both
+    are 0 at masked steps. The backward kernel forms them in shared memory
+    and never writes them; this helper is the plain version's first half."""
     b, t, f = x.shape
     d, h = bhn.shape
     dg = x.new_zeros((b, t, d, 3 * h))
@@ -296,7 +261,35 @@ def gru_scan_backward_plain(x, mask, wi, bi, wh, bhn, reverse, hs, d_out=None, d
             dg[:, s, k] = torch.cat([dar, daz, dan], dim=-1)
             dhn[:, s, k] = dhs
             dh = torch.where(m, z * dht + torch.cat([dar, daz, dhs], dim=-1) @ wh[k].T, dh)
-    return (dg, dhn) + _gradient_products(x, wi, hs, dg, dhn)
+    return dg, dhn
+
+
+def gru_scan_backward_plain(x, mask, wi, bi, wh, bhn, reverse, hs, d_out=None, d_fin=None):
+    """The gate gradients (:func:`gru_gate_grads_plain`), then the layer's
+    gradients as sums over all stream-steps: dx = sum_d dG_d W_i,d^T,
+    dW_i = x^T dG, db_i = sum dG, dW_h = h^T [dG_r | dG_z | dHn],
+    db_hn = sum dHn. Same arguments and results as :func:`gru_scan_backward`."""
+    h = bhn.shape[1]
+    dg, dhn = gru_gate_grads_plain(x, mask, wi, bi, wh, bhn, reverse, hs, d_out, d_fin)
+    dx = torch.einsum("btdc,dfc->btf", dg, wi)
+    dwi = torch.einsum("btf,btdc->dfc", x, dg)
+    dwh = torch.einsum("btdk,btdc->dkc", hs, torch.cat([dg[..., :2 * h], dhn], dim=-1))
+    return dx, dwi, dg.sum((0, 1)), dwh, dhn.sum((0, 1))
+
+
+_BwdPlan = collections.namedtuple(
+    "_BwdPlan", "streams threads smem per_sm grid steps chunks scratch serial staged")
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_plan(b, t, f, h, d, device):
+    """gru_scan_bwd_config's numbers for a shape on CUDA device ``device``
+    (the current one)."""
+    info = (ctypes.c_longlong * 10)()
+    err = cuda_build.load("gru_scan_bwd").gru_scan_bwd_config(b, t, f, h, d, ctypes.cast(info, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"gru_scan_bwd_config failed with CUDA error {err} (B={b}, T={t}, F={f}, H={h}, D={d})")
+    return _BwdPlan(*info)
 
 
 def gru_scan_backward(
@@ -322,13 +315,14 @@ def gru_scan_backward(
         d_fin: (B, D*H) gradient of the final carries, or None (zero).
 
     Returns:
-        (dG (B, T, D, 3H), the input-side gate pre-activation gradients;
-        dHn (B, T, D, H), the candidate's recurrent-side gradient; dx;
-        dW_i; db_i; dW_h; db_hn). On a CUDA tensor ``csrc/gru_scan_bwd.cu``
-        writes dG and dHn, and the rest are matrix products.
+        (dx (B, T, F), dW_i (D, F, 3H), db_i (D, 3H), dW_h (D, H, 3H),
+        db_hn (D, H)). On a CUDA tensor ``csrc/gru_scan_bwd.cu`` computes
+        them all (two launches, after a transposed copy of W_h where the
+        weights do not fit the kernel's shared memory), and the same inputs
+        give the same bits.
     """
     _check(x, mask, wi, bi, wh, bhn, reverse, None)
-    b, t, _ = x.shape
+    b, t, f = x.shape
     d, h = bhn.shape
     if hs.shape != (b, t, d, h):
         raise ValueError(f"hs must be ({b}, {t}, {d}, {h}), got {tuple(hs.shape)}")
@@ -345,28 +339,32 @@ def gru_scan_backward(
     d_out = None if d_out is None else d_out.contiguous()
     d_fin = None if d_fin is None else d_fin.contiguous()
     _check_cuda([x, mask, wi, bi, wh, bhn, hs] + [v for v in (d_out, d_fin) if v is not None])
-    dg = torch.empty((b, t, d, 3 * h), device=x.device, dtype=torch.float32)
-    dhn = torch.empty((b, t, d, h), device=x.device, dtype=torch.float32)
+    dx = torch.empty((b, t, f), device=x.device, dtype=torch.float32)
+    n_wi, n_bi, n_wh = d * f * 3 * h, d * 3 * h, d * h * 3 * h
+    wout = torch.empty(n_wi + n_bi + n_wh + d * h, device=x.device, dtype=torch.float32)
     if b == 0 or t == 0:
-        dg.zero_()
-        dhn.zero_()
+        dx.zero_()
+        wout.zero_()
     else:
-        launch = cuda_build.load("gru_scan_bwd").gru_scan_bwd_launch
-        launch.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        launch.restype = ctypes.c_int
-        rev_mask = sum(1 << k for k, r in enumerate(reverse) if r)
-        wht = wh.transpose(1, 2).contiguous()  # the kernel reads rows of W_h as columns
         with torch.cuda.device(x.device):
-            err = launch(
+            plan = _bwd_plan(b, t, f, h, d, torch.cuda.current_device())
+            scratch = torch.empty(plan.scratch, device=x.device, dtype=torch.float32)
+            rev_mask = sum(1 << k for k, r in enumerate(reverse) if r)
+            # Where the weights do not fit the kernel's shared memory, it reads
+            # rows of W_h as columns of this copy.
+            wht = None if plan.staged else wh.transpose(1, 2).contiguous()
+            err = cuda_build.load("gru_scan_bwd").gru_scan_bwd_launch(
                 x.data_ptr(), mask.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
-                wht.data_ptr(), bhn.data_ptr(), hs.data_ptr(), None if d_out is None else d_out.data_ptr(),
-                None if d_fin is None else d_fin.data_ptr(), dg.data_ptr(), dhn.data_ptr(),
-                b, t, x.shape[2], h, d, rev_mask, torch.cuda.current_stream(x.device).cuda_stream,
+                None if wht is None else wht.data_ptr(), bhn.data_ptr(), hs.data_ptr(),
+                None if d_out is None else d_out.data_ptr(), None if d_fin is None else d_fin.data_ptr(),
+                dx.data_ptr(), wout.data_ptr(), scratch.data_ptr(),
+                b, t, f, h, d, rev_mask, torch.cuda.current_stream(x.device).cuda_stream,
             )
         if err != 0:
             raise RuntimeError(f"gru_scan_backward launch failed with CUDA error {err} (B={b}, T={t}, H={h}, D={d})")
         gru_scan_backward.launches += 1
-    return (dg, dhn) + _gradient_products(x, wi, hs, dg, dhn)
+    dwi, dbi, dwh, dbhn = torch.split(wout, [n_wi, n_bi, n_wh, d * h])
+    return dx, dwi.view(d, f, 3 * h), dbi.view(d, 3 * h), dwh.view(d, h, 3 * h), dbhn.view(d, h)
 
 
 # Backward kernel launches since the last reset (set to 0 to reset).
@@ -401,7 +399,7 @@ class GRULayerFunction(torch.autograd.Function):
             d_out = None
         if d_out is None and d_fin is None:
             return (None,) * 8
-        _, _, dx, dwi, dbi, dwh, dbhn = gru_scan_backward(x, mask, wi, bi, wh, bhn, ctx.reverse, hs, d_out, d_fin)
+        dx, dwi, dbi, dwh, dbhn = gru_scan_backward(x, mask, wi, bi, wh, bhn, ctx.reverse, hs, d_out, d_fin)
         return dx, None, dwi, dbi, dwh, dbhn, None, None
 
 
@@ -411,8 +409,6 @@ def gru_scan_config(t: int, f: int, h: int, d: int, outputs: bool = True, norm: 
     memory, or "L1", with them in global memory), streams and threads per
     CTA, shared memory per CTA, CTAs resident per SM."""
     fn = cuda_build.load("gru_scan").gru_scan_config
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     info = (ctypes.c_int * 5)()
     err = fn(t, f, h, d, int(outputs), int(norm), ctypes.cast(info, ctypes.c_void_p))
     if err != 0:
@@ -422,16 +418,17 @@ def gru_scan_config(t: int, f: int, h: int, d: int, outputs: bool = True, norm: 
             "threads": threads, "smem_bytes": smem, "ctas_per_sm": per_sm}
 
 
-def gru_scan_bwd_config(t: int, f: int, h: int, d: int) -> dict:
-    """The launch ``gru_scan_backward`` makes on the current CUDA device for
-    this shape: streams and threads per CTA, shared memory per CTA, CTAs
-    resident per SM."""
-    fn = cuda_build.load("gru_scan_bwd").gru_scan_bwd_config
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    info = (ctypes.c_int * 4)()
-    err = fn(t, f, h, d, ctypes.cast(info, ctypes.c_void_p))
-    if err != 0:
-        raise RuntimeError(f"gru_scan_bwd_config failed with CUDA error {err}")
-    s, threads, smem, per_sm = info
-    return {"streams_per_cta": s, "threads": threads, "smem_bytes": smem, "ctas_per_sm": per_sm}
+def gru_scan_bwd_config(b: int, t: int, f: int, h: int, d: int) -> dict:
+    """The launches ``gru_scan_backward`` makes on the current CUDA device for
+    this shape: streams, serial threads and threads per CTA, shared memory
+    per CTA, CTAs resident per SM, CTAs launched, walk steps a chunk and
+    chunks a walk, where the weights are read from and their gradients
+    accumulate ("shared" memory, or "global": W_h transposed and the CTA's
+    partial), the scratch bytes, and the launches of a call: the W_h
+    transpose (where the weights are read from global memory), the kernel
+    and its reduction; no matrix product, no gate-gradient tensor."""
+    pl = _bwd_plan(b, t, f, h, d, torch.cuda.current_device())
+    return {"streams_per_cta": pl.streams, "serial_threads": pl.serial, "threads": pl.threads,
+            "smem_bytes": pl.smem, "ctas_per_sm": pl.per_sm, "grid": pl.grid, "steps_per_chunk": pl.steps,
+            "chunks": pl.chunks, "weights": "shared" if pl.staged else "global", "scratch_bytes": 4 * pl.scratch,
+            "launches": ([] if pl.staged else ["wh.transpose(1, 2).contiguous()"]) + ["gru_bwd_kernel", "gru_bwd_reduce"]}

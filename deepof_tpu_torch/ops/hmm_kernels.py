@@ -6,10 +6,13 @@ No TPU kernel is replaced: the JAX package runs the recursions as two
 ``_forward_backward``), vmapped over sequences. PyTorch runs eagerly, so a
 loop over frames would launch a handful of operators for every one of the
 T steps; on a CUDA tensor :func:`hmm_scan` launches ``csrc/hmm_scan.cu``
-instead (one warp a sequence and direction, lane j holding state j, K <=
-32), or raises. On a CPU tensor it runs :func:`hmm_scan_plain`, the
-sequential loop over T batched over the sequences. There is no fallback
-from a CUDA tensor.
+instead (a chunked parallel-in-time scan: the chunks' transfer matrices in
+parallel, the start vectors carried over the chunks, then each chunk's
+frames rerun from its start; lane j holding state j, K <= 32; one chunk,
+the serial chain, where N and K make the chunk products cost more than
+the chain), or raises.
+On a CPU tensor it runs :func:`hmm_scan_plain`, the sequential loop over T
+batched over the sequences. There is no fallback from a CUDA tensor.
 
 :func:`forward_backward` forms the state posteriors, the transition
 posteriors summed over frames (a logsumexp over t) and the log-likelihood
@@ -17,13 +20,14 @@ from the two recursions with the JAX formulas (``msm.py:62-77``), each
 frame normalised on its own (the reason is in its docstring), in plain
 tensor ops.
 
-Bound on an H100: neither bytes nor operations; each sequence is a chain of
-T dependent log-sum-exps (the note in the source).
+Bound on an H100: neither bytes nor operations; the scan's chains of
+dependent log-sum-exps, ~sqrt(8T) steps in all (the note in the source).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -77,15 +81,36 @@ def _launch(log_b, log_pi, log_a):
         raise ValueError("log_b, log_pi and log_a must be contiguous")
     alpha = torch.empty_like(log_b)
     beta = torch.empty_like(log_b)
-    launch = cuda_build.load("hmm_scan").hmm_scan_launch
-    launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    launch.restype = ctypes.c_int
+    if n == 0 or t == 0:
+        return alpha, beta
     with torch.cuda.device(log_b.device):
-        err = launch(log_b.data_ptr(), log_pi.data_ptr(), log_a.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-                     n, t, k, torch.cuda.current_stream(log_b.device).cuda_stream)
+        scratch = torch.empty(hmm_scan_config(n, t, k)["scratch_floats"], device=log_b.device, dtype=torch.float32)
+        err = cuda_build.load("hmm_scan").hmm_scan_launch(
+            log_b.data_ptr(), log_pi.data_ptr(), log_a.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
+            scratch.data_ptr(), n, t, k, torch.cuda.current_stream(log_b.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hmm_scan launch failed with CUDA error {err} (N={n}, T={t}, K={k})")
     return alpha, beta
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(n: int, t: int, k: int, device: int) -> Tuple[int, int, int]:
+    info = (ctypes.c_longlong * 3)()
+    err = cuda_build.load("hmm_scan").hmm_scan_config(n, t, k, ctypes.cast(info, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"hmm_scan_config failed with CUDA error {err} (N={n}, T={t}, K={k})")
+    return tuple(info)
+
+
+def hmm_scan_config(n: int, t: int, k: int) -> dict:
+    """The scan :func:`hmm_scan` runs on the current CUDA device for N
+    sequences of T frames and K states: the chunk length L and the chunks
+    C of the frames' T - 1 transfer matrices (C = 1, the serial chain,
+    where N and K make the chunk products the dearer route), the scratch it
+    allocates, and its three launches (chunk products, carry, reruns)."""
+    chunk, chunks, scratch = _plan(n, t, k, torch.cuda.current_device())
+    return {"chunk": chunk, "chunks": chunks, "scratch_floats": scratch,
+            "launches": ["hmm_chunk_products", "hmm_chunk_carry", "hmm_chunk_rerun"]}
 
 
 def hmm_scan(log_b: torch.Tensor, log_pi: torch.Tensor, log_a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -25,8 +25,6 @@ Bound on an H100: neither bytes nor operations; each channel is a chain of
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -117,8 +115,6 @@ def _launch(z: torch.Tensor) -> torch.Tensor:
     cov, gains = torch.empty((2, t_len, 8), dtype=torch.float32, device=z.device)
     x_filt = torch.empty((t_len, channels, 2), dtype=torch.float32, device=z.device)
     launch = cuda_build.load("kalman_rts").kalman_rts_launch
-    launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    launch.restype = ctypes.c_int
     with torch.cuda.device(z.device):
         err = launch(z.data_ptr(), out.data_ptr(), cov.data_ptr(), gains.data_ptr(), x_filt.data_ptr(), t_len,
                      channels, torch.cuda.current_stream(z.device).cuda_stream)

@@ -116,8 +116,6 @@ def _launch(rows, tables, mu, sd, window):
     cols = np.concatenate([c.ravel() for c in tables])
     out_ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
     launch = cuda_build.load("window_gather").window_streams_launch
-    launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
-    launch.restype = ctypes.c_int
     with torch.cuda.device(rows.device):
         err = launch(
             rows.data_ptr(), mu.data_ptr(), sd.data_ptr(), r, f, window, len(tables),
@@ -187,8 +185,6 @@ def window_streams_config(r: int, f: int, window: int, table_shapes) -> dict:
     and tables of these (G, k) shapes: store mode, CTAs in the grid, windows
     per chunk, threads and shared memory per CTA, CTAs resident per SM."""
     fn = cuda_build.load("window_gather").window_streams_config
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
     gk = np.array(table_shapes, np.int32).reshape(-1, 2)
     info = (ctypes.c_int * 6)()
     err = fn(r, f, window, len(gk), gk.ctypes.data, ctypes.addressof(info))

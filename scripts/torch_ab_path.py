@@ -1,10 +1,12 @@
 """A/B of the port between two trees on one CUDA GPU: the serving path's
 seconds, the RecurrentBlock's time at several latents, and the GRU
-backward's gradient products at the training shapes.
+layer's backward at the training shapes.
 
     python3 scripts/torch_ab_path.py --path ROOT
     python3 scripts/torch_ab_path.py --blocks ROOT [--latents 4 8 16 64]
-    python3 scripts/torch_ab_path.py --products ROOT
+    python3 scripts/torch_ab_path.py --backward ROOT
+    python3 scripts/torch_ab_path.py --hmm ROOT
+    python3 scripts/torch_ab_path.py --softcounts ROOT
     python3 scripts/torch_ab_path.py --summarize A.jsonl B.jsonl
 
 ``--path`` drives the serving path of chip_smoke.py through ROOT's own
@@ -25,19 +27,34 @@ feature) at each latent: ``RecurrentBlock.forward``, and its first BiGRU
 alone (``gru1(x, mask)``), with every window full; CUDA events over 10
 calls after 2 warm ones.
 
-``--products`` times, through ROOT's own ``ops.gru_kernels``, the GRU
-backward's gradient products (``_gradient_products``: dx and the weight
-gradients from the gate gradients) at the six GRU shapes of a batch-256
-training step (``PRODUCT_SHAPES``, D = 2, T = 25), on seeded random inputs;
-CUDA events over 20 calls after 2 warm ones, with no spin of the card
-first, so a call whose host work outlasts its kernels reads its host time,
-as it does inside the host-bound train step.
+``--backward`` times, through ROOT's own ``ops.gru_kernels``, the GRU
+layer's backward wrapper (``gru_scan_backward``: dx and the weight
+gradients from the carries; whatever a tree's wrapper launches for them)
+at the six GRU shapes of a batch-256 training step (``BACKWARD_SHAPES``, D
+= 2, T = 25, full windows, output and final-carry gradients), on seeded
+random inputs; CUDA events over 20 calls after 2 warm ones, with no spin
+of the card first, so a call whose host work outlasts its kernels reads
+its host time, as it does inside the host-bound train step.
 
-All three print the card's name and power limit, then one JSON line.
+``--hmm`` times, through ROOT's own ``ops.hmm_kernels``, ``hmm_scan`` at
+``HMM_SHAPES``: the cohort's 3 recordings of 26,976 windows and the lab
+cohort's 24 of 45,000 frames, at 10, 25 and 32 states, on seeded inputs
+made on the card; CUDA events over 3 calls after 1 warm one.
+
+``--softcounts`` runs ROOT's own chip_smoke.py phase 9 (the cohort's
+create and VaDE fit), then times, through ROOT's own package and
+without phase 11's kernel checks, each soft-count call of phase 11 on
+that cohort ``SOFTCOUNT_REPS`` times (``embedding_per_video`` with each
+of the four methods, ``recluster``, the states="bic" scan), and the lab
+cohort's HMM and MSM fits (phase 11's ``_softcounts_lab_cohort``, the
+same seeded data in every tree). Prints each call's median seconds and
+the lab MSM fit's minibatch steps (a host read each).
+
+All five print the card's name and power limit, then one JSON line.
 
 ``--summarize`` reads files of JSON lines, one file per tree, each line
 either a stage line (chip_smoke.py's or --path's, the one with "total_s")
-or a --blocks or --products line, written in turns (A, B, B, A, ...). Prints per file the
+or a --blocks, --backward, --hmm or --softcounts line, written in turns (A, B, B, A, ...). Prints per file the
 median and quartiles of the path's seconds (the first run's too, where the
 lines have it), embed seconds and frames/s, and the median block times;
 with two files, how many of the paired runs (the k-th line of one file
@@ -63,8 +80,13 @@ WINDOW = 25
 BLOCKS = {"node": (4096 * 28, 3), "edge": (4096 * 32, 1)}
 # (B, F, H) of the GRU layers of a batch-256 training step: the encoder's
 # node and edge gru1 and gru2, the decoder's two layers.
-PRODUCT_SHAPES = [(256 * 28, 16, 16), (256 * 28, 32, 8), (256 * 32, 16, 16), (256 * 32, 32, 8),
+BACKWARD_SHAPES = [(256 * 28, 16, 16), (256 * 28, 32, 8), (256 * 32, 16, 16), (256 * 32, 32, 8),
                   (256, 8, 8), (256, 16, 16)]
+
+# (N, T, K) of hmm_scan's calls: the cohort's and the lab cohort's lengths.
+HMM_SHAPES = [(n, t, k) for n, t in ((3, 26976), (24, 45000)) for k in (10, 25, 32)]
+MODES = ("blocks", "backward", "hmm", "softcounts")
+SOFTCOUNT_REPS = 3
 
 
 def _ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
@@ -129,19 +151,80 @@ def blocks(root: str, latents) -> dict:
     return out
 
 
-def products(root: str) -> dict:
+def backward(root: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
-    from deepof_tpu_torch.ops.gru_kernels import _gradient_products
+    from deepof_tpu_torch.ops.gru_kernels import gru_scan_backward, gru_scan_carries
 
     g = torch.Generator().manual_seed(2)
     out = {}
-    for b, f, h in PRODUCT_SHAPES:
-        x, wi, hs, dg, dhn = (torch.randn(*shape, generator=g).to("cuda") for shape in (
-            (b, WINDOW, f), (2, f, 3 * h), (b, WINDOW, 2, h), (b, WINDOW, 2, 3 * h), (b, WINDOW, 2, h)))
-        out[f"b{b}_f{f}_h{h}_ms"] = _ms(torch, lambda: _gradient_products(x, wi, hs, dg, dhn), reps=20)
+    for b, f, h in BACKWARD_SHAPES:
+        x, wi, bi, wh, bhn, d_out, d_fin = (torch.randn(*shape, generator=g).to("cuda") / 4 for shape in (
+            (b, WINDOW, f), (2, f, 3 * h), (2, 3 * h), (2, h, 3 * h), (2, h), (b, WINDOW, 2 * h), (b, 2 * h)))
+        mask = torch.ones(b, WINDOW, dtype=torch.bool, device="cuda")
+        _, _, hs = gru_scan_carries(x, mask, wi, bi, wh, bhn, (False, True))
+        out[f"b{b}_f{f}_h{h}_ms"] = _ms(
+            torch, lambda: gru_scan_backward(x, mask, wi, bi, wh, bhn, (False, True), hs, d_out, d_fin), reps=20)
     return out
+
+
+def hmm(root: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from deepof_tpu_torch.ops.hmm_kernels import hmm_scan
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for n, t, k in HMM_SHAPES:
+        log_b = torch.randn(n, t, k, generator=g, device="cuda") * 3 - 5
+        a = torch.rand(k, k, generator=g, device="cuda") + torch.eye(k, device="cuda") * k
+        pi = torch.rand(k, generator=g, device="cuda")
+        args = (log_b, torch.log(pi / pi.sum()), torch.log(a / a.sum(1, keepdim=True)))
+        out[f"n{n}_t{t}_k{k}_ms"] = _ms(torch, lambda: hmm_scan(*args), reps=3, warmup=1)
+    return out
+
+
+def softcounts(root: str, card: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import shutil
+    import tempfile
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+    from deepof_tpu_torch import posthoc as ph
+    from deepof_tpu_torch.train.inference import embedding_per_video
+
+    tmp = tempfile.mkdtemp(prefix="ab_softcounts_")
+    times = {}
+    try:
+        _, _, cohort = cs._cohort_phase(torch, card, tmp)
+        coords, (_, meta, _, tab_dict, scaler), bundle = (cohort["coords"], cohort["graph_dataset"],
+                                                          cohort["bundle"])
+        for _ in range(SOFTCOUNT_REPS):
+            emb = None
+            for method in cs.SOFTCOUNT_METHODS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                emb, _ = embedding_per_video(coords, tab_dict, bundle, meta, animal_id="B", global_scaler=scaler,
+                                             batch_size=cs.BLOCK, softcounts_extraction_method=method)
+                times.setdefault(f"{method}_s", []).append(time.perf_counter() - t0)
+            for name, fn in (("recluster", lambda: ph.recluster(coords, emb, states=cs.N_COMPONENTS, save=False)),
+                             ("contrastive_bic", lambda: ph.get_contrastive_soft_counts(
+                                 coords, emb, states="bic", max_states=cs.CONTRASTIVE_MAX_STATES))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times.setdefault(f"{name}_s", []).append(time.perf_counter() - t0)
+        lab = cs._softcounts_lab_cohort(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {**{key: statistics.median(v) for key, v in times.items()},
+            "lab_hmm_fit_s": lab["hmm"]["fit_s"], "lab_msm_fit_s": lab["msm"]["fit_s"],
+            "lab_msm_steps": lab["msm"]["minibatch_steps_and_host_reads"]}
 
 
 def _quartiles(v):
@@ -154,7 +237,7 @@ def summarize(paths) -> dict:
     for path in paths:
         lines = [json.loads(line) for line in open(path) if line.startswith("{")]
         runs = [r for r in lines if "total_s" in r]
-        blocks_ = [r.get("blocks") or r["products"] for r in lines if "blocks" in r or "products" in r]
+        blocks_ = [r[m] for r in lines for m in MODES if m in r]
         paths_runs.append(runs)
         res = {"runs": len(runs), "card": sorted({r["card"] for r in lines})}
         if runs:
@@ -185,15 +268,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", metavar="ROOT", help="tree whose RecurrentBlock to time")
     ap.add_argument("--path", metavar="ROOT", help="tree whose serving path to time")
-    ap.add_argument("--products", metavar="ROOT", help="tree whose GRU gradient products to time")
+    ap.add_argument("--backward", metavar="ROOT", help="tree whose GRU backward wrapper to time")
+    ap.add_argument("--hmm", metavar="ROOT", help="tree whose HMM scan to time")
+    ap.add_argument("--softcounts", metavar="ROOT", help="tree whose soft-count phase to time")
     ap.add_argument("--latents", type=int, nargs="+", default=[4, 8, 16, 64])
     ap.add_argument("--summarize", metavar="FILE", nargs="+", help="files of JSON lines, one per tree")
     args = ap.parse_args()
     if args.summarize:
         print(json.dumps(summarize(args.summarize), indent=1))
         return 0
-    if not (args.blocks or args.path or args.products):
-        ap.error("--blocks, --path, --products or --summarize is required")
+    if not (args.blocks or args.path or args.backward or args.hmm or args.softcounts):
+        ap.error("--blocks, --path, --backward, --hmm, --softcounts or --summarize is required")
     import torch
 
     if not torch.cuda.is_available():
@@ -206,8 +291,13 @@ def main() -> int:
     print(card)
     if args.path:
         print(json.dumps({"root": args.path, "card": card, **path(args.path)}), flush=True)
-    elif args.products:
-        print(json.dumps({"root": args.products, "card": card, "products": products(args.products)}), flush=True)
+    elif args.hmm:
+        print(json.dumps({"root": args.hmm, "card": card, "hmm": hmm(args.hmm)}), flush=True)
+    elif args.softcounts:
+        print(json.dumps({"root": args.softcounts, "card": card, "softcounts": softcounts(args.softcounts, card)}),
+              flush=True)
+    elif args.backward:
+        print(json.dumps({"root": args.backward, "card": card, "backward": backward(args.backward)}), flush=True)
     else:
         print(json.dumps({"root": args.blocks, "card": card, "blocks": blocks(args.blocks, args.latents)}), flush=True)
     return 0

@@ -239,7 +239,6 @@ def _profile_train(torch, chip_smoke, batch: int, steps: int, model_name: str = 
                                   torch.randn(2, h, 3 * h, generator=g) / 4, torch.zeros(2, h))]
     _, _, hs = gk.gru_scan_carries(xs, mask, *wts, (False, True))
     d_out = torch.randn(b, w, 2 * h, generator=g).to("cuda")
-    dg, dhn = gk.gru_scan_backward(xs, mask, *wts, (False, True), hs, d_out)[:2]
     # One step at a time: a step enqueues ~670 launches, and CUDA's launch
     # queue holds ~1,000 before the host waits. Then its phases alone: a
     # phase whose enqueue time exceeds its synchronised time waits for the
@@ -268,7 +267,6 @@ def _profile_train(torch, chip_smoke, batch: int, steps: int, model_name: str = 
             "gru_scan_serving": enqueue_ms(lambda: gk.gru_scan(xs, mask, *wts, (False, True)), 20),
             "gru_scan_carries": enqueue_ms(lambda: gk.gru_scan_carries(xs, mask, *wts, (False, True)), 20),
             "gru_scan_backward": enqueue_ms(lambda: gk.gru_scan_backward(xs, mask, *wts, (False, True), hs, d_out), 20),
-            "gradient_products": enqueue_ms(lambda: gk._gradient_products(xs, wts[0], hs, dg, dhn), 20),
         }
 
     n_prof = 5

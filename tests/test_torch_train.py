@@ -42,6 +42,7 @@ from deepof_tpu_torch.models import heads as pheads
 from deepof_tpu_torch.models.zoo import build_model
 from deepof_tpu_torch.ops.gru_kernels import (
     GRULayerFunction,
+    gru_gate_grads_plain,
     gru_scan_backward,
     gru_scan_backward_plain,
     gru_scan_carries,
@@ -179,33 +180,69 @@ def _gru_case(seed, b, t, f, h, d, mask_kind, outputs):
     return x, mask, weights, reverse, d_out, d_fin
 
 
+def _scan_with_taps(x, mask, wi, bi, wh, bhn, reverse, tap_g, tap_hn):
+    """gru_scan_plain's recurrence (un-normed) with taps added to the gate
+    pre-activations, x W_i + b_i + tap_g (B, T, D, 3H) and h W_hn + b_hn +
+    tap_hn (B, T, D, H): at zero taps their gradients are dG and dHn."""
+    b, t, _ = x.shape
+    d, h = bhn.shape
+    outs, finals = [], []
+    for k in range(d):
+        xg = x @ wi[k] + bi[k] + tap_g[:, :, k]
+        carry = x.new_zeros((b, h))
+        out = [None] * t
+        for s in (range(t - 1, -1, -1) if reverse[k] else range(t)):
+            g, hg = xg[:, s], carry @ wh[k]
+            r = torch.sigmoid(g[:, :h] + hg[:, :h])
+            z = torch.sigmoid(g[:, h:2 * h] + hg[:, h:2 * h])
+            n = torch.tanh(g[:, 2 * h:] + r * (hg[:, 2 * h:] + bhn[k] + tap_hn[:, s, k]))
+            m = mask[:, s, None]
+            new = (1.0 - z) * n + z * carry
+            carry = torch.where(m, new, carry)
+            out[s] = torch.where(m, new, 0.0)
+        outs.append(torch.stack(out, 1))
+        finals.append(carry)
+    return torch.cat(outs, -1), torch.cat(finals, -1)
+
+
 @pytest.mark.parametrize("d", [1, 2])
 @pytest.mark.parametrize("mask_kind", ["prefix", "random"])
 @pytest.mark.parametrize("outputs", [True, False])
 def test_backward_plain_matches_autograd(d, mask_kind, outputs):
-    """gru_scan_backward_plain, from the carries gru_scan_carries stores,
-    against autograd of gru_scan_plain (float64): dx and every weight
-    gradient; dG and dHn against the gradients of the gate
-    pre-activations; GRULayerFunction on the CPU gives the same."""
+    """gru_scan_backward on CPU tensors (its plain version), from the
+    carries gru_scan_carries stores, against autograd of gru_scan_plain
+    (float64): dx and every weight and bias gradient; the plain gate
+    gradients (gru_gate_grads_plain) against the gradients of the gate
+    pre-activations, zero at masked steps; GRULayerFunction on the CPU
+    gives the same."""
     x, mask, weights, reverse, d_out, d_fin = _gru_case(5 + d, 6, 7, 4, 3, d, mask_kind, outputs)
     out, fin, hs = gru_scan_carries(x, mask, *weights, reverse, outputs)
     p_out, p_fin = gru_scan_plain(x, mask, *weights, reverse, None, outputs)
     assert torch.equal(fin, p_fin) and (out is None or torch.equal(out, p_out))
     got = gru_scan_backward(x, mask, *weights, reverse, hs, d_out, d_fin)
+    assert len(got) == 5
     assert all(torch.equal(a, b) for a, b in zip(got, gru_scan_backward_plain(x, mask, *weights, reverse, hs, d_out, d_fin)))
-    dg, dhn = got[:2]
-    assert not dg[~mask].any() and not dhn[~mask].any()  # masked steps: zero gate gradients
 
     leaves = [x.clone().requires_grad_()] + [w.clone().requires_grad_() for w in weights]
     o, f_ = gru_scan_plain(leaves[0], mask, *leaves[1:], reverse, None, outputs)
     total = (f_ * d_fin).sum() + ((o * d_out).sum() if outputs else 0.0)
     want = torch.autograd.grad(total, leaves)
-    for name, g, w in zip(("dx", "dwi", "dbi", "dwh", "dbhn"), got[2:], want):
+    for name, g, w in zip(("dx", "dwi", "dbi", "dwh", "dbhn"), got, want):
+        assert g.shape == w.shape, name
         torch.testing.assert_close(g, w, rtol=0, atol=1e-10, msg=name)
-    # dG sums to db_i and its input side feeds dx: the gate gradients
-    # themselves, the bias gradient per gate.
-    torch.testing.assert_close(dg.sum((0, 1)), want[2], rtol=0, atol=1e-10)
-    torch.testing.assert_close(dhn.sum((0, 1)), want[4], rtol=0, atol=1e-10)
+
+    dg, dhn = gru_gate_grads_plain(x, mask, *weights, reverse, hs, d_out, d_fin)
+    b, t, _ = x.shape
+    h = weights[3].shape[1]
+    taps = [torch.zeros(b, t, d, 3 * h, dtype=x.dtype, requires_grad=True),
+            torch.zeros(b, t, d, h, dtype=x.dtype, requires_grad=True)]
+    o, f_ = _scan_with_taps(x, mask, *weights, reverse, *taps)
+    total = (f_ * d_fin).sum() + ((o * d_out).sum() if outputs else 0.0)
+    want_dg, want_dhn = torch.autograd.grad(total, taps)
+    torch.testing.assert_close(dg, want_dg, rtol=0, atol=1e-10, msg="dG")
+    torch.testing.assert_close(dhn, want_dhn, rtol=0, atol=1e-10, msg="dHn")
+    assert not dg[~mask].any() and not dhn[~mask].any()  # masked steps: zero gate gradients
+    assert dg.abs().max() > 0 and dhn.abs().max() > 0
 
     fn_leaves = [v.clone().requires_grad_() for v in leaves]
     o, f_ = GRULayerFunction.apply(fn_leaves[0], mask, *fn_leaves[1:], reverse, outputs)
@@ -217,8 +254,11 @@ def test_backward_plain_matches_autograd(d, mask_kind, outputs):
 def test_backward_without_gradients_and_shape_checks():
     x, mask, weights, reverse, _, _ = _gru_case(3, 4, 5, 3, 2, 2, "prefix", True)
     _, _, hs = gru_scan_carries(x, mask, *weights, reverse)
-    dg, dhn, dx, *dw = gru_scan_backward(x, mask, *weights, reverse, hs)
-    assert not dg.any() and not dhn.any() and not dx.any() and not any(v.any() for v in dw)
+    dx, *dw = gru_scan_backward(x, mask, *weights, reverse, hs)
+    assert [tuple(v.shape) for v in (dx, *dw)] == [(4, 5, 3), (2, 3, 6), (2, 6), (2, 2, 6), (2, 2)]
+    assert not dx.any() and not any(v.any() for v in dw)
+    dg, dhn = gru_gate_grads_plain(x, mask, *weights, reverse, hs)
+    assert not dg.any() and not dhn.any()
     with pytest.raises(ValueError, match="hs must be"):
         gru_scan_backward(x, mask, *weights, reverse, hs[:, 1:])
     with pytest.raises(ValueError, match="d_fin must be"):
