@@ -202,13 +202,20 @@
    bit for bit); checkpoint save and restore seconds and bytes; and the
    default teacher's outer step timed (ms, launches and device ms a step
    under the profiler).
-14. Imputation: the Kalman/RTS kernel (csrc/kalman_rts.cu, ``kalman_rts``)
-   held against ``kalman_rts_plain`` on the card at one animal's block of a
-   public recording (45,000, 28), at a ragged (7, 33) and at one frame
-   (1e-5 of max(1, |value|)), timed there against its bytes bound and its
-   plain version; the public recordings with seeded occlusion runs of 4-60
-   frames on a third of their bodyparts and W absent for 150 frames of
-   "test", through ``Project(iterative_imputation="full").create(test=True)``
+14. Imputation: the Kalman/RTS kernel (csrc/kalman_rts.cu, ``kalman_rts``,
+   a chunked parallel-in-time scan) held against ``kalman_rts_plain`` at
+   one animal's block of a public recording (45,000, 28; the plain version
+   on the card, timed) and both animals' (45,000, 56), a ragged (7, 33),
+   one frame, tracks inside the covariances' transient (20, 29 frames) and
+   around a chunk's length (64-66, 130 frames), and against a float64 serial
+   chain at (45,000, 28) and a 2-hour animal (180,000, 28), all at 1e-5 of
+   max(1, |value|), two calls equal bit for bit; timed at (45,000, 28 / 56)
+   and (180,000, 28) with its chunk plan against the function's bytes bound
+   and the algorithm's (its workspace traffic too), each launch's device
+   time apart (the profiler); the public recordings with seeded occlusion
+   runs of 4-60 frames on a third of their bodyparts and W absent for 150
+   frames of "test", through
+   ``Project(iterative_imputation="full").create(test=True)``
    -> ``get_graph_dataset(window_size=25)`` -> ``embedding_per_video
    (batch_size=4096)`` card vs CPU (float32 both) on the 2,000-frame copy at
    1e-4 of max(1, max |value|) (tables, scaled frames, embeddings, soft
@@ -3138,8 +3145,22 @@ def _teacher_phase(torch, card, data):
 # Phase 14: full imputation, and a project past the device residency budgets
 # --------------------------------------------------------------------------- #
 
-KALMAN_CHECK = ((PUBLIC_FRAMES, 28), (7, 33), (1, 28))  # one animal's block, a ragged one, one frame
-KALMAN_TOL = 1e-5  # of max(1, |plain|); the kernel rounds as the plain version does (equal bits seen)
+# (T, C) of kalman_rts against kalman_rts_plain: one animal's block of a
+# public recording (the plain version on the card, timed), both animals',
+# a ragged one, one frame, tracks inside the covariances' ~30-step
+# transient, and a chunk - 1, a chunk and a chunk + 1 of steps (the chunk
+# length is MIN_CHUNK = 64 up to 20,481 frames).
+KALMAN_CHECK = ((PUBLIC_FRAMES, 28), (PUBLIC_FRAMES, 56), (7, 33), (1, 28), (20, 28), (29, 28), (64, 28),
+                (65, 28), (66, 28), (130, 33))
+KALMAN_LONG = (4 * PUBLIC_FRAMES, 28)  # a 2-hour recording's animal, held against a float64 serial chain
+# Of max(1, |reference|). The kernel runs the serial chain's arithmetic, but
+# every chunk past the first starts from a state carried over the chunks in
+# another order, a few ulp off the serial chain's; the maps contract by
+# 0.674 a step and damp that, so the outputs stay within float32's rounding
+# of the chain (3.0e-7 at most seen over these shapes on an H100 80GB HBM3 at
+# 700 W).
+KALMAN_TOL = 1e-5
+KALMAN_TIMED = ((PUBLIC_FRAMES, 28), (PUBLIC_FRAMES, 56), KALMAN_LONG)
 OCCLUSION_RUNS = 40  # runs of 4-60 frames a bodypart, on a third of each recording's bodyparts
 ABSENT = (1_200, 1_350)  # frames of "test" where W is absent (inside the prefix copy too)
 PROJECTION_RTOL = 1e-8  # pca / random_projection card vs CPU (float64 both; other eigensolvers)
@@ -3147,47 +3168,133 @@ PROJECTION_RTOL = 1e-8  # pca / random_projection card vs CPU (float64 both; oth
 # ridge sweep's float32 Gram matrices and solves run in other orders on the
 # two devices (tables 3.7e-7 apart), and the scaling divides an imputed
 # sample's last bits by the local deviation of its speeds and distances
-# (4.1e-4 seen on an H100 80GB HBM3 at 700 W). Tables, embeddings and soft
-# counts keep PATH_RTOL.
+# (3.9e-4-4.1e-4 seen on an H100 80GB HBM3 at 700 W). Solved in float64, the
+# sweep leaves the JAX package's float32 one by more than
+# tests/test_torch_imputation.py allows, so it stays float32. Tables,
+# embeddings and soft counts keep PATH_RTOL.
 IMPUTED_FRAME_RTOL = 1e-3
 
 
+def _kalman_track(rng, t, c):
+    return (rng.normal(size=(t, c)).cumsum(axis=0) * 2.0 + 300.0 + rng.normal(size=(t, c))).astype(np.float32)
+
+
+def _kalman_f64(z):
+    """The serial filter and smoother in float64 (numpy, batched over the
+    channels) from the float32 gains: a reference for long tracks, where the
+    float32 plain version on the card would take minutes."""
+    from deepof_tpu_torch.ops.kalman_kernels import kalman_gains
+
+    t_len = z.shape[0]
+    g = kalman_gains(t_len).astype(np.float64)
+    z = z.astype(np.float64)
+    xf = np.empty(z.shape + (2,))
+    x0 = x1 = z[0]
+    xf[0, :, 0] = xf[0, :, 1] = x0
+    for t in range(1, t_len):
+        xp0 = x0 + x1
+        innov = z[t] - xp0
+        x0, x1 = xp0 + g[t, 4] * innov, x1 + g[t, 5] * innov
+        xf[t, :, 0], xf[t, :, 1] = x0, x1
+    out = np.empty_like(z)
+    out[-1] = x0
+    for t in range(t_len - 2, -1, -1):
+        d0, d1 = x0 - (xf[t, :, 0] + xf[t, :, 1]), x1 - xf[t, :, 1]
+        x0, x1 = xf[t, :, 0] + g[t, 0] * d0 + g[t, 1] * d1, xf[t, :, 1] + g[t, 2] * d0 + g[t, 3] * d1
+        out[t] = x0
+    return out
+
+
+def _kalman_launch_ms(torch, z, calls=5):
+    """Device ms of each of kalman_rts's launches (mean over ``calls`` calls,
+    torch.profiler), by kernel name with its template argument (the names
+    of ``kalman_rts_config``'s launches); None where the profiler saw no
+    device time."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepof_tpu_torch.ops.kalman_kernels import kalman_rts
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kalman_rts(z)
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        name = re.search(r"kalman_\w+(<\w+>)?", evt.key)
+        if evt.device_type == torch.autograd.DeviceType.CUDA and name:
+            us = float(getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0.0)))
+            out[name.group(0)] = out.get(name.group(0), 0.0) + us / 1e3 / calls
+    return out or None
+
+
 def _check_time_kalman(torch):
-    """kalman_rts against kalman_rts_plain on the card at KALMAN_CHECK, then
-    timed at one animal's block of a public recording against its bytes
-    bound and its plain version (once). Returns (max abs err, timing)."""
-    from deepof_tpu_torch.ops.kalman_kernels import kalman_rts, kalman_rts_plain
+    """kalman_rts against kalman_rts_plain at KALMAN_CHECK (the plain
+    version on the card at the first shape, timed there once; on the CPU,
+    the same function, past it), against a float64 serial chain at
+    KALMAN_LONG and at the first shape, two calls equal bit for bit, then
+    timed at KALMAN_TIMED against the function's bytes bound and the
+    algorithm's (its workspace traffic too), each launch timed apart.
+    Returns (max abs err, max rel err, timing at the first shape with the
+    others under "at_shapes")."""
+    from deepof_tpu_torch.ops.kalman_kernels import kalman_rts, kalman_rts_config, kalman_rts_plain
 
     rng = np.random.default_rng(0)
-    worst, inputs = (0.0, 0.0), {}
-    for t, c in KALMAN_CHECK:
-        z = (rng.normal(size=(t, c)).cumsum(axis=0) * 2.0 + 300.0 + rng.normal(size=(t, c))).astype(np.float32)
-        inputs[(t, c)] = z = torch.as_tensor(z, device="cuda")
-        got = kalman_rts(z)
+    worst, inputs, plain_ms = (0.0, 0.0), {}, None
+    for i, (t, c) in enumerate(KALMAN_CHECK + (KALMAN_LONG,)):
+        z = _kalman_track(rng, t, c)
+        inputs[(t, c)] = zc = torch.as_tensor(z, device="cuda")
+        got = kalman_rts(zc)
+        again = kalman_rts(zc)
         torch.cuda.synchronize()
-        want = kalman_rts_plain(z)
-        abs_err = float((got - want).abs().max())
-        worst = (max(worst[0], abs_err), max(worst[1], abs_err / max(1.0, float(want.abs().max()))))
-    _log(f"kalman_rts vs plain on the card at {list(KALMAN_CHECK)}: max|diff| {worst[0]:.3e}, "
-         f"max|diff| / max(1, |plain|) {worst[1]:.3e} (tol {KALMAN_TOL:.0e})")
+        if not torch.equal(got, again):
+            _fail(f"kalman_rts gave other bits on a second call at {(t, c)}")
+        checks = {}
+        if i == 0:
+            t0 = time.perf_counter()
+            want = kalman_rts_plain(zc)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            checks["plain (card)"] = want
+        elif (t, c) != KALMAN_LONG:
+            checks["plain (cpu)"] = kalman_rts_plain(torch.as_tensor(z)).to("cuda")
+        if i == 0 or (t, c) == KALMAN_LONG:
+            checks["float64 serial"] = torch.as_tensor(_kalman_f64(z), device="cuda")
+        for name, want in checks.items():
+            abs_err = float((got.double() - want.double()).abs().max())
+            rel_err = abs_err / max(1.0, float(want.abs().max()))
+            worst = (max(worst[0], abs_err), max(worst[1], rel_err))
+            _log(f"kalman_rts vs {name} at {(t, c)}, plan chunk {kalman_rts_config(t, c)['chunk']} x "
+                 f"{kalman_rts_config(t, c)['chunks']}: max|diff| {abs_err:.3e}, max|diff| / max(1, |ref|) "
+                 f"{rel_err:.3e}, equal bits twice")
+    _log(f"kalman_rts at {len(KALMAN_CHECK) + 1} shapes: max|diff| {worst[0]:.3e}, max|diff| / max(1, |ref|) "
+         f"{worst[1]:.3e} (tol {KALMAN_TOL:.0e})")
     if not worst[1] <= KALMAN_TOL:
         _fail(f"kalman_rts disagrees with its plain version: {worst}")
-    t, c = KALMAN_CHECK[0]
-    z = inputs[(t, c)]
-    ms = _cuda_ms(torch, lambda: kalman_rts(z), reps=10, warmup=2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    kalman_rts_plain(z)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    n_bytes = 2 * 4 * t * c  # z read once, the output written once
-    flop = 20 * t * c  # filter and smoother: ~20 FP32 operations a channel-step
-    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flop / PEAK_FP32 * 1e3
-    timed = {"shape": f"z ({t}, {c}) float32", "ms": ms, "ns_per_step": ms * 1e6 / t, "plain_ms": plain_ms,
-             "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-             "library_ms": None}
+
+    timed = []
+    for t, c in KALMAN_TIMED:
+        z = inputs[(t, c)]
+        plan = kalman_rts_config(t, c)
+        ms = _cuda_ms(torch, lambda: kalman_rts(z), reps=20, warmup=2)
+        n_bytes = 2 * 4 * t * c  # the function: z read once, the output written once
+        # The algorithm: z read twice (offsets, rerun), x_filt (8 bytes a
+        # channel-step) written once and read twice, the output written; the
+        # gains' 32 bytes a step written once and read by the four walks (8,
+        # 8, 16, 16); the chunk offsets and starts written and read.
+        algo_bytes = 36 * t * c + 80 * t + 2 * 4 * 8 * plan["chunks"] * c
+        flop = 20 * t * c  # filter and smoother: ~20 FP32 operations a channel-step
+        by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flop / PEAK_FP32 * 1e3
+        timed.append({"shape": f"z ({t}, {c}) float32", "plan": {k: plan[k] for k in ("chunk", "chunks", "launches")},
+                      "ms": ms, "ns_per_step": ms * 1e6 / t, "bound_ms": max(by_bytes, by_ops),
+                      "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                      "algorithm_bytes": algo_bytes,
+                      "algorithm_bound_ms": max(algo_bytes / PEAK_BYTES * 1e3, by_ops),
+                      "launch_ms": _kalman_launch_ms(torch, z), "library_ms": None})
+    timed[0]["plain_ms"] = plain_ms
     _log(f"kalman_rts timed: {timed}")
-    return worst[0], timed
+    return worst[0], worst[1], {**timed[0], "at_shapes": timed}
 
 
 def _occluded_tables(tables, seed=0):
@@ -3371,12 +3478,12 @@ def _imputation_phase(torch, card, tmp, tables):
     reset of the kernels' counts, create timed by step beside a "partial"
     create of the same tables; then path B (``_imputation_budgets``) and the
     rest of item 4 (``_item4_card_vs_cpu``). Returns (stage line, launches
-    by path, kernel error, kernel timing)."""
+    by path, the kernel's (abs, rel) error, kernel timing)."""
     from deepof_tpu_torch.core.storage import get_dt
     from deepof_tpu_torch.train.inference import ModelBundle
 
     t_phase = time.perf_counter()
-    kernel_err, kernel_t = _check_time_kalman(torch)
+    kernel_err, kernel_rel, kernel_t = _check_time_kalman(torch)
     occluded = _occluded_tables(tables)
     full_root = _write_public_project(os.path.join(tmp, "occluded"), occluded, PUBLIC_FRAMES)
     prefix_root = _write_public_project(os.path.join(tmp, "occluded_prefix"), occluded, PREFIX)
@@ -3457,7 +3564,7 @@ def _imputation_phase(torch, card, tmp, tables):
         "copy_max_rel_err": max(copy_err.values()), "copy_s": copy_s, "kalman": kernel_t,
         "budgets": budgets, "item4": item4, "phase_s": time.perf_counter() - t_phase, "card": card,
     }
-    return line, launches, kernel_err, kernel_t
+    return line, launches, (kernel_err, kernel_rel), kernel_t
 
 
 def _unequal_leaves(got, want, where=""):
@@ -3645,7 +3752,7 @@ def main() -> int:
                               **{p: c["kalman_rts"] for p, c in encoders_launches.items()},
                               "teacher": teacher_launches["kalman_rts"],
                               **{p: c["kalman_rts"] for p, c in imputation_launches.items()}},
-         "max_abs_err": kalman_err, **kalman_t},
+         "max_abs_err": kalman_err[0], "max_rel_err": kalman_err[1], **kalman_t},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

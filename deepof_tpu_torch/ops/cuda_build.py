@@ -51,7 +51,7 @@ SIGNATURES = {
         "hmm_scan_config": ([_I] * 3 + [_P], _I),
     },
     "kalman_rts": {
-        "kalman_rts_launch": ([_P] * 5 + [_I] * 2 + [_P], _I),
+        "kalman_rts_launch": ([_P] * 9 + [_I] * 3 + [_P], _I),
     },
 }
 

@@ -1,12 +1,13 @@
 """A/B of the port between two trees on one CUDA GPU: the serving path's
-seconds, the RecurrentBlock's time at several latents, and the GRU
-layer's backward at the training shapes.
+seconds, the RecurrentBlock's time at several latents, the GRU layer's
+backward at the training shapes, and the HMM and Kalman/RTS kernels.
 
     python3 scripts/torch_ab_path.py --path ROOT
     python3 scripts/torch_ab_path.py --blocks ROOT [--latents 4 8 16 64]
     python3 scripts/torch_ab_path.py --backward ROOT
     python3 scripts/torch_ab_path.py --hmm ROOT
     python3 scripts/torch_ab_path.py --softcounts ROOT
+    python3 scripts/torch_ab_path.py --kalman ROOT [--chunks 32 64 107 213]
     python3 scripts/torch_ab_path.py --summarize A.jsonl B.jsonl
 
 ``--path`` drives the serving path of chip_smoke.py through ROOT's own
@@ -50,11 +51,23 @@ cohort's HMM and MSM fits (phase 11's ``_softcounts_lab_cohort``, the
 same seeded data in every tree). Prints each call's median seconds and
 the lab MSM fit's minibatch steps (a host read each).
 
-All five print the card's name and power limit, then one JSON line.
+``--kalman`` times, through ROOT's own ``ops.kalman_kernels``,
+``kalman_rts`` at ``KALMAN_SHAPES``: one animal's block of a public
+recording (45,000, 28), both animals' (45,000, 56) and a 2-hour animal
+(180,000, 28), seeded random walks made on the host; CUDA events over 10
+calls after 2 warm ones, ``ms`` after a ~20 ms spin of the card (the
+device's time: the host has queued every call before the first starts)
+and ``wrapper_ms`` without it (a call's host work included). With
+``--chunks L ...`` (a tree whose ``kalman_rts_config`` takes ``chunk``)
+it times each chunk length L instead of the tree's own plan (``ms``
+only), each call's output held against the tree's own plan's at 1e-5 of
+max(1, |value|).
+
+All six print the card's name and power limit, then one JSON line.
 
 ``--summarize`` reads files of JSON lines, one file per tree, each line
 either a stage line (chip_smoke.py's or --path's, the one with "total_s")
-or a --blocks, --backward, --hmm or --softcounts line, written in turns (A, B, B, A, ...). Prints per file the
+or a --blocks, --backward, --hmm, --softcounts or --kalman line, written in turns (A, B, B, A, ...). Prints per file the
 median and quartiles of the path's seconds (the first run's too, where the
 lines have it), embed seconds and frames/s, and the median block times;
 with two files, how many of the paired runs (the k-th line of one file
@@ -85,15 +98,21 @@ BACKWARD_SHAPES = [(256 * 28, 16, 16), (256 * 28, 32, 8), (256 * 32, 16, 16), (2
 
 # (N, T, K) of hmm_scan's calls: the cohort's and the lab cohort's lengths.
 HMM_SHAPES = [(n, t, k) for n, t in ((3, 26976), (24, 45000)) for k in (10, 25, 32)]
-MODES = ("blocks", "backward", "hmm", "softcounts")
+# (T, C) of kalman_rts's calls: one and two animals of a public recording,
+# one animal of a 2-hour recording.
+KALMAN_SHAPES = [(45000, 28), (45000, 56), (180000, 28)]
+MODES = ("blocks", "backward", "hmm", "softcounts", "kalman")
+SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's ~1.98 GHz boost clock
 SOFTCOUNT_REPS = 3
 
 
-def _ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+def _ms(torch, fn, reps: int = 10, warmup: int = 2, spin: bool = False) -> float:
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -186,6 +205,38 @@ def hmm(root: str) -> dict:
     return out
 
 
+def kalman(root: str, chunks=None) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import functools
+
+    import numpy as np
+    import torch
+
+    from deepof_tpu_torch.ops import kalman_kernels
+    from deepof_tpu_torch.ops.kalman_kernels import kalman_rts
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for t, c in KALMAN_SHAPES:
+        z = torch.as_tensor((rng.normal(size=(t, c)).cumsum(axis=0) * 2.0 + 300.0).astype(np.float32), device="cuda")
+        if not chunks:
+            out[f"t{t}_c{c}_ms"] = _ms(torch, lambda: kalman_rts(z), spin=True)
+            out[f"t{t}_c{c}_wrapper_ms"] = _ms(torch, lambda: kalman_rts(z))
+            continue
+        want = kalman_rts(z)
+        plan = kalman_kernels.kalman_rts_config
+        try:
+            for length in chunks:
+                kalman_kernels.kalman_rts_config = functools.partial(plan, chunk=length)
+                err = float(((kalman_rts(z) - want).abs() / want.abs().clamp(min=1.0)).max())
+                if not err <= 1e-5:
+                    raise SystemExit(f"kalman_rts at chunk {length}, {(t, c)}: {err} off the tree's own plan")
+                out[f"t{t}_c{c}_L{length}_ms"] = _ms(torch, lambda: kalman_rts(z), spin=True)
+        finally:
+            kalman_kernels.kalman_rts_config = plan
+    return out
+
+
 def softcounts(root: str, card: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import shutil
@@ -271,14 +322,16 @@ def main() -> int:
     ap.add_argument("--backward", metavar="ROOT", help="tree whose GRU backward wrapper to time")
     ap.add_argument("--hmm", metavar="ROOT", help="tree whose HMM scan to time")
     ap.add_argument("--softcounts", metavar="ROOT", help="tree whose soft-count phase to time")
+    ap.add_argument("--kalman", metavar="ROOT", help="tree whose Kalman/RTS kernel to time")
+    ap.add_argument("--chunks", type=int, nargs="+", help="with --kalman: chunk lengths to time")
     ap.add_argument("--latents", type=int, nargs="+", default=[4, 8, 16, 64])
     ap.add_argument("--summarize", metavar="FILE", nargs="+", help="files of JSON lines, one per tree")
     args = ap.parse_args()
     if args.summarize:
         print(json.dumps(summarize(args.summarize), indent=1))
         return 0
-    if not (args.blocks or args.path or args.backward or args.hmm or args.softcounts):
-        ap.error("--blocks, --path, --backward, --hmm, --softcounts or --summarize is required")
+    if not (args.blocks or args.path or args.backward or args.hmm or args.softcounts or args.kalman):
+        ap.error("--blocks, --path, --backward, --hmm, --softcounts, --kalman or --summarize is required")
     import torch
 
     if not torch.cuda.is_available():
@@ -293,6 +346,8 @@ def main() -> int:
         print(json.dumps({"root": args.path, "card": card, **path(args.path)}), flush=True)
     elif args.hmm:
         print(json.dumps({"root": args.hmm, "card": card, "hmm": hmm(args.hmm)}), flush=True)
+    elif args.kalman:
+        print(json.dumps({"root": args.kalman, "card": card, "kalman": kalman(args.kalman, args.chunks)}), flush=True)
     elif args.softcounts:
         print(json.dumps({"root": args.softcounts, "card": card, "softcounts": softcounts(args.softcounts, card)}),
               flush=True)
