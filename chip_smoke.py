@@ -168,16 +168,17 @@
    4096)`` twice, the second timed from a reset of the kernels' counts (one
    window launch a block per recording, Contrastive's at half windows; no
    GRU or HMM launch); shapes, finiteness and row sums (Contrastive's "msm"
-   soft counts); card vs CPU on the 2,000-frame copy, embeddings and soft
-   counts at 1e-4 of max(1, max |value|): the model on the card's scaled
-   frames, and the whole path from each device's own project.
-   Training: one step at batch 256 of VQ-VAE-TCN, VaDE-transformer and
+   soft counts); card vs CPU on a 500-frame copy of the recordings,
+   embeddings and soft counts at 1e-4 of max(1, max |value|): the model on
+   the card's scaled frames, and the whole path from each device's own
+   project. Training: one step of VQ-VAE-TCN, VaDE-transformer and
    Contrastive-TCN on the card against the CPU's float64 step from the
-   same weights, batch and draws with dropout at rate 0 (loss at 1e-5,
-   each gradient at 2e-2 of max(1, its max |g_64|), the running statistics
-   after it at 1e-4), then on the card at default dropout: launches (none),
-   20 timed steps, peak memory. Fits: ``deep_unsupervised_embedding`` for one epoch
-   of 50 + 5 batches (VaDE one pretrain epoch too) of each, finite losses,
+   same weights, batch (the first 64 windows of the training batch) and
+   draws with dropout at rate 0 (loss at 1e-5, each gradient at 2e-2 of
+   max(1, its max |g_64|), the running statistics after it at 1e-4), then
+   on the card at default dropout and batch 256: launches (none), 20 timed
+   steps, peak memory. Fits: ``deep_unsupervised_embedding`` for one epoch
+   of 20 + 2 batches (VaDE one pretrain epoch too) of each, finite losses,
    the saved bundle read back with ``ModelBundle.load`` serving equal
    outputs. Then the card's VQ-VAE-TCN and VaDE-transformer against the JAX
    package's outputs in tests/data/tcn_reference.npz and
@@ -232,7 +233,30 @@
    peak device memory of each run; then ``pca`` (linear, rbf),
    ``random_projection`` (1e-8) and ``scale_tables`` (exactly) card vs
    CPU.
-15. Prints a stage line of each path, a kernels line, and last
+15. Evaluation, on the cohort of phase 9 and the tags of phase 10: the
+   trained bundle served with the kernels' counts reset (21 window and 84
+   GRU launches); ``return_embedding_evaluation(window_size=25)`` in "any"
+   and "center" (every behaviour timed on the card; card vs CPU over the
+   first two), ``gmm_model_selection`` over the four covariance types
+   (components 4 and 8, 2 runs of 1,000 rows, float64),
+   ``chunk_summary_statistics`` of 4,000 chunks of animal B's kinematics,
+   the normative KDE (``get_aggregated_embedding`` ->
+   ``fit_normative_global_model`` on the controls ->
+   ``score_against_normative``) of a seeded 24-experiment cohort, and
+   ``kmeans_background`` + ``KernelExplainer`` on 10,000 chunk means
+   through a seeded softmax-linear model, each twice on the card (the
+   second timed) and once on the CPU from the same host inputs (float64
+   parts at 1e-10, kNN fractions at 1e-4, settings exactly);
+   ``chunk_cv_splitter`` and ``smooth_boolean_array`` on the host;
+   ``align_deepof_kinematics_with_unsupervised_labels`` and
+   ``annotate_time_chunks`` (by mean and by the summary statistics,
+   10,000 chunks drawn) timed on the card, and card vs CPU over the raw
+   distances, angles and areas on the prefix copy from each device's own
+   project (labels and bin_info exactly, values at 1e-4 of max(1, max
+   |value|)); then compactness, separability
+   and kNN agreement on 24 x 45,000 seeded latent-8 windows with a ~10%
+   behaviour, each timed card and CPU and held card vs CPU.
+16. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -2073,7 +2097,8 @@ def _posthoc_phase(torch, card, cohort):
     same host inputs, held at POSTHOC_RTOL (counts exactly); then the
     synthetic lab cohort (:func:`_posthoc_lab_cohort`), and the card's VaDE
     on the reference file of the JAX package's outputs at REFERENCE_TOL.
-    Returns (the posthoc line, the launches of the serving call)."""
+    Returns (the posthoc line, the launches of the serving call, the
+    cohort's supervised tags for phase 15)."""
     from deepof_tpu_torch.ops.gru_kernels import gru_scan, gru_scan_backward
     from deepof_tpu_torch.ops.window_kernels import window_streams
     from deepof_tpu_torch.train.inference import embedding_per_video, scanned_windowed_forward
@@ -2154,7 +2179,7 @@ def _posthoc_phase(torch, card, cohort):
         "card_vs_cpu": errs, "card_vs_cpu_max_rel_err": max(errs.values()), "lab_cohort": lab,
         "jax_reference": reference, "phase_s": time.perf_counter() - t_phase, "card": card,
     }
-    return line, launches
+    return line, launches, tags
 
 
 # Phase 11: soft-count extraction on the cohort's VaDE embeddings.
@@ -2492,6 +2517,13 @@ ENCODER_REF_ATOL = 1e-5
 # |value|).
 ENCODER_STEP_LOSS_RTOL = 1e-5
 ENCODER_STEP_GRAD_RTOL = 2e-2
+# The depth of the phase's checks on the CPU: the card-vs-CPU serving on a
+# copy of this many frames a recording, the card-vs-CPU float64 step on the
+# first windows of the training batch, and the fits' batches (train, val).
+# The served bundles, the timed steps at TRAIN_BATCH and every check stay.
+ENCODER_CHECK_FRAMES = 500
+ENCODER_CHECK_BATCH = 64
+ENCODER_FIT_BATCHES = (20, 2)
 
 
 def _seed_running_stats(torch, model, seed):
@@ -2543,7 +2575,7 @@ def _encoders_serving(torch, data, prefix, bundles):
     """Each bundle through ``embedding_per_video(batch_size=BLOCK)`` on the
     public project twice, the second timed from a reset of the kernels'
     counts (one window launch a block, no GRU or HMM launch); then card vs
-    CPU (float32 both) on the 2,000-frame copy, each at PATH_RTOL: the
+    CPU (float32 both) on the ENCODER_CHECK_FRAMES copy ``prefix``, each at PATH_RTOL: the
     model on the card's scaled frames, and the whole path from each
     device's own project (the transformer magnifies the scaling pass's
     last-bit differences: 9.26e-5 of max(1, |value|) on an H100 80GB HBM3
@@ -2577,7 +2609,7 @@ def _encoders_serving(torch, data, prefix, bundles):
     errs = {}
     for (name, bundle), got, want in zip(bundles.items(), on_card, on_cpu):
         window = WINDOW // 2 if name.startswith("Contrastive") else WINDOW
-        _check_encoder_outputs(name, got, PREFIX, window)
+        _check_encoder_outputs(name, got, ENCODER_CHECK_FRAMES, window)
         cpu_bundle = ModelBundle(copy.deepcopy(bundle.model).to("cpu"), bundle.rebuild_spec)
         err = {"model_embeddings": 0.0, "model_soft_counts": 0.0, "path_embeddings": 0.0, "path_soft_counts": 0.0,
                "path_labels_differing": 0}
@@ -2595,7 +2627,7 @@ def _encoders_serving(torch, data, prefix, bundles):
             err["path_embeddings"] = max(err["path_embeddings"], _rel_err(got[0][key], want[0][key]))
             err["path_soft_counts"] = max(err["path_soft_counts"], _rel_err(got[1][key], want[1][key]))
             err["path_labels_differing"] += int((got[1][key].argmax(1) != want[1][key].argmax(1)).sum())
-        _log(f"{name} on the {PREFIX}-frame copy, card vs CPU plain: {err} (tol {PATH_RTOL:.0e})")
+        _log(f"{name} on the {ENCODER_CHECK_FRAMES}-frame copy, card vs CPU plain: {err} (tol {PATH_RTOL:.0e})")
         if not max(err["model_embeddings"], err["model_soft_counts"]) <= PATH_RTOL:
             _fail(f"card and CPU disagree on {name}'s served outputs from the same frames: {err}")
         if not max(err["path_embeddings"], err["path_soft_counts"]) <= PATH_RTOL:
@@ -2647,10 +2679,11 @@ def _step_vs_float64(torch, loss_fn, cpu_model, card_model, label):
 
 def _encoders_steps(torch, data):
     """One train step of each ENCODER_STEPS model on the card against the
-    CPU's float64 step from the same weights, batch and draws, dropout at
-    rate 0 on both sides: the loss, every gradient and the BatchNorm
-    running statistics after it; then the step on the card at its default
-    dropout, its launches and TIMED_STEPS timed steps, with the peak
+    CPU's float64 step from the same weights, batch (the first
+    ENCODER_CHECK_BATCH windows) and draws, dropout at rate 0 on both
+    sides: the loss, every gradient and the BatchNorm running statistics
+    after it; then the step on the card at its default dropout and
+    TRAIN_BATCH, its launches and TIMED_STEPS timed steps, with the peak
     memory."""
     import copy as _copy
 
@@ -2662,20 +2695,22 @@ def _encoders_steps(torch, data):
 
     x, a, adjacency = data["x"], data["a"], data["ggd"][2]
     n, e = x.shape[2], a.shape[2]
+    xc, ac = x[:ENCODER_CHECK_BATCH], a[:ENCODER_CHECK_BATCH]
     edges = harness.graph_edges(adjacency)
     precomp = build_rotation_precomp(edges, n)
     ccfg = ContrastiveCfg()
     vade_params = vade_params_from_cfg(CommonFitCfg(n_components=N_COMPONENTS), VaDECfg(), TurtleTeacherCfg(), False)
     g = torch.Generator().manual_seed(5)
-    eps_z, eps_kl = torch.randn(TRAIN_BATCH, LATENT, generator=g), torch.randn(32, TRAIN_BATCH, LATENT, generator=g)
-    draws = draw_augmentations(torch.Generator().manual_seed(6), x.shape, precomp, ccfg)
+    eps_z = torch.randn(ENCODER_CHECK_BATCH, LATENT, generator=g)
+    eps_kl = torch.randn(32, ENCODER_CHECK_BATCH, LATENT, generator=g)
+    draws = draw_augmentations(torch.Generator().manual_seed(6), xc.shape, precomp, ccfg)
 
     def loss_fn(model_name):
         def fn(m, dev, dtype):
             def to(v):
                 return v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
 
-            xb, ab = torch.as_tensor(x, device=dev, dtype=dtype), torch.as_tensor(a, device=dev, dtype=dtype)
+            xb, ab = torch.as_tensor(xc, device=dev, dtype=dtype), torch.as_tensor(ac, device=dev, dtype=dtype)
             if model_name == "VQVAE":
                 return harness.vqvae_loss(m, xb, ab)[0]
             if model_name == "VaDE":
@@ -2726,6 +2761,7 @@ def _encoders_steps(torch, data):
             _fail(f"non-finite {model_name}-{encoder} losses after {TIMED_STEPS + 2} steps: {logs}")
         steps[f"{model_name}_{encoder}"] = {
             "ms_per_step": step_ms, "windows_per_s": TRAIN_BATCH * 1e3 / step_ms, "launches": launches,
+            "check_batch": ENCODER_CHECK_BATCH,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "loss_rel_err_vs_cpu64": loss_err, "grad_rel_err_vs_cpu64": grad_err,
             "grad_median_rel_err_vs_cpu64": grad_median, "running_stats_rel_err_vs_cpu64": stats_err}
@@ -2734,8 +2770,8 @@ def _encoders_steps(torch, data):
 
 
 def _encoders_fits(torch, data):
-    """``deep_unsupervised_embedding`` for one epoch of TRAIN_BATCHES +
-    VAL_BATCHES batches (VaDE: one pretrain epoch too) at default dropout
+    """``deep_unsupervised_embedding`` for one epoch of ENCODER_FIT_BATCHES
+    batches (VaDE: one pretrain epoch too) at default dropout
     for each ENCODER_STEPS model: finite losses, no kernel of the port
     launched, and the saved bundle read back with ``ModelBundle.load``
     serving what the trained bundle serves."""
@@ -2753,8 +2789,8 @@ def _encoders_fits(torch, data):
         bundle, _, _, summary = coords.deep_unsupervised_embedding(
             ggd[:3], adjacency_matrix=adjacency, embedding_model=model_name, encoder_type=encoder,
             batch_size=TRAIN_BATCH, latent_dim=LATENT, n_clusters=N_COMPONENTS, epochs=1, pretrain_epochs=1,
-            save_checkpoints=True, verbose=False, limit_train_batches=TRAIN_BATCHES,
-            limit_val_batches=VAL_BATCHES)
+            save_checkpoints=True, verbose=False, limit_train_batches=ENCODER_FIT_BATCHES[0],
+            limit_val_batches=ENCODER_FIT_BATCHES[1])
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = _kernel_counts()
@@ -2802,12 +2838,15 @@ def _encoders_references(torch):
     return out
 
 
-def _encoders_phase(torch, card, data, prefix):
+def _encoders_phase(torch, card, data, tmp, tables):
     """Phase 12: the TCN and transformer encoders and decoders, and
     Contrastive at its default TCN encoder: serving, one train step card vs
     CPU, the fits, and the card against the JAX package's reference files.
-    Returns (stage line, launches of each served bundle's second call)."""
+    The card-vs-CPU serving runs on an ENCODER_CHECK_FRAMES copy of the
+    public recordings (``tables``) written under ``tmp``. Returns (stage
+    line, launches of each served bundle's second call)."""
     t_phase = time.perf_counter()
+    prefix = _write_public_project(os.path.join(tmp, "encoders_copy"), tables, ENCODER_CHECK_FRAMES)
     graph, *_ = _frame_layout(ANIMALS)
     n, e = graph.n_nodes, graph.n_edges
     bundles = {}
@@ -2828,11 +2867,378 @@ def _encoders_phase(torch, card, data, prefix):
     stage_s["jax_reference"] = time.perf_counter() - t0
     line = {
         "path": "encoders", "latent": LATENT, "n_components": N_COMPONENTS, "window": WINDOW,
-        "batch": TRAIN_BATCH, "serving": serving, "serving_card_vs_cpu": serve_errs, "steps": steps,
-        "timed_steps": TIMED_STEPS, "fits": fits, "fit_batches": [TRAIN_BATCHES, VAL_BATCHES],
+        "batch": TRAIN_BATCH, "serving": serving, "serving_card_vs_cpu": serve_errs,
+        "card_vs_cpu_frames": ENCODER_CHECK_FRAMES, "steps": steps, "timed_steps": TIMED_STEPS, "fits": fits,
+        "fit_batches": list(ENCODER_FIT_BATCHES),
         "jax_reference": references, "stages_s": stage_s, "phase_s": time.perf_counter() - t_phase, "card": card,
     }
     return line, {f"encoders_{k}": v["launches"] for k, v in serving.items()}
+
+
+# Phase 15: embedding evaluation, chunk features, normative scores, Kernel
+# SHAP and burst smoothing on the cohort's served VaDE embeddings and phase
+# 10's supervised tags. The BIC scan's settings (the four covariance types,
+# float64 rows):
+EVAL_GMM = dict(n_components_range=(4, 8), part_size=1_000, n_runs=2)
+# Card vs CPU from the same host inputs: float64 results (compactness, AP,
+# BICs, chunk statistics, log densities, Shapley values) within EVAL_RTOL of
+# max(1, |value|) entry by entry (compactness and AP of |value|); kNN
+# fractions within EVAL_KNN_RTOL of their value (float32 products summed in
+# other orders can move near ties); labels, bin_info and folds exactly.
+EVAL_RTOL = 1e-10
+EVAL_KNN_RTOL = 1e-4
+# The evaluation table card vs CPU over this many behaviours (the first ones
+# scored; the CPU's kNN search takes ~4 s a behaviour); the card's timed
+# call scores every behaviour.
+EVAL_CPU_BEHAVIOURS = 2
+# The chunk features card vs CPU, each device from its own prefix project
+# (float32 kinematics both, as the getters phase holds them), over the raw
+# features (distances, angles, areas; kin_derivative 0): speeds are rounded
+# to 0.025 (3 decimals x 25 fps), and a speed within float32 noise of a
+# rounding boundary (the aligned coordinates' noise, see phase 9) rounds one
+# unit apart on the two devices (2.9e-4 of a column's max on one H100).
+# This many chunks drawn; tables and statistics within PATH_RTOL of max(1,
+# max |value|) of a column, labels and bin_info exactly (they read only the
+# soft counts and numpy's draw).
+EVAL_CHUNK_SAMPLES = 2_000
+EVAL_RAW_FEATURES = dict(kin_derivative=0, include_distances=True, include_angles=True, include_areas=True)
+# Chunks drawn on the full cohort (annotate_time_chunks' default).
+EVAL_CHUNKS = 10_000
+# A lab's size for the three metrics: recordings, windows each, embedding
+# width; the share of windows in a behaviour (runs of ~25 windows).
+EVAL_LAB = (24, 45_000, LATENT)
+EVAL_LAB_RATE = 0.1
+# The normative KDE's cohort: seeded experiments (half controls), frames each.
+EVAL_NORMATIVE = (24, 2_000)
+EVAL_SHAP_ROWS = 16
+EVAL_BACKGROUND = 10
+
+
+def _eval_err(name, got, want) -> dict:
+    """{part: max relative error} of one phase-15 result card vs CPU; fails
+    on differing labels, shapes, NaNs, settings or exact parts."""
+    from deepof_tpu_torch.posthoc import Labelled
+
+    if isinstance(want, Labelled):
+        if list(got.index) != list(want.index) or list(got.columns) != list(want.columns):
+            _fail(f"evaluation {name}: labels differ card vs CPU ({got.index}, {got.columns})")
+        if not name.startswith("evaluation"):
+            return {"values": _rel_each(got.values, want.values)}
+        if not np.array_equal(np.isnan(got.values), np.isnan(want.values)):
+            _fail(f"evaluation {name}: NaNs differ card vs CPU")
+        diff = np.abs(np.nan_to_num(got.values - want.values))
+        rel = diff / np.maximum(np.abs(np.nan_to_num(want.values)), 1e-300)
+        knn = np.array(["knn" in str(c) for c in want.columns])
+        return {"float64": float(rel[:, ~knn].max(initial=0.0)), "knn": float(rel[:, knn].max(initial=0.0))}
+    out = {}
+    for part, w in want.items():
+        g = got[part]
+        if isinstance(w, Labelled):
+            out.update({f"{part}_{k}": v for k, v in _eval_err(f"{name}.{part}", g, w).items()})
+        elif isinstance(w, tuple):
+            if g != w:
+                _fail(f"evaluation {name}: {part} differs card vs CPU ({g} vs {w})")
+        else:
+            out[part] = _rel_each(g, w)
+    return out
+
+
+def _rel_each(got, want) -> float:
+    """Max |got - want| / max(1, |want|) entry by entry; NaNs must match."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.array_equal(np.isnan(got), np.isnan(want)):
+        _fail(f"shapes or NaNs differ: {got.shape} vs {want.shape}")
+    diff = np.abs(np.nan_to_num(got - want))
+    return float((diff / np.maximum(1.0, np.abs(np.nan_to_num(want)))).max(initial=0.0))
+
+
+def _chunk_calls(coords, counts, tags, samples, kin_derivative=1, **include):
+    """{name: fn(device)} of the chunk-feature calls on ``coords``: animal
+    B's kinematics table, and its kinematics (by default its speeds) with
+    the tags appended cut into WINDOW-frame chunks (numpy's draw seeded
+    before each call), by mean and by the summary statistics."""
+    from deepof_tpu_torch import posthoc as ph
+
+    def annotate(aggregate):
+        def fn(device):
+            np.random.seed(0)
+            return ph.annotate_time_chunks(coords, counts, tags, window_size=WINDOW, animal_id="B", samples=samples,
+                                           aggregate=aggregate, kin_derivative=kin_derivative, device=device,
+                                           **include)
+        return fn
+
+    return {"kinematics": lambda device: ph.align_deepof_kinematics_with_unsupervised_labels(
+                coords, kin_derivative=kin_derivative, animal_id="B", device=device),
+            "chunks_mean": annotate("mean"), "chunks_stats": annotate("stats")}
+
+
+def _chunks_card_vs_cpu(prefix, counts, tags):
+    """The chunk calls over EVAL_RAW_FEATURES on the cohort's prefix copy,
+    each device from its own project (float32 both) with the same soft
+    counts, tags and draw: labels and bin_info exactly, tables and
+    statistics within PATH_RTOL of max(1, max |value|) of their column."""
+    card = _chunk_calls(_cohort_project(prefix, "cuda"), counts, tags, EVAL_CHUNK_SAMPLES, **EVAL_RAW_FEATURES)
+    cpu = _chunk_calls(_cohort_project(prefix, "cpu", precision="float32"), counts, tags, EVAL_CHUNK_SAMPLES,
+                       **EVAL_RAW_FEATURES)
+    errs = {}
+    for name in card:
+        got, want = card[name]("cuda"), cpu[name]("cpu")
+        if name == "kinematics":
+            pairs = [(got[k].realize(), want[k].realize(), got[k].columns == want[k].columns) for k in COHORT_KEYS]
+        else:
+            (g_stats, g_y, g_bins), (w_stats, w_y, w_bins) = got, want
+            if not (np.array_equal(g_y, w_y) and list(g_bins) == list(w_bins)
+                    and all(np.array_equal(g_bins[k], w_bins[k]) for k in w_bins)):
+                _fail(f"{name} on the cohort copy: labels or bin_info differ card vs CPU")
+            pairs = [(g_stats.values, w_stats.values, g_stats.columns == w_stats.columns)]
+        err = 0.0
+        for g, w, same_columns in pairs:
+            if not same_columns or g.shape != w.shape or not np.array_equal(np.isnan(g), np.isnan(w)):
+                _fail(f"{name} on the cohort copy: columns, shapes or NaNs differ card vs CPU")
+            scale = np.maximum(1.0, np.nanmax(np.abs(w), axis=0, initial=0.0))
+            err = max(err, float((np.abs(np.nan_to_num(g - w)) / scale).max(initial=0.0)))
+        errs[name] = err
+        _log(f"evaluation {name} on the cohort copy, card vs CPU (float32 raw features both): {err:.3e} "
+             f"(tol {PATH_RTOL:.0e}); labels and bin_info equal")
+        if not err <= PATH_RTOL:
+            _fail(f"card and CPU disagree on {name} of the cohort copy: {err}")
+    return errs
+
+
+def _lab_embeddings(seed=0):
+    """(z float32 (n, D), y bool) at EVAL_LAB's size: seeded embeddings, a
+    behaviour in runs of ~25 windows over ~EVAL_LAB_RATE of them shifting
+    the embedding, and 200 idle stretches of 50 identical windows."""
+    n_rec, frames, d = EVAL_LAB
+    n = n_rec * frames
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(n, d)).astype(np.float32)
+    starts = rng.choice(n - 100, int(EVAL_LAB_RATE * n / 25), replace=False)
+    delta = np.zeros(n + 1_000, np.int64)
+    np.add.at(delta, starts, 1)
+    np.add.at(delta, starts + np.minimum(rng.geometric(1 / 25, size=len(starts)), 900), -1)
+    y = np.cumsum(delta)[:n] > 0
+    z[y] += (0.8 * rng.normal(size=d)).astype(np.float32)
+    for start in rng.choice(n - 50, 200, replace=False):
+        z[start:start + 50] = z[start]
+    return z, y
+
+
+def _evaluation_lab(torch):
+    """The three metrics at a lab's size (EVAL_LAB), each twice on the card
+    (the second timed) and once on the CPU: compactness, separability
+    (100,000 training rows, 5 folds) and kNN agreement (50,000 references,
+    10,000 queries)."""
+    from deepof_tpu_torch import evaluation as ev
+
+    t0 = time.perf_counter()
+    z, y = _lab_embeddings()
+    out = {"windows": int(len(z)), "positive_rate": float(y.mean()), "synthesize_s": time.perf_counter() - t0}
+    calls = {"compactness": lambda dev: ev.compute_compactness(z[y], z, device=dev),
+             "separability": lambda dev: ev.compute_separability_logreg(z, y, device=dev),
+             "knn_agreement": lambda dev: ev.compute_knn_agreement(z, y, device=dev)}
+    for name, fn in calls.items():
+        fn("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn("cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = fn("cpu")
+        cpu_s = time.perf_counter() - t0
+        if list(got) != list(want):
+            _fail(f"lab {name}: keys differ card vs CPU")
+        diff = {k: abs(got[k] - want[k]) for k in want}
+        tol = EVAL_KNN_RTOL if name == "knn_agreement" else EVAL_RTOL
+        worst = max(diff[k] / max(abs(want[k]), 1e-300) for k in want)
+        out[name] = {"card_s": card_s, "cpu_s": cpu_s, "card": got, "abs_diff": diff, "max_rel_err": worst,
+                     "tol": tol}
+        _log(f"evaluation lab {name}: card {card_s:.4f} s, CPU {cpu_s:.4f} s, {got}, card vs CPU max rel "
+             f"{worst:.3e} (tol {tol:.0e})")
+        if not worst <= tol:
+            _fail(f"card and CPU disagree on the lab's {name}: {diff}")
+    n, n_pos = len(y), int(y.sum())
+    used = n if n <= 100_000 else sum(min(int(round(100_000 * c / n)), c) for c in (n - n_pos, n_pos))
+    sizes = (out["separability"]["card"]["n_used"], out["knn_agreement"]["card"]["n_ref"],
+             out["knn_agreement"]["card"]["n_pos_queries"])
+    if sizes != (used, min(n, 50_000), min(n_pos, 10_000)):
+        _fail(f"the lab metrics' rows, references and queries: {sizes}")
+    return out
+
+
+def _shap_model(torch, x, k, seed=0):
+    """A seeded softmax-linear model of standardised features (x's column
+    means and deviations), called with float64 tensors on any device."""
+    rng = np.random.default_rng(seed)
+    w, b = torch.as_tensor(rng.normal(size=(x.shape[1], k))), torch.as_tensor(rng.normal(size=k))
+    mu, sd = torch.as_tensor(x.mean(axis=0)), torch.as_tensor(x.std(axis=0) + 1e-9)
+
+    def model(v):
+        dev = v.device
+        return torch.softmax(((v - mu.to(dev)) / sd.to(dev)) @ w.to(dev) + b.to(dev), dim=1)
+
+    return model
+
+
+def _evaluation_calls(torch, coords, emb, counts, tags):
+    """({name: fn(device)} of phase 15's calls compared card vs CPU,
+    {name: fn()} of its host calls, the inputs' sizes). Host inputs made
+    once: the cohort's embeddings in float64 (the BIC scan), the full
+    cohort's chunk means (the SHAP background and rows, the folds) and
+    4,000 chunks of the first recording's kinematics (the statistics)."""
+    from deepof_tpu_torch import evaluation as ev
+    from deepof_tpu_torch import posthoc as ph
+    from deepof_tpu_torch import shap_kernel as shap
+    from deepof_tpu_torch import visuals as vis
+    from deepof_tpu_torch.ops.bursts import smooth_boolean_array
+
+    z64 = np.concatenate([np.asarray(emb[k], np.float64) for k in COHORT_KEYS])
+    np.random.seed(0)
+    means, _, bin_info = ph.annotate_time_chunks(coords, counts, tags, window_size=WINDOW, animal_id="B",
+                                                 device="cuda")
+    features = np.nan_to_num(means.values)
+    kin = ph.align_deepof_kinematics_with_unsupervised_labels(coords, animal_id="B", device="cuda")
+    table = kin[COHORT_KEYS[0]].realize()
+    starts = np.sort(np.random.default_rng(1).choice(len(table) - WINDOW, min(4_000, len(table) - WINDOW),
+                                                     replace=False))
+    chunks = table[starts[:, None] + np.arange(WINDOW)[None, :]]
+    model = _shap_model(torch, features, N_COMPONENTS)
+    rows = features[:EVAL_SHAP_ROWS]
+    _, norm_emb, norm_conds = synthetic_cohort(EVAL_NORMATIVE[0], EVAL_NORMATIVE[1], N_COMPONENTS, LATENT, seed=3)
+    tag_table = tags[COHORT_KEYS[0]].realize()
+    binary = [j for j in range(tag_table.shape[1]) if np.nanmax(tag_table[:, j]) <= 1]
+    tag_column = max(binary, key=lambda j: np.nansum(tag_table[:, j]))
+    scored = vis.return_embedding_evaluation(coords, emb, tags, window_size=WINDOW, device="cuda").index
+    picked = list(scored[:EVAL_CPU_BEHAVIOURS])
+
+    def gmm(dev):
+        np.random.seed(0)
+        bic, m_bic, best = ev.gmm_model_selection(z64, cv_types=("spherical", "tied", "diag", "full"), device=dev,
+                                                  **EVAL_GMM)
+        return {"bic": np.asarray(bic), "median_bic": np.asarray(m_bic),
+                "best": (best.covariance_type, best.n_components, best.n_iter_)}
+
+    def normative(dev):
+        agg = ph.get_aggregated_embedding(norm_emb, device=dev)
+        controls = [i for i, k in enumerate(agg.index) if norm_conds[k]["condition"][0] == "control"]
+        fitted = ph.fit_normative_global_model(agg.values[controls], device=dev)
+        return {"bandwidth": (fitted.bandwidth,), "scores": ph.score_against_normative(fitted, agg)}
+
+    def explain(dev):
+        bg = shap.kmeans_background(features, EVAL_BACKGROUND, device=dev)
+        ex = shap.KernelExplainer(model, bg, device=dev)
+        return {"background": bg.data, "weights": bg.weights, "expected": ex.expected_value,
+                "shap": np.stack(ex.shap_values(rows))}
+
+    calls = {
+        "evaluation_any": lambda dev: vis.return_embedding_evaluation(
+            coords, emb, tags, include_behaviors=picked, window_size=WINDOW, device=dev),
+        "evaluation_center": lambda dev: vis.return_embedding_evaluation(
+            coords, emb, tags, include_behaviors=picked, window_size=WINDOW, alignment_mode="center", device=dev),
+        "gmm_model_selection": gmm,
+        "chunk_statistics": lambda dev: ph.chunk_summary_statistics(chunks, list(kin[COHORT_KEYS[0]].columns),
+                                                                    device=dev),
+        "normative": normative,
+        "shap": explain,
+    }
+    host = {"chunk_cv_splitter": lambda: ph.chunk_cv_splitter(means, bin_info),
+            "smooth_boolean_array": lambda: smooth_boolean_array(tag_table[:, tag_column] > 0.5)}
+    sizes = {"embedding_rows": int(len(z64)), "behaviours_scored": list(scored), "cpu_behaviours": picked,
+             "chunk_features": list(features.shape), "statistics_chunks": list(chunks.shape),
+             "shap_rows": int(len(rows)), "normative_experiments": EVAL_NORMATIVE[0],
+             "smoothed_tag": str(tags[COHORT_KEYS[0]].columns[tag_column])}
+    return calls, host, sizes, (means, bin_info)
+
+
+def _evaluation_phase(torch, card, cohort, tags):
+    """Phase 15: evaluation on the cohort. Serves the cohort's trained
+    bundle with the kernels' counts reset; then each call of
+    :func:`_evaluation_calls` twice on the card (the second timed) and once
+    on the CPU from the same host inputs, at EVAL_RTOL / EVAL_KNN_RTOL; the
+    host calls (folds, burst smoothing) timed and checked; the chunk calls
+    on the full cohort timed on the card (10,000 chunks drawn) and card vs
+    CPU on the prefix copy (:func:`_chunks_card_vs_cpu`); the lab-size
+    metrics (:func:`_evaluation_lab`). Returns (the evaluation line, the
+    serving launches)."""
+    from deepof_tpu_torch import visuals as vis
+    from deepof_tpu_torch.train.inference import embedding_per_video
+
+    t_phase = time.perf_counter()
+    coords, (_, meta, _, tab_dict, scaler), bundle = (cohort["coords"], cohort["graph_dataset"], cohort["bundle"])
+    torch.cuda.synchronize()
+    _kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    emb, counts = embedding_per_video(coords, tab_dict, bundle, meta, animal_id="B", global_scaler=scaler,
+                                      batch_size=BLOCK)
+    embed_s = time.perf_counter() - t0
+    launches = _kernel_counts()
+    n_blocks = len(COHORT_KEYS) * -(-(min(COHORT_FRAMES) - WINDOW + 1) // BLOCK)
+    want = {"window_streams": n_blocks, "gru_scan": 4 * n_blocks, "gru_scan_bwd": 0, "hmm_scan": 0, "kalman_rts": 0}
+    if launches != want:
+        _fail(f"serving the cohort for evaluation launched {launches}, not {want}")
+
+    calls, host, sizes, (means, bin_info) = _evaluation_calls(torch, coords, emb, counts, tags)
+    card_s, cpu_s, errs = {}, {}, {}
+    for name, fn in calls.items():
+        fn("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn("cuda")
+        torch.cuda.synchronize()
+        card_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want_ = fn("cpu")
+        cpu_s[name] = time.perf_counter() - t0
+        errs[name] = _eval_err(name, got, want_)
+        knn = errs[name].get("knn", 0.0)
+        worst = max([v for k, v in errs[name].items() if k != "knn"] + [0.0])
+        _log(f"evaluation {name}: card {card_s[name]:.4f} s, CPU {cpu_s[name]:.4f} s, card vs CPU {errs[name]} "
+             f"(tol {EVAL_RTOL:.0e}, kNN {EVAL_KNN_RTOL:.0e})")
+        if not (worst <= EVAL_RTOL and knn <= EVAL_KNN_RTOL):
+            _fail(f"card and CPU disagree on evaluation {name}: {errs[name]}")
+    for mode in ("any", "center"):
+        vis.return_embedding_evaluation(coords, emb, tags, window_size=WINDOW, alignment_mode=mode, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = vis.return_embedding_evaluation(coords, emb, tags, window_size=WINDOW, alignment_mode=mode,
+                                                device="cuda")
+        torch.cuda.synchronize()
+        card_s[f"evaluation_{mode}_all_behaviours"] = time.perf_counter() - t0
+        if not (len(table.index) >= 1 and len(table.columns) == 10 and np.isfinite(table.values[:, :2]).all()):
+            _fail(f"the cohort's evaluation table ({mode}): {table.index}, {table.columns}")
+
+    outs = {}
+    for name, fn in host.items():
+        t0 = time.perf_counter()
+        outs[name] = fn()
+        card_s[name] = time.perf_counter() - t0
+    folds = outs["chunk_cv_splitter"]
+    n_chunks = len(means.values)
+    tests = [np.sort(te) for _, te in folds]
+    if len(folds) != len(COHORT_KEYS) or not np.array_equal(np.sort(np.concatenate(tests)), np.arange(n_chunks)):
+        _fail(f"chunk_cv_splitter: {len(folds)} folds over {n_chunks} chunks")
+    sizes["smoothed_frames"] = int(outs["smooth_boolean_array"].sum())
+
+    drawn = min(EVAL_CHUNKS, sum(len(v) for v in counts.values()))
+    for name, fn in _chunk_calls(coords, counts, tags, EVAL_CHUNKS).items():
+        fn("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn("cuda")
+        torch.cuda.synchronize()
+        card_s[name] = time.perf_counter() - t0
+        if name != "kinematics" and not len(out[1]) == len(out[0].values) == drawn:
+            _fail(f"{name} on the cohort: {len(out[1])} labels, {len(out[0].values)} chunks, not {drawn}")
+    chunk_errs = _chunks_card_vs_cpu(cohort["prefix"], counts, tags)
+    lab = _evaluation_lab(torch)
+    line = {
+        "path": "evaluation", "recordings": len(COHORT_KEYS), "windows": [len(v) for v in counts.values()],
+        "embed_s": embed_s, "launches": launches, "calls_s": card_s, "cpu_calls_s": cpu_s, "card_vs_cpu": errs,
+        "chunks_card_vs_cpu": chunk_errs, "sizes": sizes, "gmm": EVAL_GMM, "lab": lab,
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    return line, launches
 
 
 # Phase 13: VaDE's TURTLE teacher and resumable checkpoints on the training
@@ -3662,10 +4068,11 @@ def main() -> int:
     launches["gru_scan_bwd"] = bwd_launches
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
-    # Phases 4-14: the public path, the getters, supervised annotation,
+    # Phases 4-15: the public path, the getters, supervised annotation,
     # training and VaDE on its project, then the cohort, its group
-    # comparison and its soft counts, the other encoders, VaDE's teacher
-    # and checkpoints, and full imputation with a project past the device
+    # comparison, its soft counts and its evaluation (phase 15, run while
+    # the cohort is held), the other encoders, VaDE's teacher and
+    # checkpoints, and full imputation with a project past the device
     # budgets.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
     try:
@@ -3677,10 +4084,11 @@ def main() -> int:
         train_line, bwd_err, bwd_t, train_launches = _training_phase(torch, card, data)
         vade_line, vade_launches = _vade_phase(torch, card, data, os.path.join(tmp, "prefix"))
         cohort_line, cohort_launches, cohort = _cohort_phase(torch, card, tmp)
-        posthoc_line, posthoc_launches = _posthoc_phase(torch, card, cohort)
+        posthoc_line, posthoc_launches, tags = _posthoc_phase(torch, card, cohort)
         softcounts_line, softcounts_launches, hmm_res = _softcounts_phase(torch, card, cohort)
-        del cohort
-        encoders_line, encoders_launches = _encoders_phase(torch, card, data, os.path.join(tmp, "prefix"))
+        evaluation_line, evaluation_launches = _evaluation_phase(torch, card, cohort, tags)
+        del cohort, tags
+        encoders_line, encoders_launches = _encoders_phase(torch, card, data, tmp, tables)
         teacher_line, teacher_launches = _teacher_phase(torch, card, data)
         del data
         imputation_line, imputation_launches, kalman_err, kalman_t = _imputation_phase(torch, card, tmp, tables)
@@ -3699,6 +4107,7 @@ def main() -> int:
     print(json.dumps(encoders_line), flush=True)
     print(json.dumps(teacher_line), flush=True)
     print(json.dumps(imputation_line), flush=True)
+    print(json.dumps(evaluation_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,
         "first_stages_s": first_stages, "first_run_s": first_run_s,
@@ -3715,7 +4124,8 @@ def main() -> int:
                       "cohort": cohort_launches[name], "posthoc": posthoc_launches[name],
                       **{f"softcounts_{p}": c[name] for p, c in softcounts_launches.items() if name in c},
                       **{p: c[name] for p, c in encoders_launches.items()}, "teacher": teacher_launches[name],
-                      **{p: c[name] for p, c in imputation_launches.items()}}
+                      **{p: c[name] for p, c in imputation_launches.items()},
+                      "evaluation": evaluation_launches[name]}
                for name in ("window_streams", "gru_scan", "gru_scan_bwd")}
     hmm_abs, hmm_rel, hmm_timed = hmm_res
     kernels = [
@@ -3740,7 +4150,8 @@ def main() -> int:
          "launches": softcounts_launches["hmm"]["hmm_scan"],
          "launches_by_path": {**{f"softcounts_{p}": c["hmm_scan"] for p, c in softcounts_launches.items()},
                               "teacher": teacher_launches["hmm_scan"],
-                              **{p: c["hmm_scan"] for p, c in imputation_launches.items()}},
+                              **{p: c["hmm_scan"] for p, c in imputation_launches.items()},
+                              "evaluation": evaluation_launches["hmm_scan"]},
          "max_abs_err": hmm_abs, "max_rel_err": hmm_rel, **hmm_timed[0], "library_ms": None,
          "at_shapes": hmm_timed},
         {"name": "kalman_rts", "route": "cuda",
@@ -3751,7 +4162,8 @@ def main() -> int:
                                  if "kalman_rts" in c},
                               **{p: c["kalman_rts"] for p, c in encoders_launches.items()},
                               "teacher": teacher_launches["kalman_rts"],
-                              **{p: c["kalman_rts"] for p, c in imputation_launches.items()}},
+                              **{p: c["kalman_rts"] for p, c in imputation_launches.items()},
+                              "evaluation": evaluation_launches["kalman_rts"]},
          "max_abs_err": kalman_err[0], "max_rel_err": kalman_err[1], **kalman_t},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

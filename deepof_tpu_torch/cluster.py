@@ -7,16 +7,20 @@ here follows its sklearn counterpart step for step, in the dtype of the data
 it is given (float32 embeddings are fitted in float32, as sklearn fits
 them), with its arithmetic in torch on the data's device:
 
-- ``KMeans(n_init=1)``: the data centred on its mean, k-means++ seeding
-  (2 + floor(ln k) local trials, squared distances computed in float64 and
-  rounded to the data's dtype as sklearn's ``_euclidean_distances`` does),
-  Lloyd's iterations with ``||c||^2 - 2 x.c`` labels, empty clusters moved
-  to the farthest points, until the labels repeat or the centre shift is at
-  most ``tol`` times the mean feature variance;
-- ``GaussianMixture`` with "full" or "diag" covariances and the k-means
-  init: EM until the mean log-likelihood changes by less than ``tol``,
-  Cholesky precisions for "full" (a ValueError on an ill-defined
-  covariance, as sklearn raises);
+- ``KMeans``: the data centred on its mean, then ``n_init`` runs of
+  k-means++ seeding (2 + floor(ln k) local trials, squared distances
+  computed in float64 and rounded to the data's dtype as sklearn's
+  ``_euclidean_distances`` does) and Lloyd's iterations with ``||c||^2 - 2
+  x.c`` labels, empty clusters moved to the farthest points, until the
+  labels repeat or the centre shift is at most ``tol`` times the mean
+  feature variance; a later run replaces the best one where its inertia is
+  lower and its labels are no function of the best run's (sklearn's
+  ``_is_same_clustering``);
+- ``GaussianMixture`` with "full", "tied", "diag" or "spherical"
+  covariances and the k-means init: EM until the mean log-likelihood
+  changes by less than ``tol``, Cholesky precisions for "full" and "tied"
+  (a ValueError on an ill-defined covariance, as sklearn raises);
+  ``score``, ``bic`` and ``_n_parameters`` as sklearn counts them;
 - ``MiniBatchKMeans``: ``n_init`` k-means++ inits on ``init_size`` rows
   judged on a validation sample, then minibatch steps with the running
   per-centre weights, random reassignment of light centres and the early
@@ -175,17 +179,18 @@ def labels_inertia(x: torch.Tensor, centers: torch.Tensor) -> Tuple[torch.Tensor
 
 
 class KMeans:
-    """sklearn's ``KMeans(n_init=1)`` with k-means++ and Lloyd's algorithm,
-    dense data, unit weights. Fitted attributes are tensors on the data's
-    device: ``cluster_centers_``, ``labels_``, ``inertia_``; ``n_iter_`` an
-    int."""
+    """sklearn's ``KMeans`` with k-means++ and Lloyd's algorithm, dense
+    data, unit weights, ``n_init`` runs (sklearn's "auto" is 1 for
+    k-means++). Fitted attributes are tensors on the data's device:
+    ``cluster_centers_``, ``labels_``, ``inertia_``; ``n_iter_`` an int."""
 
     def __init__(self, n_clusters: int = 8, max_iter: int = 300, tol: float = 1e-4, random_state=None,
-                 device="cuda"):
+                 n_init: int = 1, device="cuda"):
         self.n_clusters = n_clusters
         self.max_iter = max_iter
         self.tol = tol
         self.random_state = random_state
+        self.n_init = n_init
         self.device = device
 
     def fit(self, x) -> "KMeans":
@@ -197,14 +202,24 @@ class KMeans:
         tol = float(x.to(torch.float64).var(0, correction=0).mean().to(x.dtype)) * self.tol if self.tol else 0.0
         mean = x.to(torch.float64).mean(0).to(x.dtype)
         xc = x - mean
-        self.labels_, self.inertia_, centers, self.n_iter_ = _lloyd(xc, xc[kmeans_plusplus(xc, k, rs)],
-                                                                    self.max_iter, tol)
+        best = None
+        for _ in range(self.n_init):
+            run = _lloyd(xc, xc[kmeans_plusplus(xc, k, rs)], self.max_iter, tol)
+            if best is None or (float(run[1]) < float(best[1]) and not _same_clustering(run[0], best[0], k)):
+                best = run
+        self.labels_, self.inertia_, centers, self.n_iter_ = best
         self.cluster_centers_ = centers + mean
         return self
 
     def predict(self, x) -> torch.Tensor:
         return _labels(_as_data(x, self.cluster_centers_.device).to(self.cluster_centers_.dtype),
                        self.cluster_centers_)
+
+
+def _same_clustering(labels, best, k: int) -> bool:
+    """sklearn's ``_is_same_clustering``: ``best`` is a function of
+    ``labels`` (each cluster of ``labels`` lies in one cluster of ``best``)."""
+    return len(torch.unique(labels * k + best)) == len(torch.unique(labels))
 
 
 def _lloyd(x, centers, max_iter, tol):
@@ -262,17 +277,21 @@ def _average(sums, counts):
 # --------------------------------------------------------------------------- #
 
 
+COVARIANCE_TYPES = ("full", "tied", "diag", "spherical")
+
+
 class GaussianMixture:
-    """sklearn's ``GaussianMixture`` with "full" or "diag" covariances and
-    ``init_params="kmeans"``, one init. Fitted attributes are tensors on the
-    data's device: ``weights_``, ``means_``, ``covariances_``,
-    ``precisions_cholesky_``; ``n_iter_``, ``converged_``, ``lower_bound_``."""
+    """sklearn's ``GaussianMixture`` with "full", "tied", "diag" or
+    "spherical" covariances and ``init_params="kmeans"``, one init. Fitted
+    attributes are tensors on the data's device: ``weights_``, ``means_``,
+    ``covariances_``, ``precisions_cholesky_``; ``n_iter_``,
+    ``converged_``, ``lower_bound_``."""
 
     def __init__(self, n_components: int = 1, covariance_type: str = "full", tol: float = 1e-3,
                  reg_covar: float = 1e-6, max_iter: int = 100, random_state=None, init_params: str = "kmeans",
                  device="cuda"):
-        if covariance_type not in ("full", "diag"):
-            raise NotImplementedError(f"covariance_type={covariance_type!r}: only 'full' and 'diag' are ported")
+        if covariance_type not in COVARIANCE_TYPES:
+            raise ValueError(f"covariance_type={covariance_type!r}: expected one of {COVARIANCE_TYPES}")
         if init_params != "kmeans":
             raise NotImplementedError(f"init_params={init_params!r}: only 'kmeans' is ported")
         self.n_components = n_components
@@ -320,7 +339,8 @@ class GaussianMixture:
     def _weighted_log_prob(self, x):
         if self.covariance_type == "diag":
             return gmm._weighted_log_prob(x, self.weights_, self.means_, self.covariances_)
-        return _log_gaussian_prob_full(x, self.means_, self.precisions_cholesky_) + torch.log(self.weights_)
+        return _log_gaussian_prob(x, self.means_, self.precisions_cholesky_, self.covariance_type) \
+            + torch.log(self.weights_)
 
     def _e_step(self, x):
         """(mean log-likelihood as a float64 sum rounded to x's dtype, log
@@ -329,29 +349,53 @@ class GaussianMixture:
         norm = torch.logsumexp(weighted, dim=1)
         return norm.to(torch.float64).mean().to(x.dtype), weighted - norm[:, None]
 
+    def _data(self, x) -> torch.Tensor:
+        return _as_data(x, self.means_.device).to(self.means_.dtype)
+
     def predict_proba(self, x) -> torch.Tensor:
-        x = _as_data(x, self.means_.device).to(self.means_.dtype)
-        return torch.exp(self._e_step(x)[1])
+        return torch.exp(self._e_step(self._data(x))[1])
 
     def predict(self, x) -> torch.Tensor:
-        x = _as_data(x, self.means_.device).to(self.means_.dtype)
-        return self._weighted_log_prob(x).argmax(1)
+        return self._weighted_log_prob(self._data(x)).argmax(1)
+
+    def score(self, x) -> float:
+        """Mean log-likelihood of the rows (a float, as sklearn's)."""
+        return float(self._e_step(self._data(x))[0])
+
+    def _n_parameters(self) -> int:
+        """Free parameters: covariances by type, means, weights less one."""
+        k, d = self.means_.shape
+        cov = {"full": k * d * (d + 1) / 2.0, "diag": k * d, "tied": d * (d + 1) / 2.0,
+               "spherical": k}[self.covariance_type]
+        return int(cov + d * k + k - 1)
+
+    def bic(self, x) -> float:
+        """Bayesian information criterion of the rows: ``-2 * score * n +
+        n_parameters * log(n)``."""
+        n = x.shape[0]
+        return -2 * self.score(x) * n + self._n_parameters() * math.log(n)
 
 
 def _gaussian_parameters(x, resp, reg_covar, covariance_type):
     """sklearn's ``_estimate_gaussian_parameters``: (nk, means, covariances)
-    (the diagonal M-step is VaDE's GMM init's, ``train/gmm.py``)."""
-    if covariance_type == "diag":
-        return gmm._gaussian_parameters(x, resp, reg_covar)
+    (the diagonal M-step is VaDE's GMM init's, ``train/gmm.py``;
+    "spherical" is its mean over the features)."""
+    if covariance_type in ("diag", "spherical"):
+        nk, means, cov = gmm._gaussian_parameters(x, resp, reg_covar)
+        return nk, means, cov if covariance_type == "diag" else cov.mean(1)
     nk = resp.sum(0) + 10 * torch.finfo(resp.dtype).eps
     means = (resp.T @ x) / nk[:, None]
+    eye = torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
+    if covariance_type == "tied":
+        cov = (x.T @ x - (nk * means.T) @ means) / nk.sum()
+        return nk, means, cov + reg_covar * eye
     cov = torch.stack([((resp[:, j, None] * (x - means[j])).T @ (x - means[j])) / nk[j]
                        for j in range(means.shape[0])])
-    return nk, means, cov + reg_covar * torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
+    return nk, means, cov + reg_covar * eye
 
 
 def _precision_cholesky(cov, covariance_type):
-    if covariance_type == "diag":
+    if covariance_type in ("diag", "spherical"):
         if bool((cov <= 0.0).any()):
             raise ValueError(ILL_DEFINED)
         return 1.0 / torch.sqrt(cov)
@@ -359,15 +403,27 @@ def _precision_cholesky(cov, covariance_type):
     if bool((info != 0).any()):
         raise ValueError(ILL_DEFINED)
     eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device).expand_as(cov)
-    return torch.linalg.solve_triangular(chol, eye, upper=False).transpose(1, 2)
+    return torch.linalg.solve_triangular(chol, eye, upper=False).transpose(-2, -1)
 
 
-def _log_gaussian_prob_full(x, means, prec_chol):
-    """sklearn's full-covariance ``_estimate_log_gaussian_prob`` -> (n, k)."""
-    log_prob = torch.stack([((x @ prec_chol[j] - means[j] @ prec_chol[j]) ** 2).sum(1)
-                            for j in range(means.shape[0])], dim=1)
-    log_det = torch.log(torch.diagonal(prec_chol, dim1=1, dim2=2)).sum(1)
-    return -0.5 * (x.shape[1] * math.log(2 * math.pi) + log_prob) + log_det
+def _log_gaussian_prob(x, means, prec_chol, covariance_type):
+    """sklearn's ``_estimate_log_gaussian_prob`` for the "full", "tied" and
+    "spherical" types -> (n, k)."""
+    d = x.shape[1]
+    if covariance_type == "spherical":
+        precisions = prec_chol ** 2
+        log_prob = ((means ** 2).sum(1) * precisions - 2 * (x @ means.T * precisions)
+                    + (x * x).sum(1)[:, None] * precisions[None])
+        log_det = d * torch.log(prec_chol)
+    elif covariance_type == "tied":
+        xp = x @ prec_chol
+        log_prob = torch.stack([((xp - means[j] @ prec_chol) ** 2).sum(1) for j in range(means.shape[0])], dim=1)
+        log_det = torch.log(torch.diagonal(prec_chol)).sum()
+    else:
+        log_prob = torch.stack([((x @ prec_chol[j] - means[j] @ prec_chol[j]) ** 2).sum(1)
+                                for j in range(means.shape[0])], dim=1)
+        log_det = torch.log(torch.diagonal(prec_chol, dim1=1, dim2=2)).sum(1)
+    return -0.5 * (d * math.log(2 * math.pi) + log_prob) + log_det
 
 
 # --------------------------------------------------------------------------- #

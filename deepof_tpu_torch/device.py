@@ -49,6 +49,16 @@ def to_device(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
 
+def host_array(x) -> np.ndarray:
+    """A table's values as a host array: a numpy array, a tensor, or
+    anything with ``.values`` (a ``posthoc.Labelled``, a DataFrame)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if hasattr(x, "values") and not isinstance(x, np.ndarray):
+        x = x.values
+    return np.asarray(x)
+
+
 def fetch_together(tensors) -> list:
     """Device tensors -> host numpy arrays, through one device-to-host copy
     (per dtype: tensors of one dtype are concatenated and copied at once)."""

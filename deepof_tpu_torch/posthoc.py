@@ -1,8 +1,10 @@
 """Post-hoc statistics over the served embeddings, soft counts and
 supervised tags, and the kinematics tables the supervised engine reads
-(port of ``deepof_tpu/posthoc.py``: ``_kinematics_table_views`` :76, the
-cluster usage statistics :222-421, transitions :423-571, condition
-separability :574-736 and HMM reclustering :1114). The gating API and
+(port of ``deepof_tpu/posthoc.py``: ``align_deepof_kinematics_with_unsupervised_labels``
+:46 and ``_kinematics_table_views`` :76, the cluster usage statistics
+:222-421, transitions :423-571, condition separability :574-736, the
+normative KDE :739-770, chunk statistics and annotation :786-905, the
+grouped CV folds :909 and HMM reclustering :1114). The gating API and
 ``get_contrastive_soft_counts`` are re-exported here, where the JAX package
 exposes them (:30-38).
 
@@ -13,7 +15,9 @@ NaN-aware means and medians, ROI masks and the per-experiment algebra (PCA,
 the standard scaler, the logistic regression, matrix powers) run as tensor
 ops on the device, and each call's per-experiment results come back in one
 host copy. The KDE draw and the sliced Wasserstein distance run in numpy on
-the host, from numpy's seeded streams as the JAX package's do.
+the host, from numpy's seeded streams as the JAX package's do, and so do
+the chunk draw and the CV folds; the chunk windows, their statistics and
+the normative KDE's fold scores are formed on the device.
 
 Results are numpy arrays with their labels, not DataFrames: a
 :class:`Labelled` (values, index, columns) for a per-experiment table, a
@@ -33,9 +37,9 @@ from typing import Dict, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from deepof_tpu_torch.core.storage import DeviceTable, _slice_obj, _take, get_dt
+from deepof_tpu_torch.core.storage import DeviceTable, LazyFrame, _slice_obj, _take, get_dt, save_dt
 from deepof_tpu_torch.core.table_dict import TableDict
-from deepof_tpu_torch.device import fetch_together, resolve_device
+from deepof_tpu_torch.device import fetch_together, host_array, resolve_device
 from deepof_tpu_torch.gating import (  # noqa: F401 -- the JAX package's post-hoc names
     add_chaos_gates,
     compute_gate_edges,
@@ -55,21 +59,36 @@ from deepof_tpu_torch.utils import (
 
 def _kinematics_table_views(
     coordinates, views: Sequence[Optional[str]], key: str, center: str = "Center", align: str = "Spine_1",
-    distance_pairs=None,
+    distance_pairs=None, kin_derivative: int = 1, include_feature_derivatives: bool = False,
+    include_distances: bool = True, include_angles: bool = False, include_areas: bool = True,
 ) -> Dict[Optional[str], DeviceTable]:
     """One recording's kinematics table for each animal view (None = every
-    animal), from one set of device tables: the bodypart distances (only
-    ``distance_pairs`` when given, else every pair) and the body areas with
-    the suffix ``_raw``, then the speeds of the coordinates centred on
-    ``center`` and aligned on ``align`` with ``_speed``. A view keeps its
-    animal's columns (areas by prefix). This is the JAX function at
-    ``kin_derivative=1`` with no angles and no feature derivatives."""
-    parts = (
-        (*coordinates.get_distances_at_key(key, filter_on_graph=False, pairs=distance_pairs, _device=True),
-         "_raw", False),
-        (*coordinates.get_areas_at_key(key, _device=True), "_raw", True),
-        (*coordinates.get_coords_at_key(key, center=center, align=align, speed=1, _device=True), "_speed", False),
-    )
+    animal), from one set of device tables (``deepof_tpu/posthoc.py:76``).
+    For each derivative order from 0 to ``kin_derivative``, with the
+    suffix ``_raw``, ``_speed``, ``_acceleration`` or ``_kinematics_{n}``:
+    the coordinates centred on ``center`` and aligned on ``align`` (orders
+    from 1), then the bodypart distances (only ``distance_pairs`` when
+    given, else every pair), the bridge angles and the body areas, each at
+    order 0 and, with ``include_feature_derivatives``, at every order. A
+    view keeps its animal's columns (areas by prefix). The defaults are the
+    supervised engine's table (no angles)."""
+    parts = []  # (values, columns, suffix, is_areas)
+    for der in range(kin_derivative + 1):
+        suffix = {0: "_raw", 1: "_speed", 2: "_acceleration"}.get(der, f"_kinematics_{der}")
+        if der:
+            parts.append((*coordinates.get_coords_at_key(key, center=center, align=align, speed=der, _device=True),
+                          suffix, False))
+        if der and not include_feature_derivatives:
+            continue
+        if include_distances:
+            parts.append((*coordinates.get_distances_at_key(key, speed=der, filter_on_graph=False,
+                                                            pairs=distance_pairs, _device=True), suffix, False))
+        if include_angles:
+            parts.append((*coordinates.get_angles_at_key(key, speed=der, _device=True), suffix, False))
+        if include_areas:
+            parts.append((*coordinates.get_areas_at_key(key, speed=der, _device=True), suffix, True))
+    if not parts:
+        raise ValueError("no kinematic feature selected: raise kin_derivative or include distances, angles or areas")
     out = {}
     for view in views:
         values, names = [], []
@@ -85,6 +104,38 @@ def _kinematics_table_views(
             names += [f"{cols[i]}{suffix}" for i in keep]
         out[view] = DeviceTable(torch.cat(values, dim=1), names)
     return out
+
+
+def align_deepof_kinematics_with_unsupervised_labels(
+    deepof_project,
+    kin_derivative: int = 1,
+    center: str = "Center",
+    align: str = "Spine_1",
+    include_feature_derivatives: bool = False,
+    include_distances: bool = True,
+    include_angles: bool = True,
+    include_areas: bool = True,
+    animal_id: str = None,
+    file_name: Optional[str] = "kinematics",
+    return_path: bool = False,
+    device="cuda",
+) -> TableDict:
+    """Each recording's kinematics table (``deepof_tpu/posthoc.py:46``): see
+    :func:`_kinematics_table_views` for the columns; ``animal_id`` keeps one
+    animal's. The tables are computed on the project's device and read back
+    from ``device`` as float64 LazyFrames. ``file_name`` is accepted (the
+    tables stay in memory); ``return_path=True`` raises (paths mode is not
+    ported)."""
+    dev = resolve_device(device)
+    tabs = {}
+    for key in deepof_project.get_table_keys():
+        table = _kinematics_table_views(
+            deepof_project, [animal_id], key, center=center, align=align, kin_derivative=kin_derivative,
+            include_feature_derivatives=include_feature_derivatives, include_distances=include_distances,
+            include_angles=include_angles, include_areas=include_areas)[animal_id]
+        host = np.array(table.values.to(dev).cpu().numpy(), dtype=np.float64)
+        tabs[key] = save_dt(LazyFrame(lambda arr=host: arr, table.columns, len(host)), None, return_path)
+    return TableDict(tabs, typ="annotations", table_path=deepof_project._table_path)
 
 
 # --------------------------------------------------------------------------- #
@@ -153,14 +204,22 @@ def _hard_labels(arr: torch.Tensor, nan_wins: bool) -> torch.Tensor:
     return hard
 
 
-def _nanmedian(x: torch.Tensor) -> torch.Tensor:
-    """Column medians skipping NaN, the middle pair averaged (``np.nanmedian``;
-    ``torch.nanmedian`` takes the lower one)."""
-    s = torch.sort(x, dim=0).values  # NaN sorts last
-    n = (~torch.isnan(x)).sum(dim=0)
-    lo, hi = ((n - 1).clamp(min=0) // 2)[None], (n // 2)[None]
-    med = (s.gather(0, lo) + s.gather(0, hi))[0] / 2
-    return torch.where(n > 0, med, torch.nan)
+def _nanmedian(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Medians along ``dim`` skipping NaN, the middle pair averaged
+    (``np.nanmedian``; ``torch.nanmedian`` takes the lower one)."""
+    s = torch.sort(x, dim=dim).values  # NaN sorts last
+    n = (~torch.isnan(x)).sum(dim=dim, keepdim=True)
+    med = (s.gather(dim, (n - 1).clamp(min=0) // 2) + s.gather(dim, n // 2)).squeeze(dim) / 2
+    return torch.where(n.squeeze(dim) > 0, med, torch.nan)
+
+
+def _nan_extreme(x: torch.Tensor, largest: bool, dim: int = 1) -> torch.Tensor:
+    """NaN-skipping max or min along ``dim``; NaN for an all-NaN slice
+    (``np.nanmax`` / ``np.nanmin``)."""
+    isnan = torch.isnan(x)
+    filled = torch.where(isnan, -torch.inf if largest else torch.inf, x)
+    out = filled.amax(dim=dim) if largest else filled.amin(dim=dim)
+    return torch.where(isnan.all(dim=dim), torch.nan, out)
 
 
 def _standard_scale(x: torch.Tensor) -> torch.Tensor:
@@ -658,3 +717,283 @@ def recluster(
         out = dict(zip(seqs, model._decode(list(seqs.values()), [None] * len(seqs))))
     return TableDict(out, typ="unsupervised_counts", table_path=embeddings._table_path,
                      animal_ids=embeddings._animal_ids, exp_conditions=embeddings._exp_conditions)
+
+
+# --------------------------------------------------------------------------- #
+# Normative modeling
+# --------------------------------------------------------------------------- #
+
+# The bandwidths the normative fit searches (deepof's post_hoc.py:2097).
+NORMATIVE_BANDWIDTHS = np.linspace(0.1, 10, 200)
+
+
+def _sq_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(n, m) squared euclidean distances, summed over the features of the
+    differences (no cancellation)."""
+    return ((a[:, None, :] - b[None, :, :]) ** 2).sum(dim=-1)
+
+
+class GaussianKDE:
+    """sklearn's ``KernelDensity(kernel="gaussian", bandwidth=...)`` in
+    float64 on ``device``: ``fit(x)`` keeps the rows, ``score_samples(x)``
+    gives their log densities (a numpy array)."""
+
+    def __init__(self, bandwidth: float = 1.0, device="cuda"):
+        self.bandwidth = float(bandwidth)
+        self.device = resolve_device(device)
+
+    def fit(self, x) -> "GaussianKDE":
+        self.data_ = torch.as_tensor(host_array(x), dtype=torch.float64, device=self.device)
+        return self
+
+    def score_samples(self, x) -> np.ndarray:
+        q = torch.as_tensor(host_array(x), dtype=torch.float64, device=self.device)
+        return _log_densities(_sq_distances(q, self.data_), [self.bandwidth], q.shape[1])[0].cpu().numpy()
+
+
+def _log_densities(sq_dist: torch.Tensor, bandwidths, d: int) -> torch.Tensor:
+    """(h, n) Gaussian-kernel log densities of n points of width d from
+    their (n, m) squared distances to the m training rows, for each
+    bandwidth: a ``logsumexp`` of the kernel logs (sklearn's tree sums in
+    log space too, so far points keep finite logs), then sklearn's
+    normalisation ``-d/2 log(2 pi) - d log(h) - log(m)``."""
+    h = torch.as_tensor(np.asarray(bandwidths, np.float64), device=sq_dist.device)[:, None]
+    log_sum = torch.logsumexp(-0.5 * sq_dist[None] / (h * h)[:, :, None], dim=-1)
+    return log_sum - (0.5 * d * np.log(2 * np.pi) + d * torch.log(h) + np.log(sq_dist.shape[1]))
+
+
+def fit_normative_global_model(global_normal_embeddings, device="cuda") -> GaussianKDE:
+    """A Gaussian KDE of the control experiments' embeddings
+    (``deepof_tpu/posthoc.py:739``), its bandwidth searched over
+    ``linspace(0.1, 10, 200)`` as sklearn's ``GridSearchCV`` searches it
+    with ``cv=min(10, n_rows)``: unshuffled ``KFold`` folds (the first
+    n % k one row longer), each bandwidth's mean held-out log-likelihood,
+    the first best, then a refit on every row. Every fold's distances are
+    computed once and the whole grid scored from them on the device."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(host_array(global_normal_embeddings), dtype=torch.float64, device=dev)
+    n = x.shape[0]
+    n_splits = int(min(10, n))
+    if n_splits < 2:
+        raise ValueError(f"k-fold cross-validation needs at least 2 folds: {n} control row(s)")
+    sizes = np.full(n_splits, n // n_splits)
+    sizes[:n % n_splits] += 1
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    scores = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        train = torch.cat([x[:lo], x[hi:]])
+        scores.append(_log_densities(_sq_distances(x[lo:hi], train), NORMATIVE_BANDWIDTHS, x.shape[1]).sum(dim=1))
+    mean = fetch_together([torch.stack(scores, dim=1)])[0].mean(axis=1)
+    best = float(NORMATIVE_BANDWIDTHS[int(np.argmax(mean))])
+    return GaussianKDE(best, dev).fit(x)
+
+
+def score_against_normative(model: GaussianKDE, embeddings) -> Labelled:
+    """Each experiment's log-likelihood under the normative KDE
+    (``deepof_tpu/posthoc.py:760``): a :class:`Labelled` with the
+    experiments of ``embeddings`` (a :class:`Labelled` from
+    :func:`get_aggregated_embedding`) as rows and one column, 0."""
+    index = list(embeddings.index) if hasattr(embeddings, "index") else list(range(len(host_array(embeddings))))
+    return Labelled(model.score_samples(embeddings)[:, None], index, [0])
+
+
+# --------------------------------------------------------------------------- #
+# Chunk statistics and annotation
+# --------------------------------------------------------------------------- #
+
+
+def _central_moments(x: torch.Tensor):
+    """(mean, m2, m3, m4) along dim 1 over the non-NaN values, as scipy's
+    ``_moment`` forms them (d^2 * d and (d^2)^2)."""
+    valid = ~torch.isnan(x)
+    n = valid.sum(dim=1).to(x.dtype)
+    mean = torch.where(valid, x, 0.0).sum(dim=1) / n
+    d = torch.where(valid, x - mean[:, None], 0.0)
+    d2 = d * d
+    return mean, d2.sum(dim=1) / n, (d2 * d).sum(dim=1) / n, (d2 * d2).sum(dim=1) / n
+
+
+def _skew(x: torch.Tensor) -> torch.Tensor:
+    """scipy's ``skew(axis=1, nan_policy="omit")`` (bias on): m3 / m2^1.5,
+    NaN where m2 <= (eps * mean)^2 (a constant slice, one value) or the
+    slice is empty."""
+    mean, m2, m3, _ = _central_moments(x)
+    zero = m2 <= (torch.finfo(x.dtype).eps * mean) ** 2
+    return torch.where(zero | torch.isnan(mean), torch.nan, m3 / m2 ** 1.5)
+
+
+def _kurt(x: torch.Tensor) -> torch.Tensor:
+    """scipy's ``kurtosis(axis=1, nan_policy="omit")`` (Fisher, bias on):
+    m4 / m2^2 - 3, NaN as in :func:`_skew`."""
+    mean, m2, _, m4 = _central_moments(x)
+    zero = m2 <= (torch.finfo(x.dtype).eps * mean) ** 2
+    return torch.where(zero | torch.isnan(mean), torch.nan, m4 / m2 ** 2.0) - 3
+
+
+def _nan_var(x: torch.Tensor) -> torch.Tensor:
+    mean = torch.nanmean(x, dim=1, keepdim=True)
+    return torch.nanmean((x - mean) ** 2, dim=1)
+
+
+# The seglearn base features, each over the time axis (dim 1) of (n, t).
+_BASE_FEATURES = {
+    "mean": lambda x: torch.nanmean(x, dim=1),
+    "median": lambda x: _nanmedian(x, dim=1),
+    "abs_energy": lambda x: torch.nansum(x ** 2, dim=1),
+    "std": lambda x: torch.sqrt(_nan_var(x)),
+    "var": _nan_var,
+    "min": lambda x: _nan_extreme(x, largest=False),
+    "max": lambda x: _nan_extreme(x, largest=True),
+    "skew": _skew,
+    "kurt": _kurt,
+    "mse": lambda x: torch.nanmean(x ** 2, dim=1),
+    "mnx": lambda x: torch.nanmean(torch.abs(torch.diff(x, dim=1)), dim=1),
+}
+
+
+def _chunk_statistics(chunks: torch.Tensor) -> torch.Tensor:
+    """(n, 11 f) float64: every base feature of every feature column,
+    feature-major (each statistic over all columns, then the next)."""
+    flat = chunks.permute(0, 2, 1).reshape(-1, chunks.shape[1])  # (n f, t)
+    n, f = chunks.shape[0], chunks.shape[2]
+    return torch.cat([fn(flat).reshape(n, f) for fn in _BASE_FEATURES.values()], dim=1)
+
+
+def chunk_summary_statistics(chunked_dataset, body_part_names: list, device="cuda") -> Labelled:
+    """Summary statistics of each chunk and feature
+    (``deepof_tpu/posthoc.py:798``), in float64 on ``device``: mean,
+    median, abs_energy, std, var, min, max, skew, kurt, mse and mnx of each
+    (n, t, f) chunk's feature over time, NaN skipped (an all-NaN slice
+    gives NaN, abs_energy 0). Columns ``{name}_{statistic}``,
+    statistic-major."""
+    dev = resolve_device(device)
+    chunks = (chunked_dataset.to(dev, torch.float64) if isinstance(chunked_dataset, torch.Tensor)
+              else torch.as_tensor(np.asarray(chunked_dataset, np.float64), device=dev))
+    values = fetch_together([_chunk_statistics(chunks)])[0]
+    columns = [f"{bp}_{feat}" for feat in _BASE_FEATURES for bp in body_part_names]
+    return Labelled(values, list(range(len(values))), columns)
+
+
+def annotate_time_chunks(
+    deepof_project,
+    soft_counts,
+    supervised_annotations=None,
+    window_size: int = None,
+    window_step: int = 1,
+    animal_id: str = None,
+    samples: int = 10000,
+    min_confidence: float = 0.0,
+    kin_derivative: int = 1,
+    include_distances: bool = False,
+    include_angles: bool = False,
+    include_areas: bool = False,
+    aggregate: str = "mean",
+    device="cuda",
+):
+    """Kinematic chunks annotated with hard cluster labels
+    (``deepof_tpu/posthoc.py:820``).
+
+    Each recording's kinematics table (:func:`_kinematics_table_views`,
+    with the supervised tags appended as columns when given) is cut into
+    windows of ``window_size`` frames (default: the frame rate) every
+    ``window_step`` frames; the first min(windows, soft-count rows) are
+    kept where their soft counts' maximum exceeds ``min_confidence``. With
+    more than ``samples`` kept chunks, ``np.random.choice(kept, samples,
+    replace=False)`` (numpy's global state) picks which, sorted, and only
+    those windows are gathered on the device. Returns (statistics: a
+    :class:`Labelled` of the chunks' NaN-skipping means, or with another
+    ``aggregate`` their :func:`chunk_summary_statistics`; the hard label
+    of each chunk; ``bin_info``: each recording's window starts, offset by
+    the frames of the recordings before it). Column labels are the last
+    recording's."""
+    dev = resolve_device(device)
+    if window_size is None:
+        window_size = int(np.round(deepof_project._frame_rate))
+    tables, counted = [], []
+    for key in soft_counts.keys():
+        kin = _kinematics_table_views(
+            deepof_project, [animal_id], key, kin_derivative=kin_derivative, include_distances=include_distances,
+            include_angles=include_angles, include_areas=include_areas)[animal_id]
+        values, columns = kin.values.to(dev, torch.float64), list(kin.columns)
+        if supervised_annotations is not None:
+            sup = get_dt(supervised_annotations, key)
+            sup_cols = get_dt(supervised_annotations, key, only_metainfo=True)["columns"]
+            sup = torch.as_tensor(np.asarray(sup, np.float64), device=dev)
+            m = min(len(values), len(sup))
+            values = torch.cat([values[:m], sup[:m]], dim=1)
+            columns += list(sup_cols if sup_cols is not None else range(sup.shape[1]))
+        counts = torch.as_tensor(np.asarray(get_dt(soft_counts, key), np.float64), device=dev)
+        n_windows = max(0, (len(values) - window_size) // window_step + 1)
+        cnt = counts[:min(n_windows, len(counts))]
+        tables.append((key, values))
+        counted += [cnt.max(dim=1).values > min_confidence, _hard_labels(cnt, nan_wins=True)]
+
+    host = fetch_together(counted) if counted else []
+    bin_info, labels, starts, offset = {}, [], [], 0
+    for i, (key, _) in enumerate(tables):
+        keep, hard = host[2 * i], host[2 * i + 1]
+        local = np.flatnonzero(keep) * window_step
+        bin_info[key] = offset + local
+        starts.append(local)
+        labels.append(hard[keep])
+        offset += len(keep) * window_step
+    y = np.concatenate(labels) if labels else np.zeros(0)
+    n_kept = len(y)
+    chosen = None
+    if samples is not None and n_kept > samples:
+        chosen = np.sort(np.random.choice(n_kept, samples, replace=False))
+        y = y[chosen]
+        flat = np.concatenate([bin_info[k] for k in bin_info])
+        bounds = np.cumsum([0] + [len(bin_info[k]) for k in bin_info])
+        for i, k in enumerate(bin_info):
+            bin_info[k] = flat[chosen[(chosen >= bounds[i]) & (chosen < bounds[i + 1])]]
+
+    # Gather only the chosen windows: (chunks, window, features).
+    steps = torch.arange(window_size, device=dev)
+    chunks, first = [], 0
+    for (key, values), local in zip(tables, starts):
+        pick = local if chosen is None else local[chosen[(chosen >= first) & (chosen < first + len(local))] - first]
+        first += len(local)
+        rows = torch.as_tensor(pick, device=dev)[:, None] + steps[None, :]
+        chunks.append(values[rows])
+    x = torch.cat(chunks) if chunks else torch.zeros((0, window_size, 1), dtype=torch.float64, device=dev)
+
+    names = [str(c) for c in columns] if tables else []
+    if aggregate == "mean":
+        stats = Labelled(fetch_together([torch.nanmean(x, dim=1)])[0], list(range(len(x))), names)
+    else:
+        stats = chunk_summary_statistics(x, names, device=dev)
+    return stats, y, bin_info
+
+
+def chunk_cv_splitter(chunk_stats, bin_info: dict, n_folds: int = None) -> list:
+    """Grouped CV folds that never split one experiment across train and
+    test (``deepof_tpu/posthoc.py:909``): sklearn's ``GroupKFold`` (no
+    shuffle) restated in numpy on the host. The chunks are taken to be
+    ordered by experiment; the experiments, as groups, go largest first
+    (a stable sort of their sizes, reversed) to the lightest fold. One fold
+    an experiment by default. Returns [(train indices, test indices)]."""
+    n_splits = n_folds if n_folds is not None else len(bin_info)
+    if n_splits < 2:
+        raise ValueError(f"k-fold cross-validation requires at least one train/test split by setting "
+                         f"n_splits=2 or more, got n_splits={n_splits}.")
+    sizes = np.array([len(value) for value in bin_info.values()])
+    groups = np.repeat(np.arange(len(bin_info)), sizes)
+    n_rows = len(chunk_stats.values) if isinstance(chunk_stats, Labelled) else len(chunk_stats)
+    if len(groups) != n_rows:
+        raise ValueError(f"bin_info holds {len(groups)} chunks, the statistics {n_rows}")
+    unique, group_idx = np.unique(groups, return_inverse=True)
+    if n_splits > len(unique):
+        raise ValueError(f"Cannot have number of splits n_splits={n_splits} greater than the number of groups: "
+                         f"{len(unique)}.")
+    per_group = np.bincount(group_idx)
+    order = np.argsort(per_group, kind="stable")[::-1]
+    per_fold = np.zeros(n_splits)
+    group_to_fold = np.zeros(len(unique))
+    for g, weight in zip(order, per_group[order]):
+        lightest = np.argmin(per_fold)
+        per_fold[lightest] += weight
+        group_to_fold[g] = lightest
+    fold_of = group_to_fold[group_idx]
+    indices = np.arange(len(groups))
+    return [(indices[fold_of != f], indices[fold_of == f]) for f in range(n_splits)]

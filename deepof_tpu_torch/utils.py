@@ -1,6 +1,9 @@
 """Column and ROI helpers of the port (its own copies of
 ``deepof_tpu/utils.py`` ``filter_columns`` and the ROI filters of time-bin
-info, which here take and return tensors on their device)."""
+info, which here take and return tensors on their device), and the names
+the JAX package's ``utils`` gives the burst smoothing and the GMM scan
+(``kleinberg`` :1522, ``smooth_boolean_array`` :1529, ``gmm_compute``
+:1599, ``gmm_model_selection`` :1606)."""
 
 from __future__ import annotations
 
@@ -107,3 +110,37 @@ def get_unsupervised_behaviors_in_roi(values: torch.Tensor, local_bin_info, anim
         else:
             out = torch.where(bad[:, None], torch.nan, out if out.is_floating_point() else out.double())
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Aliases (deepof_tpu/utils.py:1522-1606)
+# --------------------------------------------------------------------------- #
+
+
+def kleinberg(offsets, s: float = 2.0, gamma: float = 1.0, n=None, T=None, k=None):
+    """Kleinberg burst detection: see :func:`deepof_tpu_torch.ops.bursts.kleinberg`."""
+    from deepof_tpu_torch.ops.bursts import kleinberg as _kleinberg
+
+    return _kleinberg(offsets, s=s, gamma=gamma, n=n, T=T, k=k)
+
+
+def smooth_boolean_array(a, scale: int = 1, sigma=2.0, batch_size: int = 50000):
+    """Burst smoothing of a boolean series: see
+    :func:`deepof_tpu_torch.ops.bursts.smooth_boolean_array`."""
+    from deepof_tpu_torch.ops.bursts import smooth_boolean_array as _smooth
+
+    return _smooth(np.asarray(a), scale=scale, sigma=sigma, batch_size=batch_size)
+
+
+def gmm_compute(x, n_components: int, cv_type: str, device="cuda"):
+    """One GMM fit and its BIC: see :func:`deepof_tpu_torch.evaluation.gmm_compute`."""
+    from deepof_tpu_torch.evaluation import gmm_compute as _compute
+
+    return _compute(x, n_components, cv_type, device=device)
+
+
+def gmm_model_selection(*args, **kwargs):
+    """The bootstrap BIC scan: see :func:`deepof_tpu_torch.evaluation.gmm_model_selection`."""
+    from deepof_tpu_torch.evaluation import gmm_model_selection as _selection
+
+    return _selection(*args, **kwargs)

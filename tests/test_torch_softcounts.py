@@ -433,16 +433,24 @@ def test_gaussian_mixture_matches_sklearn(covariance_type, seed, n, k, d):
 
 
 def test_gaussian_mixture_raises_as_sklearn():
-    """An ill-defined covariance (a collapsed component) and an unported
-    covariance type raise."""
+    """An ill-defined covariance (a collapsed component) and an unknown
+    covariance type raise; the tied and spherical covariances of the same
+    collapsed components keep sklearn's 10 * eps floor (no raise in either
+    package)."""
     x = np.repeat(np.eye(3, dtype=np.float32), 10, axis=0)
     for ct in ("full", "diag"):
         with pytest.raises(ValueError, match="ill-defined"):
             SkGMM(3, covariance_type=ct, reg_covar=0.0, random_state=0).fit(x)
         with pytest.raises(ValueError, match="ill-defined"):
             cluster.GaussianMixture(3, covariance_type=ct, reg_covar=0.0, random_state=0, device="cpu").fit(x)
-    with pytest.raises(NotImplementedError, match="tied"):
-        cluster.GaussianMixture(2, covariance_type="tied")
+    for ct in ("tied", "spherical"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want = SkGMM(3, covariance_type=ct, reg_covar=0.0, random_state=0).fit(x)
+            got = cluster.GaussianMixture(3, covariance_type=ct, reg_covar=0.0, random_state=0, device="cpu").fit(x)
+        _close(got.covariances_, want.covariances_, atol=1e-12)
+    with pytest.raises(ValueError, match="covariance_type"):
+        cluster.GaussianMixture(2, covariance_type="banded")
 
 
 @pytest.mark.parametrize("seed,n,k,d,clusters", [(0, 500, 4, 3, 5), (1, 3000, 8, 8, 5), (1, 3000, 8, 8, 50),
