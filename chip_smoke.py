@@ -256,7 +256,35 @@
    |value|)); then compactness, separability
    and kNN agreement on 24 x 45,000 seeded latent-8 windows with a ~10%
    behaviour, each timed card and CPU and held card vs CPU.
-16. Prints a stage line of each path, a kernels line, and last
+16. Paths mode, the configuration long-recordings-2mice-paths: two seeded
+   SLEAP ``.npy`` recordings of two deepof_14 animals, 375,000 frames each
+   (4 h 10 min at 25 fps; one past ``VERY_LARGE_VIDEO_FRAMES``, so
+   ``create`` flags the project very large), through ``create(test=True)``
+   -> ``get_graph_dataset(window_size=25, test_videos=1)`` (paths mode by
+   default: the getters, ``merge`` and ``preprocess`` write ``.npy`` files,
+   the windows are pointers to the scaled frames; its default samples_max
+   takes 227,272 evenly spaced rows of each recording, as the JAX package
+   does) -> the default VaDE fit
+   (one pretrain and one main epoch of 50 + 5 batches) ->
+   ``embedding_per_video(batch_size=4096)`` -> ``get_contrastive_soft_counts``
+   at its defaults (the BIC scan over 2-25 states; pointers to
+   ``{key}_soft_counts``) -> ``get_time_on_cluster`` over the first 600 s
+   bin, read from the pointers. Every stored value is checked to be a
+   pointer; the launches counted from a reset (a window launch a block, the
+   GRU and GRU-backward launches of the fit and the serve, some
+   ``hmm_scan``); shapes, finiteness and row sums; each stage's seconds, the
+   bytes and seconds written and read, peak device memory and the process's
+   peak RSS. Then the same project in memory: the default call (the fused
+   lane) held to paths mode at 1e-4 of max(1, max |value|) (scaled frames,
+   every 97th window, the trained bundle's embeddings, and the soft counts
+   of paths mode's embeddings), its own embeddings decoded by paths mode's
+   sticky HMM held by their hard labels (at most 0.1% differing of the
+   windows whose posterior's largest entry is >= 0.75; a fit of their own
+   only reported); the tutorial's call in both modes (the same route)
+   equal bit for bit; and card vs CPU on a 2,000-frame copy in paths mode
+   at 1e-4 (soft counts by confident hard labels, the CPU's embeddings
+   decoded by the card's sticky HMM).
+17. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -3973,6 +4001,432 @@ def _imputation_phase(torch, card, tmp, tables):
     return line, launches, (kernel_err, kernel_rel), kernel_t
 
 
+# Phase 16: paths mode at a lab's size. Two seeded SLEAP recordings of two
+# deepof_14 animals, 375,000 frames each (4 h 10 min at 25 fps): one is past
+# config.VERY_LARGE_VIDEO_FRAMES, so create() flags the project very large and
+# every table of the main path is stored in files and passed as a pointer.
+LONG_KEYS = ("test", "test2")
+LONG_FRAMES = 375_000
+# get_graph_dataset's default samples_max: each recording's rows are taken
+# evenly down to it (the JAX package's and deepof's time-bin rule), so the
+# windows trained on and served are those of 227,272 rows a recording.
+LONG_ROWS = 227_272
+LONG_BIN = dict(bin_size=600, bin_index=0)  # get_time_on_cluster's bin: the first 10 minutes
+LONG_WINDOW_STRIDE = 97  # windows compared between modes: every 97th
+LONG_NAN_RATE = 0.002  # tracks lost (NaN, likelihood 0) per frame, animal and bodypart
+# A window's sticky-HMM label is held where the reference posterior's largest
+# entry is at least this (get_contrastive_soft_counts' min_confidence, below
+# which it treats a prior row as uniform): another label there needs an entry
+# to move by 0.25 or more.
+SOFT_CONFIDENT = 0.75
+
+
+def _long_tracks(frames, seed=3):
+    """{key: (frames, 2, 14, 2) float64} SLEAP tracks: each animal a seeded
+    random walk, its bodyparts at fixed offsets with 1 px jitter, a few
+    tracks lost (NaN) inside the recording."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key in LONG_KEYS:
+        walk = rng.normal(size=(frames, 2, 1, 2)).cumsum(axis=0) * 0.5 + 300.0
+        tracks = walk + rng.normal(scale=15.0, size=(1, 2, 14, 2)) + rng.normal(size=(frames, 2, 14, 2))
+        lost = rng.random((frames, 2, 14)) < LONG_NAN_RATE
+        # the smoothing's edge fits need tracked first and last frames, in the prefix copy too
+        lost[:WINDOW] = lost[PREFIX - WINDOW:PREFIX] = lost[-WINDOW:] = False
+        tracks[lost] = np.nan
+        out[key] = tracks
+    return out
+
+
+def _write_sleap_project(root, tracks, rows=None):
+    """Tables/{key}.npy (the first ``rows`` frames of each recording's
+    tracks) and a placeholder video each, under ``root``."""
+    os.makedirs(f"{root}/Tables")
+    os.makedirs(f"{root}/Videos")
+    for key, t in tracks.items():
+        np.save(f"{root}/Tables/{key}.npy", t[:rows])
+        with open(f"{root}/Videos/{key}.mp4", "wb") as f:
+            f.write(b"\x00" * 64)
+    return root
+
+
+def _long_project(root, device, precision="auto"):
+    from deepof_tpu_torch.core.graph import connect_mouse
+    from deepof_tpu_torch.data import Project
+
+    bodyparts = sorted(connect_mouse(graph_preset="deepof_14").nodes)
+    return Project(
+        project_path=root, project_name="long", video_path=f"{root}/Videos", table_path=f"{root}/Tables",
+        arena="circular-autodetect", video_scale="380 mm", table_format="npy", frame_rate=FPS,
+        animal_ids=ANIMALS, rename_bodyparts=bodyparts, precision=precision, device=device,
+    ).create(force=True, test=True, verbose=False)
+
+
+class _StorageIO:
+    """Bytes and seconds of paths mode's table writes (``_write_npy``) and
+    reads (``_read_pointer``: a pointer's rows read from its maps) while the
+    block runs."""
+
+    def __init__(self):
+        from deepof_tpu_torch.core import storage
+
+        self.storage, self.originals = storage, (storage._write_npy, storage._read_pointer)
+        self.stats = {"written_bytes": 0, "write_s": 0.0, "files_written": 0, "read_bytes": 0, "read_s": 0.0}
+
+    def __enter__(self):
+        write, read = self.originals
+
+        def timed_write(path, arr, stamp):
+            t0 = time.perf_counter()
+            write(path, arr, stamp)
+            self.stats["write_s"] += time.perf_counter() - t0
+            self.stats["written_bytes"] += int(np.asarray(arr).nbytes)
+            self.stats["files_written"] += 1
+
+        def timed_read(entry, rows=None):
+            t0 = time.perf_counter()
+            out = read(entry, rows)
+            self.stats["read_s"] += time.perf_counter() - t0
+            if entry["kind"] == "windows":  # its frame read once; the windows are views of it
+                self.stats["read_bytes"] += int(self.storage.pointer_map(entry).nbytes)
+            else:
+                self.stats["read_bytes"] += sum(int(p.nbytes) for p in (out if isinstance(out, tuple) else (out,)))
+            return out
+
+        self.storage._write_npy, self.storage._read_pointer = timed_write, timed_read
+        return self
+
+    def __exit__(self, *exc):
+        self.storage._write_npy, self.storage._read_pointer = self.originals
+
+
+def _windows_frame(pointer):
+    """The scaled frame behind a windows pointer, from the map the pointer
+    read it through (its file may have been written again since)."""
+    from deepof_tpu_torch.core.storage import pointer_map
+
+    return np.asarray(pointer_map(pointer), np.float64)
+
+
+def _sampled_windows(part, key):
+    from deepof_tpu_torch.core.storage import get_dt, get_dt_rows
+
+    n = int(get_dt(part, key, only_metainfo=True)["num_rows"])
+    return get_dt_rows(part, key, np.arange(0, n, LONG_WINDOW_STRIDE))
+
+
+def _soft_count_parts(soft, other, name) -> dict:
+    """How far the sticky-HMM soft counts of slightly different embeddings
+    part: the largest and the mean |difference| of their entries (over
+    max(1, max |value|)), the windows whose hard label differs, and those
+    among the windows where ``soft`` is confident (SOFT_CONFIDENT)."""
+    from deepof_tpu_torch.core.storage import get_dt
+
+    got = {k: np.asarray(get_dt(soft, k), np.float64) for k in LONG_KEYS}
+    want = {k: np.asarray(get_dt(other, k), np.float64) for k in LONG_KEYS}
+    differ = {k: got[k].argmax(1) != want[k].argmax(1) for k in LONG_KEYS}
+    sure = {k: got[k].max(1) >= SOFT_CONFIDENT for k in LONG_KEYS}
+    return {f"soft_counts_{name}_max": max(_rel_err(got[k], want[k]) for k in LONG_KEYS),
+            f"soft_counts_{name}_mean": float(np.mean([np.abs(got[k] - want[k]).mean() for k in LONG_KEYS])),
+            f"hard_labels_differing_{name}": sum(int(differ[k].sum()) for k in LONG_KEYS),
+            f"windows_{name}": sum(len(want[k]) for k in LONG_KEYS),
+            f"hard_labels_differing_{name}_confident": sum(int((differ[k] & sure[k]).sum()) for k in LONG_KEYS),
+            f"windows_{name}_confident": sum(int(sure[k].sum()) for k in LONG_KEYS)}
+
+
+def _check_soft_count_parts(errs, name, what) -> None:
+    """Of the windows where the reference posterior is confident
+    (SOFT_CONFIDENT), the hard labels of :func:`_soft_count_parts` differ on
+    at most GATE_DIFF_MAX. Used where two sets of embeddings about 1e-6
+    apart are decoded by one fitted sticky HMM. The labels of all windows
+    and the entries are only reported: an HMM posterior is a function of
+    the whole sequence, so where two states nearly tie over a stretch,
+    such embeddings flip the stretch's label and move its posteriors by
+    O(0.1) (0.03-0.11% of 454,496 labels over four fits, paths vs
+    in-memory; NVIDIA H100 80GB HBM3, 700.00 W)."""
+    differ, n = errs[f"hard_labels_differing_{name}"], errs[f"windows_{name}"]
+    c_differ, c_n = errs[f"hard_labels_differing_{name}_confident"], errs[f"windows_{name}_confident"]
+    _log(f"{what}: hard labels differing {c_differ} of the {c_n} confident windows (max >= {SOFT_CONFIDENT}, at "
+         f"most {GATE_DIFF_MAX:.0e}); all windows {differ} of {n}, entries max {errs[f'soft_counts_{name}_max']:.3e}, "
+         f"mean {errs[f'soft_counts_{name}_mean']:.3e} (reported)")
+    if not c_differ <= GATE_DIFF_MAX * c_n:
+        _fail(f"{what}: {c_differ} of {c_n} confident hard labels differ")
+
+
+def _report_refit(errs, name, what) -> None:
+    """Logs how far two sticky HMMs fitted on embeddings about 1e-6 apart
+    decode apart. Not checked: the fit's k-means start and the GMM's EM are
+    discontinuous in their rows, so two such fits may settle on different
+    states (paths vs in-memory, 454,496 windows: 222-281 hard labels
+    differing on some runs, up to 397,563 on others; NVIDIA H100 80GB HBM3,
+    700.00 W)."""
+    _log(f"{what}, each side's own fit (not checked): hard labels differing {errs[f'hard_labels_differing_{name}']} "
+         f"of {errs[f'windows_{name}']}; entries max {errs[f'soft_counts_{name}_max']:.3e}")
+
+
+def _paths_modes(torch, coords, ggd, bundle, emb, soft):
+    """The same project's in-memory mode against paths mode: the default
+    call (in memory the fused lane, whose frames, cut to samples_max rows,
+    take the float64 general route; in paths mode the getters' lane on the
+    float32 device route: scaled
+    frames, every LONG_WINDOW_STRIDE-th window, the embeddings of the one
+    trained bundle at PATH_RTOL); the sticky-HMM soft counts of paths mode's
+    embeddings computed in memory at PATH_RTOL (the pointers' storage); the
+    in-memory embeddings decoded by the sticky HMM that paths mode fitted,
+    with hard labels differing on at most GATE_DIFF_MAX of the confident
+    windows (:func:`_check_soft_count_parts`), and by a fit of their own (only
+    reported, :func:`_report_refit`); the tutorial's
+    call in both modes (the getters' lane both times): merged tables, scaled
+    frames and the sampled windows equal bit for bit. Returns ({check: max
+    relative error or count}, {stage: seconds})."""
+    from deepof_tpu_torch import posthoc as ph
+    from deepof_tpu_torch.core.storage import get_dt
+    from deepof_tpu_torch.msm import fit_sticky_hmm, sticky_hmm_posteriors
+    from deepof_tpu_torch.train.inference import embedding_per_video
+
+    errs, secs = {}, {}
+    t0 = time.perf_counter()
+    mem = coords.get_graph_dataset(window_size=WINDOW, test_videos=1, return_as_paths=False)
+    secs["memory_graph_dataset"] = time.perf_counter() - t0
+    errs["scaled_frames"] = max(_rel_err(_windows_frame(p[k]), get_dt(mem[3]._scaled_frames, k))
+                                for p in ggd[0] for k in p)
+    errs["windows"] = max(_rel_err(g, w) for p, m in zip(ggd[0], mem[0]) for k in p
+                          for g, w in zip(_sampled_windows(p, k), _sampled_windows(m, k)))
+    t0 = time.perf_counter()
+    m_emb, _ = embedding_per_video(coords, mem[3], bundle, mem[1], global_scaler=mem[4], batch_size=BLOCK)
+    secs["memory_embed"] = time.perf_counter() - t0
+    errs["embeddings"] = max(_rel_err(emb[k], m_emb[k]) for k in LONG_KEYS)
+    del mem
+    k_best = get_dt(soft, LONG_KEYS[0], only_metainfo=True)["shape"][1]
+    coords._very_large_project = False
+    try:
+        t0 = time.perf_counter()
+        same = ph.get_contrastive_soft_counts(coords, emb, states=k_best)
+        refit = ph.get_contrastive_soft_counts(coords, m_emb, states=k_best)
+        secs["memory_soft_counts"] = time.perf_counter() - t0
+    finally:
+        coords._very_large_project = True
+    other = sticky_hmm_posteriors(fit_sticky_hmm(emb, states=k_best), m_emb)
+    errs["soft_counts_same_embeddings"] = max(_rel_err(get_dt(soft, k), same[k]) for k in LONG_KEYS)
+    errs.update(_soft_count_parts(soft, other, "memory_embeddings"))
+    errs.update(_soft_count_parts(soft, refit, "memory_embeddings_refit"))
+
+    t0 = time.perf_counter()
+    tut_paths = coords.get_graph_dataset(**TUTORIAL)
+    secs["tutorial_paths_graph_dataset"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tut_mem = coords.get_graph_dataset(return_as_paths=False, **TUTORIAL)
+    secs["tutorial_memory_graph_dataset"] = time.perf_counter() - t0
+    unequal = []
+    for k in LONG_KEYS:
+        if not np.array_equal(get_dt(tut_paths[3], k), get_dt(tut_mem[3], k), equal_nan=True):
+            unequal.append(f"merged {k}")
+    for p, m in zip(tut_paths[0], tut_mem[0]):
+        for k in p:
+            if not np.array_equal(_windows_frame(p[k]), get_dt(tut_mem[3]._scaled_frames, k), equal_nan=True):
+                unequal.append(f"scaled frame {k}")
+            if not all(np.array_equal(g, w, equal_nan=True) and g.dtype == w.dtype
+                       for g, w in zip(_sampled_windows(p, k), _sampled_windows(m, k))):
+                unequal.append(f"windows {k}")
+    errs["tutorial_unequal"] = unequal
+
+    for name in ("scaled_frames", "windows", "embeddings", "soft_counts_same_embeddings"):
+        _log(f"paths vs in-memory, {name}: max|diff| / max(1, max|memory|) {errs[name]:.3e} (tol {PATH_RTOL:.0e})")
+        if not errs[name] <= PATH_RTOL:
+            _fail(f"paths mode and the in-memory mode disagree on {name}: {errs[name]}")
+    _check_soft_count_parts(errs, "memory_embeddings", "paths vs in-memory soft counts, each mode's embeddings "
+                            "decoded by paths mode's sticky HMM")
+    _report_refit(errs, "memory_embeddings_refit", "paths vs in-memory soft counts")
+    if unequal:
+        _fail(f"the tutorial's call differs between paths mode and the in-memory mode: {unequal}")
+    _log(f"tutorial call, paths vs in-memory: merged tables, scaled frames and windows equal bit for bit")
+    return errs, secs
+
+
+def _paths_card_vs_cpu(torch, prefix, bundle, k_best):
+    """Card vs CPU (float32 both) on the prefix copy in paths mode
+    (``return_as_paths=True``; the copy is not very large): scaled frames,
+    the sampled windows and the trained bundle's embeddings at PATH_RTOL;
+    the card's soft counts of states=k_best against the CPU's embeddings
+    decoded on the CPU by the card's sticky HMM (:func:`_check_soft_count_parts`),
+    and against the CPU's own fit (only reported)."""
+    from deepof_tpu_torch import posthoc as ph
+    from deepof_tpu_torch.core.storage import get_dt
+    from deepof_tpu_torch.msm import fit_sticky_hmm, sticky_hmm_posteriors
+    from deepof_tpu_torch.train.inference import ModelBundle, embedding_per_video
+
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        coords = _long_project(prefix, dev, precision="float32")
+        ggd = coords.get_graph_dataset(window_size=WINDOW, test_videos=1, return_as_paths=True)
+        b = bundle if dev == "cuda" else ModelBundle(copy.deepcopy(bundle.model).to("cpu"), bundle.rebuild_spec)
+        emb, _ = embedding_per_video(coords, ggd[3], b, ggd[1], global_scaler=ggd[4], batch_size=BLOCK)
+        soft = ph.get_contrastive_soft_counts(coords, emb, states=k_best, device=dev)
+        frames = {k: _windows_frame(p[k]) for p in ggd[0] for k in p}
+        windows = {k: _sampled_windows(p, k) for p in ggd[0] for k in p}
+        sides[dev] = (frames, windows, emb, {k: get_dt(soft, k) for k in soft})
+    (cf, cw, ce, cs), (pf, pw, pe, ps) = sides["cuda"], sides["cpu"]
+    errs = {"scaled_frames": max(_rel_err(cf[k], pf[k]) for k in LONG_KEYS),
+            "windows": max(_rel_err(g, w) for k in LONG_KEYS for g, w in zip(cw[k], pw[k])),
+            "embeddings": max(_rel_err(ce[k], pe[k]) for k in LONG_KEYS)}
+    for name, err in errs.items():
+        _log(f"paths copy ({PREFIX} frames), {name}, card vs CPU: max|diff| / max(1, max|cpu|) {err:.3e} "
+             f"(tol {PATH_RTOL:.0e})")
+        if not err <= PATH_RTOL:
+            _fail(f"card and CPU disagree on the paths copy's {name}: {err}")
+    decoded = sticky_hmm_posteriors(fit_sticky_hmm(ce, states=k_best), pe, device="cpu")
+    errs.update(_soft_count_parts(cs, decoded, "card_vs_cpu"))
+    errs.update(_soft_count_parts(cs, ps, "card_vs_cpu_refit"))
+    _check_soft_count_parts(errs, "card_vs_cpu", f"paths copy ({PREFIX} frames) soft counts, card vs the CPU's "
+                            "embeddings decoded on the CPU by the card's sticky HMM")
+    _report_refit(errs, "card_vs_cpu_refit", f"paths copy ({PREFIX} frames) soft counts, card vs CPU")
+    return errs
+
+
+def _paths_phase(torch, card, tmp, seed=None):
+    """Phase 16: a very large project through the main path in paths mode:
+    two LONG_FRAMES-frame SLEAP recordings -> create (flags it very large) ->
+    get_graph_dataset(window_size=25, test_videos=1) (paths mode by
+    default: the getters, merge and preprocess write files, the windows are
+    pointers to the scaled frames) -> deep_unsupervised_embedding at its
+    default model (one pretrain and one main epoch of TRAIN_BATCHES +
+    VAL_BATCHES batches; the windows read into RAM) -> embedding_per_video
+    (scaled again, frames written to files, served through the window and
+    GRU kernels) -> get_contrastive_soft_counts (the BIC scan, hmm_scan;
+    pointers) -> get_time_on_cluster over the first 600 s bin, read from
+    the pointers. Each stage timed, the launches counted from a reset, the
+    bytes and seconds of the tables written and read, peak device memory and
+    the process's peak RSS; then the modes against each other
+    (:func:`_paths_modes`) and card vs CPU on the prefix copy. ``seed`` is
+    the fit's (default: its own default). Returns (the paths line,
+    {"paths": launches})."""
+    import resource
+
+    from deepof_tpu_torch import posthoc as ph
+    from deepof_tpu_torch.core.storage import TablePointer, get_dt
+    from deepof_tpu_torch.core.table_dict import preprocess_time_bins
+    from deepof_tpu_torch.train.inference import embedding_per_video
+
+    t_phase = time.perf_counter()
+    rss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    t0 = time.perf_counter()
+    tracks = _long_tracks(LONG_FRAMES)
+    full = _write_sleap_project(os.path.join(tmp, "long"), tracks)
+    prefix = _write_sleap_project(os.path.join(tmp, "long_prefix"), tracks, PREFIX)
+    del tracks
+    write_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _kernel_counts(reset=True)
+    stages, io = {}, {}
+    t0 = time.perf_counter()
+    coords = _long_project(full, "cuda")
+    stages["create"] = time.perf_counter() - t0
+    if not coords._very_large_project:
+        _fail("create did not flag two 375,000-frame recordings as a very large project")
+    with _StorageIO() as rec:
+        t0 = time.perf_counter()
+        ggd = coords.get_graph_dataset(window_size=WINDOW, test_videos=1)
+        torch.cuda.synchronize()
+        stages["graph_dataset"] = time.perf_counter() - t0
+    io["graph_dataset"] = rec.stats
+    (train, test), meta, adjacency, tab_dict, scaler = ggd
+    stored = [v for part in (train, test, tab_dict) for v in part.values()]
+    if len(test) != 1 or not all(isinstance(v, TablePointer) for v in stored):
+        _fail(f"paths mode stored values that are not pointers: {[type(v).__name__ for v in stored]}")
+    with _StorageIO() as rec:
+        t0 = time.perf_counter()
+        bundle, _, _, summary = coords.deep_unsupervised_embedding(
+            ggd[:3], adjacency_matrix=adjacency, batch_size=TRAIN_BATCH, latent_dim=LATENT,
+            n_clusters=N_COMPONENTS, epochs=1, pretrain_epochs=1, verbose=False,
+            limit_train_batches=TRAIN_BATCHES, limit_val_batches=VAL_BATCHES, seed=seed,
+        )
+        torch.cuda.synchronize()
+        stages["train"] = time.perf_counter() - t0
+    io["train"] = rec.stats
+    with _StorageIO() as rec:
+        t0 = time.perf_counter()
+        emb, counts = embedding_per_video(coords, tab_dict, bundle, meta, global_scaler=scaler, batch_size=BLOCK)
+        stages["embed"] = time.perf_counter() - t0
+    io["embed"] = rec.stats
+    launches = _kernel_counts()
+    _kernel_counts(reset=True)
+    with _StorageIO() as rec:
+        t0 = time.perf_counter()
+        soft = ph.get_contrastive_soft_counts(coords, emb)
+        stages["soft_counts"] = time.perf_counter() - t0
+    io["soft_counts"] = rec.stats
+    launches["hmm_scan"] = _kernel_counts()["hmm_scan"]
+    with _StorageIO() as rec:
+        t0 = time.perf_counter()
+        bins = preprocess_time_bins(coords, **LONG_BIN)
+        toc = ph.get_time_on_cluster(soft, bin_info=bins)
+        stages["time_on_cluster"] = time.perf_counter() - t0
+    io["time_on_cluster"] = rec.stats
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rss_after = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    _log(f"paths path: stages {stages}, launches {launches}, io {io}, peak {peak_gib:.2f} GiB, peak RSS "
+         f"{rss_after:.2f} GiB")
+
+    n_windows = LONG_ROWS - WINDOW + 1
+    n_blocks = len(LONG_KEYS) * -(-n_windows // BLOCK)
+    want = {"window_streams": n_blocks,
+            "gru_scan": 2 * 6 * (TRAIN_BATCHES + VAL_BATCHES) + 4 * -(-n_windows // TRAIN_BATCH) + 4 * n_blocks,
+            "gru_scan_bwd": 2 * 6 * TRAIN_BATCHES, "kalman_rts": 0}
+    if {k: launches[k] for k in want} != want or launches["hmm_scan"] <= 0:
+        _fail(f"the paths path launched {launches}, not {want} and some hmm_scan")
+    k_best = get_dt(soft, LONG_KEYS[0], only_metainfo=True)["shape"][1]
+    for key in LONG_KEYS:
+        sc = get_dt(soft, key)
+        if not isinstance(soft[key], TablePointer) or soft[key]["npy_table"] != os.path.join(
+                coords._table_path, key, f"{key}_soft_counts"):
+            _fail(f"paths soft counts {key}: not a pointer to its table ({soft[key]})")
+        if emb[key].shape != (n_windows, LATENT) or counts[key].shape != (n_windows, N_COMPONENTS) or \
+                sc.shape != (n_windows, k_best):
+            _fail(f"paths {key}: shapes {emb[key].shape}, {counts[key].shape}, {sc.shape}")
+        for name, x in (("embeddings", emb[key]), ("soft counts", counts[key]), ("sticky-HMM soft counts", sc)):
+            if not np.isfinite(x).all():
+                _fail(f"paths {key}: non-finite {name}")
+        for name, x in (("soft counts", counts[key]), ("sticky-HMM soft counts", sc)):
+            if not np.abs(x.sum(axis=1) - 1.0).max() <= 1e-4:
+                _fail(f"paths {key}: {name} rows do not sum to 1")
+    bin_rows = LONG_BIN["bin_size"] * int(FPS)
+    # time on cluster has a column for each cluster that the bin's frames visit
+    if toc.values.shape[0] != len(LONG_KEYS) or not set(toc.columns) <= set(range(k_best)) or not np.allclose(
+            toc.values.sum(axis=1), 1.0):
+        _fail(f"time on cluster over the paths soft counts: {toc.values.shape}, columns {toc.columns}, rows "
+              f"{toc.values.sum(axis=1)}")
+    if not all(len(bins[k]) == bin_rows for k in LONG_KEYS):
+        _fail(f"the {LONG_BIN} bin holds {[len(bins[k]) for k in LONG_KEYS]} frames, not {bin_rows}")
+    if not all(np.isfinite(v) for v in summary.values()):
+        _fail(f"paths training losses: {summary}")
+    _log(f"paths path: checked; sticky-HMM states {k_best}")
+
+    modes_errs, modes_s = _paths_modes(torch, coords, ggd, bundle, emb, soft)
+    del ggd, train, test, tab_dict
+    t0 = time.perf_counter()
+    copy_errs = _paths_card_vs_cpu(torch, prefix, bundle, k_best)
+    copy_s = time.perf_counter() - t0
+    table_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(coords._table_path) for f in fs)
+    line = {
+        "path": "paths", "configuration": "long-recordings-2mice-paths", "recordings": len(LONG_KEYS),
+        "frames": [LONG_FRAMES] * len(LONG_KEYS), "rows_per_recording": LONG_ROWS,
+        "windows_per_recording": n_windows, "very_large_project": True, "stages_s": stages,
+        "total_s": sum(stages.values()), "io": io,
+        "written_bytes": sum(s["written_bytes"] for s in io.values()),
+        "write_s": sum(s["write_s"] for s in io.values()), "read_s": sum(s["read_s"] for s in io.values()),
+        "table_dir_bytes": table_bytes, "launches": launches, "sticky_hmm_states": k_best,
+        "peak_mem_gib": peak_gib, "peak_rss_gib_before": rss_before, "peak_rss_gib_after": rss_after,
+        "fit_batches": [TRAIN_BATCHES, VAL_BATCHES], "losses": summary, "modes": modes_errs,
+        "modes_s": modes_s, "card_vs_cpu": copy_errs, "card_vs_cpu_s": copy_s, "write_npy_s": write_s,
+        "fit_seed": seed, "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    return line, {"paths": launches}
+
+
+
 def _unequal_leaves(got, want, where=""):
     """The paths where two nested states (dicts, lists, tensors, numbers)
     differ, tensors compared bit for bit on the CPU."""
@@ -4068,12 +4522,12 @@ def main() -> int:
     launches["gru_scan_bwd"] = bwd_launches
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
-    # Phases 4-15: the public path, the getters, supervised annotation,
+    # Phases 4-16: the public path, the getters, supervised annotation,
     # training and VaDE on its project, then the cohort, its group
     # comparison, its soft counts and its evaluation (phase 15, run while
     # the cohort is held), the other encoders, VaDE's teacher and
-    # checkpoints, and full imputation with a project past the device
-    # budgets.
+    # checkpoints, full imputation with a project past the device budgets,
+    # and a very large project in paths mode.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
     try:
         public_line, public_launches, full, tables = _public_phase(torch, card, tmp)
@@ -4092,6 +4546,7 @@ def main() -> int:
         teacher_line, teacher_launches = _teacher_phase(torch, card, data)
         del data
         imputation_line, imputation_launches, kalman_err, kalman_t = _imputation_phase(torch, card, tmp, tables)
+        paths_line, paths_launches = _paths_phase(torch, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4108,6 +4563,7 @@ def main() -> int:
     print(json.dumps(teacher_line), flush=True)
     print(json.dumps(imputation_line), flush=True)
     print(json.dumps(evaluation_line), flush=True)
+    print(json.dumps(paths_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,
         "first_stages_s": first_stages, "first_run_s": first_run_s,
@@ -4125,7 +4581,7 @@ def main() -> int:
                       **{f"softcounts_{p}": c[name] for p, c in softcounts_launches.items() if name in c},
                       **{p: c[name] for p, c in encoders_launches.items()}, "teacher": teacher_launches[name],
                       **{p: c[name] for p, c in imputation_launches.items()},
-                      "evaluation": evaluation_launches[name]}
+                      "evaluation": evaluation_launches[name], "paths": paths_launches["paths"][name]}
                for name in ("window_streams", "gru_scan", "gru_scan_bwd")}
     hmm_abs, hmm_rel, hmm_timed = hmm_res
     kernels = [
@@ -4151,7 +4607,8 @@ def main() -> int:
          "launches_by_path": {**{f"softcounts_{p}": c["hmm_scan"] for p, c in softcounts_launches.items()},
                               "teacher": teacher_launches["hmm_scan"],
                               **{p: c["hmm_scan"] for p, c in imputation_launches.items()},
-                              "evaluation": evaluation_launches["hmm_scan"]},
+                              "evaluation": evaluation_launches["hmm_scan"],
+                              "paths": paths_launches["paths"]["hmm_scan"]},
          "max_abs_err": hmm_abs, "max_rel_err": hmm_rel, **hmm_timed[0], "library_ms": None,
          "at_shapes": hmm_timed},
         {"name": "kalman_rts", "route": "cuda",
@@ -4163,7 +4620,8 @@ def main() -> int:
                               **{p: c["kalman_rts"] for p, c in encoders_launches.items()},
                               "teacher": teacher_launches["kalman_rts"],
                               **{p: c["kalman_rts"] for p, c in imputation_launches.items()},
-                              "evaluation": evaluation_launches["kalman_rts"]},
+                              "evaluation": evaluation_launches["kalman_rts"],
+                              "paths": paths_launches["paths"]["kalman_rts"]},
          "max_abs_err": kalman_err[0], "max_rel_err": kalman_err[1], **kalman_t},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -37,6 +37,7 @@ estimators on the tables' device and return a :class:`Projection`.
 
 from __future__ import annotations
 
+import os
 import re
 import warnings
 from functools import reduce
@@ -45,7 +46,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from deepof_tpu_torch.core.storage import PATHS_MODE, LazyFrame, get_dt, save_dt
+from deepof_tpu_torch.core.storage import POINTER_KEY, LazyFrame, get_dt, is_pointer, save_dt
 from deepof_tpu_torch.device import fetch_together, resolve_device
 from deepof_tpu_torch.ops.geometry import point_in_polygon
 from deepof_tpu_torch.ops.scaling import (
@@ -220,15 +221,20 @@ class TableDict(dict):
         """Concatenate several TableDicts column-wise per experiment. Where
         every part of a key is on the device, the merged frame is made there
         (in the parts' promoted dtype) and enters ``_device_frames``;
-        otherwise it is a float64 host frame."""
-        if save_as_paths:
-            raise NotImplementedError(PATHS_MODE)
+        otherwise it is a float64 host frame. With ``save_as_paths`` each
+        merged frame is written to ``{table_path}/{key}/{key}_{file_name}``
+        (with the parts' promoted dtype) and the value is its pointer."""
         dicts = [self] + list(args)
         merged, frames = {}, {}
         for key in self.keys():
             columns = [c for td in dicts for c in _columns_of(td[key], key)]
             devs = [(getattr(td, "_device_frames", None) or {}).get(key) for td in dicts]
-            if all(d is not None for d in devs):
+            if save_as_paths:
+                arr = np.hstack([np.asarray(get_dt(td, key), np.float64) for td in dicts])
+                dtype = str(np.result_type(*[_dtype_of(td, key) for td in dicts]))
+                merged[key] = save_dt(LazyFrame(lambda a=arr: a, columns, len(arr), dtype),
+                                      self._path_of(key, file_name), True)
+            elif all(d is not None for d in devs):
                 if len({int(d.shape[0]) for d in devs}) != 1:
                     raise ValueError(f"table {key!r}: the parts to merge differ in length")
                 dtype = reduce(torch.promote_types, [d.dtype for d in devs])
@@ -241,6 +247,11 @@ class TableDict(dict):
         out._animal_ids = self._animal_ids
         out._device_frames = frames
         return out
+
+    def _path_of(self, key, file_name) -> Optional[str]:
+        """Where paths mode writes ``key``'s table named ``file_name`` (None
+        without a table path: the value then stays in memory)."""
+        return os.path.join(self._table_path, key, f"{key}_{file_name}") if self._table_path else None
 
     def get_training_set(
         self, current_table_dict: "TableDict", test_videos: Union[int, list] = 0
@@ -309,8 +320,7 @@ class TableDict(dict):
             raise ValueError(f"Invalid scaler: {scale}")
         if save_as_paths is None:
             save_as_paths = bool(getattr(coordinates, "_very_large_project", False))
-        if save_as_paths:
-            raise NotImplementedError(PATHS_MODE)
+        saving = file_name if save_as_paths and self._table_path else None
 
         keys_list = sorted(self.keys())
         bin_info = preprocess_time_bins(
@@ -324,12 +334,12 @@ class TableDict(dict):
         if _device_scale_applicable(scale, filter_low_variance, *modes):
             scaled = self._preprocess_scale_device(
                 keys_list, bin_info, device, coordinates._animal_ids, pretrained_scaler, samples_max,
-                interpolate_normalized, log_distances, *modes,
+                interpolate_normalized, log_distances, *modes, saving=saving,
             )
         if scaled is None:
             scaled = self._preprocess_scale_general(
                 keys_list, bin_info, device, coordinates._animal_ids, scale, pretrained_scaler,
-                interpolate_normalized, filter_low_variance, log_distances, *modes,
+                interpolate_normalized, filter_low_variance, log_distances, *modes, saving=saving,
             )
         table_temp, global_scaler = scaled
 
@@ -344,27 +354,31 @@ class TableDict(dict):
             )
             metainfo["shape_test"] = (0,)
             return (x_train, x_test), {k: metainfo[k] for k in _META_ORDER}, global_scaler
-        x_train, metainfo["shape_train"] = extract_windows(x_train, window_size, window_step, shuffle=shuffle)
+        x_train, metainfo["shape_train"] = extract_windows(x_train, window_size, window_step, save_as_paths, shuffle)
         if test_videos and len(test_index) > 0:
-            x_test, metainfo["shape_test"] = extract_windows(x_test, window_size, window_step, shuffle=shuffle)
+            x_test, metainfo["shape_test"] = extract_windows(x_test, window_size, window_step, save_as_paths,
+                                                             shuffle)
         else:
             metainfo["shape_test"] = (0,)
         return (x_train, x_test), {k: metainfo[k] for k in _META_ORDER}, global_scaler
 
     def _table(self, key, device):
         """(tensor, columns) of one table: its device frame, or its host
-        frame uploaded to ``device``."""
+        frame uploaded to ``device`` (a pointer's frame read from its file
+        and uploaded in the dtype it was made in)."""
         entry = self[key]
         columns = _columns_of(entry, key)
         dev = (getattr(self, "_device_frames", None) or {}).get(key)
         if dev is None:
             dev = torch.as_tensor(np.asarray(get_dt(self, key), np.float64), device=device)
+            if is_pointer(entry):
+                dev = dev.to(getattr(torch, _dtype_of(self, key)))
         return dev, columns
 
     def _preprocess_scale_device(
         self, keys_list, bin_info, device, animal_ids, pretrained_scaler, samples_max,
         interpolate_normalized, log_distances,
-        dist_standardize, speed_standardize, coord_standardize,
+        dist_standardize, speed_standardize, coord_standardize, saving=None,
     ):
         """The float32 device formulation (table_dict.py:529-822). Returns
         (table_temp, global_scaler), or None where a table falls outside it
@@ -414,12 +428,12 @@ class TableDict(dict):
         if vectors is None:
             return None
         outs = ((key, finish(pend.pop(key)[0], vectors, plan), plan["columns"]) for key in list(pend))
-        return self._scaled_dict(outs), global_scaler
+        return self._scaled_dict(outs, saving=saving), global_scaler
 
     def _preprocess_scale_general(
         self, keys_list, bin_info, device, animal_ids, scale, pretrained_scaler,
         interpolate_normalized, filter_low_variance, log_distances,
-        dist_standardize, speed_standardize, coord_standardize,
+        dist_standardize, speed_standardize, coord_standardize, saving=None,
     ):
         """The JAX package's host passes (table_dict.py:284-473), in float64
         on the tables' device, recording by recording (a host table is
@@ -491,9 +505,9 @@ class TableDict(dict):
                                         log_distances=log_distances, **modes) if scale else x
                 yield key, finish_general(local, columns, *finish_args), columns
 
-        return self._scaled_dict(finished(), keep64=True), global_scaler
+        return self._scaled_dict(finished(), keep64=True, saving=saving), global_scaler
 
-    def _scaled_dict(self, outs, keep64: bool = False) -> "TableDict":
+    def _scaled_dict(self, outs, keep64: bool = False, saving: Optional[str] = None) -> "TableDict":
         """The scaled frames ((key, frame, columns), each taken as it comes)
         as a TableDict of LazyFrames. A frame is kept on the device, float32
         (``_device_frames``, ``_deferred_f32``) and, where ``keep64`` (the
@@ -502,12 +516,26 @@ class TableDict(dict):
         that fits is kept, as the JAX package's table_dict.py:771-813
         pins them); a frame that does not fit is copied to the host, its
         float32 copy in ``_host_f32`` for windowing and serving, and
-        dropped from the device."""
+        dropped from the device. In paths mode (``saving``, the file name)
+        each frame is copied to the host and written to its file, in the
+        precision its windows are cut in (float64 where ``keep64``, else
+        float32), and the value is its pointer; its float32 frame is still
+        kept on the device within the budget (table_dict.py:807-813), and no
+        host copy is kept."""
         table_temp = self.new_dict_same_header({})
         dev_frames, deferred, host_f32 = {}, {}, {}
         budget = DEVICE_FRAMES_BYTES
         for key, out, columns in outs:
             out32 = out.to(torch.float32)
+            if saving is not None:
+                host = (out if keep64 else out32).cpu().numpy()
+                table_temp[key] = save_dt(LazyFrame(lambda h=host: h, columns, len(host), str(host.dtype)),
+                                          self._path_of(key, saving), True)
+                if out32.numel() * 4 <= budget:
+                    budget -= out32.numel() * 4
+                    dev_frames[key] = out32
+                del out, out32, host
+                continue
             nbytes = out32.numel() * 4 + (out.numel() * 8 if keep64 else 0)
             if nbytes <= budget:
                 budget -= nbytes
@@ -743,9 +771,24 @@ def _device_lazy(frame: torch.Tensor, columns) -> LazyFrame:
 
 
 def _columns_of(entry, key) -> list:
+    if is_pointer(entry) and entry.get("kind") == "frame":
+        return list(get_dt({key: entry}, key, only_metainfo=True)["columns"])
     if not isinstance(entry, LazyFrame):
         raise TypeError(f"table {key!r} is a {type(entry).__name__}, not a frame with columns (LazyFrame)")
     return list(entry.columns)
+
+
+def _dtype_of(td, key) -> str:
+    """The precision of ``td``'s table ``key``: its device frame's, the
+    dtype a pointer's frame was made in, or a LazyFrame's (float64 if
+    unset)."""
+    dev = (getattr(td, "_device_frames", None) or {}).get(key)
+    if dev is not None:
+        return str(dev.dtype).replace("torch.", "")
+    entry = td[key]
+    if is_pointer(entry):
+        return get_dt(td, key, only_metainfo=True)["dtype"]
+    return entry.dtype or "float64"
 
 
 def _device_scale_applicable(
@@ -874,9 +917,14 @@ def extract_windows(
     """Slide windows over every table, on the host; returns (windowed dict,
     total shape) (``deepof_tpu/core/table_dict.py:1342``). ``aggregate``:
     None, "mid", "mean", or "wta" / "lta" for label tables. Shuffling draws
-    from numpy's global state, as the JAX package does."""
+    from numpy's global state, as the JAX package does. With
+    ``save_as_paths``, a table read from a pointer has its windows written
+    over the pointer's files (the path it read) and the value is the new
+    pointer."""
     out_len, window_len, n_features = 0, 0, 0
     for key in to_window.keys():
+        entry = to_window[key]
+        path = entry[POINTER_KEY] if is_pointer(entry) else None
         windows = rolling_windows_host(np.asarray(get_dt(to_window, key)), window_size, window_step)
         if aggregate in ("mid", "mean"):
             windows = aggregate_windows(torch.from_numpy(windows), aggregate).numpy()
@@ -887,7 +935,7 @@ def extract_windows(
         out_len += windows.shape[0]
         window_len = windows.shape[1]
         n_features = windows.shape[2] if windows.ndim > 2 else 1
-        to_window[key] = save_dt(windows, None, save_as_paths)
+        to_window[key] = save_dt(windows, path, save_as_paths)
     return to_window, (out_len, window_len, n_features)
 
 

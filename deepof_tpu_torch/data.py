@@ -299,8 +299,9 @@ def _host_f64(x: torch.Tensor) -> np.ndarray:
     return np.array(x.cpu().numpy(), dtype=np.float64)
 
 
-def _frame(arr: np.ndarray, columns) -> LazyFrame:
-    return LazyFrame(lambda: arr, columns, len(arr))
+def _frame(arr: np.ndarray, columns, dtype: torch.dtype = None) -> LazyFrame:
+    """A host frame; ``dtype``, the device table's, is kept as its ``dtype``."""
+    return LazyFrame(lambda: arr, columns, len(arr), None if dtype is None else str(dtype).replace("torch.", ""))
 
 
 def _first_value(table, name):
@@ -1091,7 +1092,7 @@ class Coordinates:
         """A getter's (T, C) device result with the missing-animal NaN: as
         (tensor, columns) when ``device``, else as a host LazyFrame."""
         arr = self._set_missing_animals(arr, columns, key)
-        return (arr, columns) if device else _frame(_host_f64(arr), columns)
+        return (arr, columns) if device else _frame(_host_f64(arr), columns, arr.dtype)
 
     def get_coords(
         self, center: Union[bool, str] = False, polar: bool = False, speed: int = 0,
@@ -1113,7 +1114,7 @@ class Coordinates:
         }
         tabs = {}
         for key, (arr, columns) in pending.items():
-            tab = _frame(_host_f64(arr), columns)
+            tab = _frame(_host_f64(arr), columns, arr.dtype)
             tabs[key] = save_dt(tab, os.path.join(self._table_path, key, f"{key}_{file_name}"), return_path)
         return self._table_dict(tabs, "coords", arena=self._arena, arena_dims=self._scales, center=center,
                                 polar=polar)

@@ -12,6 +12,14 @@ tables on the device; a ``precomputed_tab_dict`` takes the place of those
 tables. Either way ``TableDict.preprocess`` scales the frames
 where they lie, and windows exist on the host only when a caller reads the
 returned training tensors.
+
+In paths mode (``return_as_paths``, by default a very large project's) the
+fused lane is off: the getters, ``merge`` and ``preprocess`` write their
+tables to files under the project's table path, no scaled frame is kept
+for ``embedding_per_video`` (it scales again), and each recording's
+windows are a pointer to its scaled frame written once with the column
+groups (:func:`deepof_tpu_torch.core.storage.save_windows`), where the JAX
+package writes the windows themselves.
 """
 
 from __future__ import annotations
@@ -19,10 +27,9 @@ from __future__ import annotations
 import numpy as np
 
 from deepof_tpu_torch.core.graph import connect_mouse
-from deepof_tpu_torch.core.storage import PATHS_MODE, LazyWindows
+from deepof_tpu_torch.core.storage import POINTER_KEY, LazyWindows, frame_windows, get_dt, is_pointer, save_windows
 from deepof_tpu_torch.core.table_dict import TableDict, _device_lazy, _device_scale_applicable
 from deepof_tpu_torch.device import resolve_device
-from deepof_tpu_torch.ops.windows import rolling_windows_host
 
 
 def reorder_and_reshape(data: np.ndarray) -> np.ndarray:
@@ -86,6 +93,22 @@ def _getter_tables(coordinates, animal_id, align, polar, include_angles, device)
     return merged, angle_names
 
 
+def _getter_files(coordinates, animal_id, align, polar, include_angles):
+    """The paths-mode lane's merged TableDict (graph_dataset.py:116-146 with
+    ``return_path``): the getters' tables of the device lane written to
+    files (``{key}_coords``, ``{key}_speed``, ``{key}_got_angles``,
+    ``{key}_got_distances``) and merged into ``{key}_merged``, every value a
+    pointer. Returns (merged TableDict, the angle column labels)."""
+    coords = coordinates.get_coords(selected_id=animal_id, center="arena", align=align, align_group=True,
+                                    polar=polar, return_path=True)
+    speeds = coordinates.get_coords(selected_id=animal_id, speed=1, file_name="speed", return_path=True)
+    dists = coordinates.get_distances(selected_id=animal_id, return_path=True)
+    angles = coordinates.get_angles(selected_id=animal_id, return_path=True)
+    angle_names = list(get_dt(angles, next(iter(angles)), only_metainfo=True)["columns"])
+    merged = coords.merge(speeds, *([angles] if include_angles else []), dists, save_as_paths=True)
+    return merged, angle_names
+
+
 def _matching(names, feature_names) -> list:
     return [j for n in names for j, f in enumerate(feature_names) if n == f]
 
@@ -118,12 +141,12 @@ def get_graph_dataset(
     window tensors, metainfo, adjacency (N, N) int64, the merged TableDict
     (LazyFrames, with the scaled frames stashed for
     ``embedding_per_video``), global_scaler). ``device`` defaults to the
-    project's.
+    project's. With ``return_as_paths`` (default: the project's
+    ``very_large_project``) the windows and the merged tables are pointers
+    to files, and no scaled frame is stashed.
     """
     if return_as_paths is None:
         return_as_paths = coordinates._very_large_project
-    if return_as_paths:
-        raise NotImplementedError(PATHS_MODE)
     if window_size is None:
         window_size = int(np.round(coordinates._frame_rate))
     window_step = int(kwargs.pop("window_step", 1))
@@ -133,6 +156,7 @@ def get_graph_dataset(
     binned = bin_size is not None or bin_index is not None or precomputed_bins is not None
     fused = (
         precomputed_tab_dict is None and animal_id is None and not polar and align is None and not binned
+        and not return_as_paths
         and _device_scale_applicable(
             scale, kwargs.get("filter_low_variance", False),
             dist_standardize, speed_standardize, coord_standardize,
@@ -155,6 +179,9 @@ def get_graph_dataset(
         first_key = next(iter(tab_dict))
         angle_names = list(coordinates.get_angles_at_key(first_key, selected_id=animal_id, _device=True)[1])
         feature_names = list(tab_dict[first_key].columns)
+    elif return_as_paths:
+        tab_dict, angle_names = _getter_files(coordinates, animal_id, align, polar, include_angles)
+        feature_names = get_dt(tab_dict, next(iter(tab_dict)), only_metainfo=True)["columns"]
     else:
         tab_dict, angle_names = _getter_tables(coordinates, animal_id, align, polar, include_angles, device)
         feature_names = tab_dict[next(iter(tab_dict))].columns
@@ -172,7 +199,7 @@ def get_graph_dataset(
 
     to_preprocess, metainfo, global_scaler = tab_dict.preprocess(
         coordinates=coordinates, bin_size=bin_size, bin_index=bin_index,
-        precomputed_bins=precomputed_bins, samples_max=samples_max, save_as_paths=False,
+        precomputed_bins=precomputed_bins, samples_max=samples_max, save_as_paths=return_as_paths,
         dist_standardize=dist_standardize, speed_standardize=speed_standardize,
         coord_standardize=coord_standardize, window_size=window_size, scale=scale,
         return_windows=False, **kwargs,
@@ -185,8 +212,9 @@ def get_graph_dataset(
     # The scaled per-frame frames, before windowing: scaling with a fitted
     # scaler is deterministic, so embedding_per_video reuses them when it
     # is given the same scaler and settings (unbinned builds only: it
-    # embeds every frame).
-    if not binned:
+    # embeds every frame); not in paths mode, where a very large project's
+    # frames are not held.
+    if not binned and not return_as_paths:
         tab_dict._scaled_frames = {k: part[k] for part in to_preprocess for k in part.keys()}
         tab_dict._scaled_device = {
             k: v for part in to_preprocess for k, v in part._device_frames.items()
@@ -195,16 +223,7 @@ def get_graph_dataset(
         tab_dict._scaled_scaler = global_scaler
         tab_dict._scaled_sig = (scale, dist_standardize, speed_standardize, coord_standardize, samples_max)
 
-    def gather_windows(frame, order=None):
-        """(T, F) scaled frame -> (nodes, edges, angles) window views, or
-        their windows in ``order`` (copies)."""
-        windows = tuple(
-            rolling_windows_host(frame[:, idx], window_size, window_step, contiguous=False)
-            if len(idx)
-            else np.zeros((max(frame.shape[0] - window_size + 1, 0), window_size, 0))[::window_step]
-            for idx in (node_idx, edge_idx, angle_idx)
-        )
-        return windows if order is None else tuple(w[order] for w in windows)
+    groups = (node_idx, edge_idx, angle_idx)
 
     # shuffle: each recording's windows in a permutation drawn, recording by
     # recording in the parts' order, from one np.random.default_rng(42), as
@@ -213,12 +232,21 @@ def get_graph_dataset(
     for k, part in enumerate(to_preprocess):
         num_rows = 0
         for key in part.keys():
-            n_win = len(range(0, max(int(part[key].shape[0]) - window_size + 1, 0), window_step))
+            t_rows = int(get_dt(part, key, only_metainfo=True)["num_rows"])
+            n_win = len(range(0, max(t_rows - window_size + 1, 0), window_step))
             order = None if rng is None else rng.permutation(n_win)
-            part[key] = LazyWindows(
-                (lambda h=part._deferred_f32[key], o=order: gather_windows(h.host(), o)),
-                [(n_win, window_size, len(idx)) for idx in (node_idx, edge_idx, angle_idx)],
-            )
+            if is_pointer(part[key]):
+                # The windows over the scaled frame's own files, the frame
+                # in the precision it was written in (its windows' dtype).
+                frame = get_dt(part, key).astype(get_dt(part, key, only_metainfo=True)["dtype"], copy=False)
+                part[key] = save_windows(frame, groups, window_size, window_step, part[key][POINTER_KEY], order)
+                del frame
+            else:
+                part[key] = LazyWindows(
+                    (lambda h=part._deferred_f32[key], o=order: frame_windows(
+                        h.host(), groups, window_size, window_step, o)),
+                    [(n_win, window_size, len(idx)) for idx in groups],
+                )
             num_rows += n_win
         if part.keys():
             metainfo["shape_train" if k == 0 else "shape_test"] = [

@@ -22,13 +22,14 @@ recording's posteriors come back in one host copy.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+import os
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deepof_tpu_torch.cluster import GaussianMixture, MiniBatchKMeans
-from deepof_tpu_torch.core.storage import PATHS_MODE, get_dt
+from deepof_tpu_torch.core.storage import get_dt, save_dt
 from deepof_tpu_torch.device import fetch_together, resolve_device, to_device
 from deepof_tpu_torch.ops.hmm_kernels import forward_backward
 from deepof_tpu_torch.ops.scaling import StandardScaler
@@ -259,7 +260,7 @@ def get_soft_counts_hmm(
     biases = []
     for k, s in seqs.items():
         if soft_counts is not None and k in soft_counts:
-            prior = _align_prior(soft_counts[k], s.shape[0], model.n_states, min_confidence)
+            prior = _align_prior(np.asarray(get_dt(soft_counts, k)), s.shape[0], model.n_states, min_confidence)
             biases.append(float(prior_weight) * np.log(prior))
         else:
             biases.append(None)
@@ -427,8 +428,21 @@ def decode_msm(model, seqs: Dict[str, np.ndarray], temporal_smooth_win: Optional
 # --------------------------------------------------------------------------- #
 
 
-def get_contrastive_soft_counts(
-    coordinates,
+class StickyHMM(NamedTuple):
+    """A fitted sticky HMM: (K, D) emission means and log variances, (K,) log
+    initial probabilities and the (K, K) log transition matrix, float32."""
+
+    means: torch.Tensor
+    log_vars: torch.Tensor
+    log_pi: torch.Tensor
+    log_a: torch.Tensor
+
+    @property
+    def k(self) -> int:
+        return int(self.means.shape[0])
+
+
+def fit_sticky_hmm(
     embeddings,
     states="bic",
     min_states: int = 2,
@@ -438,23 +452,16 @@ def get_contrastive_soft_counts(
     random_state: int = 0,
     p_stay: float = 0.95,
     soft_counts: Optional[Dict[str, np.ndarray]] = None,
-    min_confidence: Optional[float] = 0.75,
-    prior_weight: float = 1.0,
     device="cuda",
-):
-    """Sticky-HMM soft counts for contrastive embeddings: diagonal-GMM
-    emissions fitted on pooled samples (no HMM EM), a sticky transition
-    matrix ``A = p_stay*I + (1-p_stay)*1 pi^T``, AIC/BIC state selection by
-    the forward log-likelihood, optional per-frame priors with confidence
-    gating, and forward-backward smoothing through the kernel.
-
-    Returns a TableDict of (T, K) posteriors when ``coordinates`` is given,
-    else a plain dict."""
+) -> StickyHMM:
+    """The model of :func:`get_contrastive_soft_counts`: diagonal-GMM
+    emissions fitted on pooled samples (no HMM EM), the sticky transition
+    matrix ``A = p_stay*I + (1-p_stay)*1 pi^T``, K from ``states`` (an int,
+    or AIC/BIC by the forward log-likelihood over ``min_states`` to
+    ``max_states``), or from ``soft_counts``' width when priors are given."""
     keys = list(embeddings.keys())
     if not keys:
         raise ValueError("Embeddings are empty.")
-    if coordinates is not None and coordinates._very_large_project:
-        raise NotImplementedError(PATHS_MODE)
     dev = resolve_device(device)
     seqs = {k: np.asarray(get_dt(embeddings, k), np.float32) for k in keys}
 
@@ -513,20 +520,71 @@ def get_contrastive_soft_counts(
             if best_score is None or score < best_score:
                 best_score, k_best = score, k
 
-    mu, lv, lp, la = hmm_terms(k_best)
+    return StickyHMM(*hmm_terms(k_best))
+
+
+def sticky_hmm_posteriors(
+    model: StickyHMM,
+    embeddings,
+    soft_counts: Optional[Dict[str, np.ndarray]] = None,
+    min_confidence: Optional[float] = 0.75,
+    prior_weight: float = 1.0,
+    device="cuda",
+) -> Dict[str, np.ndarray]:
+    """{key: (T, K) posteriors} of each recording under ``model``: the
+    Gaussian log densities, plus ``prior_weight`` times the log of a
+    per-frame prior where ``soft_counts`` has the key, smoothed by
+    forward-backward through the kernel."""
+    dev = resolve_device(device)
+    mu, lv, lp, la = (t.to(dev) for t in model)
     pending = []
+    keys = list(embeddings.keys())
     for key in keys:
-        s = to_device(seqs[key], dev, torch.float32)
+        s = to_device(np.asarray(get_dt(embeddings, key), np.float32), dev, torch.float32)
         log_b = _log_gaussian(s, mu, lv)
         if soft_counts is not None and key in soft_counts:
-            prior = _align_prior(np.asarray(get_dt(soft_counts, key)), s.shape[0], k_best, min_confidence)
+            prior = _align_prior(np.asarray(get_dt(soft_counts, key)), s.shape[0], model.k, min_confidence)
             log_b = log_b + torch.as_tensor(float(prior_weight) * np.log(prior), dtype=torch.float32, device=dev)
         pending.append(_forward_backward(log_b[None], lp, la, with_xi=False)[0][0])
-    out = {str(key): g for key, g in zip(keys, fetch_together(pending))}
+    return {str(key): g for key, g in zip(keys, fetch_together(pending))}
+
+
+def get_contrastive_soft_counts(
+    coordinates,
+    embeddings,
+    states="bic",
+    min_states: int = 2,
+    max_states: int = 25,
+    reg_covar: float = 1e-5,
+    sample_size: int = 500000,
+    random_state: int = 0,
+    p_stay: float = 0.95,
+    soft_counts: Optional[Dict[str, np.ndarray]] = None,
+    min_confidence: Optional[float] = 0.75,
+    prior_weight: float = 1.0,
+    device="cuda",
+):
+    """Sticky-HMM soft counts for contrastive embeddings: the model of
+    :func:`fit_sticky_hmm` (diagonal-GMM emissions fitted on pooled samples,
+    a sticky transition matrix, AIC/BIC state selection) and the posteriors
+    of :func:`sticky_hmm_posteriors` (optional per-frame priors with
+    confidence gating, forward-backward smoothing through the kernel).
+
+    Returns a TableDict of (T, K) posteriors when ``coordinates`` is given
+    (for a very large project, pointers to
+    ``{project}/Tables/{key}/{key}_soft_counts``), else a plain dict."""
+    model = fit_sticky_hmm(embeddings, states=states, min_states=min_states, max_states=max_states,
+                           reg_covar=reg_covar, sample_size=sample_size, random_state=random_state,
+                           p_stay=p_stay, soft_counts=soft_counts, device=device)
+    out = sticky_hmm_posteriors(model, embeddings, soft_counts=soft_counts, min_confidence=min_confidence,
+                                prior_weight=prior_weight, device=device)
     if coordinates is None:
         return out
 
     from deepof_tpu_torch.core.table_dict import TableDict
 
-    return TableDict(out, typ="unsupervised_counts", table_path=coordinates._table_path,
+    saved = {key: save_dt(counts, os.path.join(coordinates._table_path, key, f"{key}_soft_counts"),
+                          coordinates._very_large_project)
+             for key, counts in out.items()}
+    return TableDict(saved, typ="unsupervised_counts", table_path=coordinates._table_path,
                      exp_conditions=coordinates.get_exp_conditions)

@@ -37,7 +37,9 @@ from typing import Dict, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from deepof_tpu_torch.core.storage import DeviceTable, LazyFrame, _slice_obj, _take, get_dt, save_dt
+from deepof_tpu_torch.core.storage import (
+    DeviceTable, LazyFrame, _slice_obj, _take, get_dt, get_dt_rows, is_pointer, save_dt,
+)
 from deepof_tpu_torch.core.table_dict import TableDict
 from deepof_tpu_torch.device import fetch_together, host_array, resolve_device
 from deepof_tpu_torch.gating import (  # noqa: F401 -- the JAX package's post-hoc names
@@ -123,9 +125,9 @@ def align_deepof_kinematics_with_unsupervised_labels(
     """Each recording's kinematics table (``deepof_tpu/posthoc.py:46``): see
     :func:`_kinematics_table_views` for the columns; ``animal_id`` keeps one
     animal's. The tables are computed on the project's device and read back
-    from ``device`` as float64 LazyFrames. ``file_name`` is accepted (the
-    tables stay in memory); ``return_path=True`` raises (paths mode is not
-    ported)."""
+    from ``device`` as float64 LazyFrames; with ``return_path`` (and a
+    ``file_name``) each is written to ``{table_path}/{key}/{key}_{file_name}``
+    (``deepof_tpu/posthoc.py:195-208``) and the value is its pointer."""
     dev = resolve_device(device)
     tabs = {}
     for key in deepof_project.get_table_keys():
@@ -134,7 +136,8 @@ def align_deepof_kinematics_with_unsupervised_labels(
             include_feature_derivatives=include_feature_derivatives, include_distances=include_distances,
             include_angles=include_angles, include_areas=include_areas)[animal_id]
         host = np.array(table.values.to(dev).cpu().numpy(), dtype=np.float64)
-        tabs[key] = save_dt(LazyFrame(lambda arr=host: arr, table.columns, len(host)), None, return_path)
+        path = os.path.join(deepof_project._table_path, key, f"{key}_{file_name}") if file_name else None
+        tabs[key] = save_dt(LazyFrame(lambda arr=host: arr, table.columns, len(host)), path, return_path)
     return TableDict(tabs, typ="annotations", table_path=deepof_project._table_path)
 
 
@@ -163,7 +166,8 @@ def _resolve_range(bin_info, key):
 
 class _DeviceTables:
     """The recordings of a TableDict, each uploaded to ``dev`` in float64 on
-    first use, with their column labels (None for a bare array)."""
+    first use, with their column labels (None for a bare array). A pointer's
+    rows of a bin are read from its maps alone and uploaded."""
 
     def __init__(self, tab_dict, dev: torch.device):
         self.tab_dict, self.dev, self._cache = tab_dict, dev, {}
@@ -174,9 +178,12 @@ class _DeviceTables:
     def columns(self, key):
         return get_dt(self.tab_dict, key, only_metainfo=True)["columns"]
 
+    def _upload(self, table) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(table, np.float64), device=self.dev)
+
     def full(self, key) -> torch.Tensor:
         if key not in self._cache:
-            self._cache[key] = torch.as_tensor(np.asarray(get_dt(self.tab_dict, key), np.float64), device=self.dev)
+            self._cache[key] = self._upload(get_dt(self.tab_dict, key))
         return self._cache[key]
 
     def rows(self, key, bin_info=None):
@@ -187,8 +194,13 @@ class _DeviceTables:
             return self.full(key), None
         if isinstance(bin_info, dict):
             idx = np.asarray(load_range).astype(np.int64)
+            if is_pointer(self.tab_dict[key]) and key not in self._cache:
+                return self._upload(get_dt_rows(self.tab_dict, key, idx)), idx
             return _take(self.full(key), idx), idx
-        table = _slice_obj(self.full(key), load_range)
+        if is_pointer(self.tab_dict[key]) and key not in self._cache:
+            table = self._upload(get_dt(self.tab_dict, key, load_range=load_range))
+        else:
+            table = _slice_obj(self.full(key), load_range)
         if len(load_range) == 2 and len(table) != 2:
             return table, np.arange(int(load_range[0]), int(load_range[1]) + 1)
         return table, np.asarray(load_range)

@@ -179,6 +179,11 @@ def embedding_per_video(
             returns (its fourth item), from either of its lanes: each
             recording's scaled frame is read on the device, or uploaded
             from the host where it was kept there past the frames budget.
+            In paths mode (its values pointers; a very large project) no
+            scaled frame was kept, so it is scaled again with
+            ``global_scaler``, each scaled frame written to
+            ``{key}_preprocessed`` and served from the device where it fits
+            the frames budget, else read from its file and uploaded.
         model: a ModelBundle whose ``rebuild_spec`` names the model, its
             input shape and ``use_angles``: one that ``train_deepof_model``
             returned, one ``ModelBundle.load`` read, or one built by hand.

@@ -23,6 +23,7 @@ off, as ``test_torch_getters`` holds them); ``chunk_summary_statistics``
 Shapley values and expected values 1e-10.
 """
 
+import os
 import warnings
 
 import numpy as np
@@ -40,7 +41,7 @@ from deepof_tpu.ops import bursts as jbursts
 
 from deepof_tpu_torch import posthoc as pph
 from deepof_tpu_torch import shap_kernel as pshap
-from deepof_tpu_torch.core.storage import LazyFrame
+from deepof_tpu_torch.core.storage import LazyFrame, get_dt
 from deepof_tpu_torch.core.table_dict import TableDict
 from deepof_tpu_torch.data import Project
 from deepof_tpu_torch.ops import bursts as pbursts
@@ -128,8 +129,8 @@ def test_kinematics_views_at_every_order_match_jax(sides):
 
 
 def test_align_kinematics_matches_jax(sides):
-    """The public call at its defaults for one animal, and the paths-mode
-    raise."""
+    """The public call at its defaults for one animal, and with
+    ``return_path`` (its tables written as pointers, read back equal)."""
     want = jph.align_deepof_kinematics_with_unsupervised_labels(sides["jax"], animal_id="B", file_name=None)
     got = pph.align_deepof_kinematics_with_unsupervised_labels(sides["port"], animal_id="B", device="cpu")
     assert sorted(got) == sorted(want)
@@ -137,8 +138,12 @@ def test_align_kinematics_matches_jax(sides):
         w = jget_dt(want, key)
         assert isinstance(got[key], LazyFrame) and got[key].columns == list(w.columns)
         _close_kinematics(got[key].realize(), w.to_numpy(np.float64))
-    with pytest.raises(NotImplementedError, match="paths mode"):
-        pph.align_deepof_kinematics_with_unsupervised_labels(sides["port"], return_path=True, device="cpu")
+    saved = pph.align_deepof_kinematics_with_unsupervised_labels(sides["port"], animal_id="B", return_path=True,
+                                                                 device="cpu")
+    for key in KEYS:
+        assert saved[key]["npy_table"] == os.path.join(sides["port"]._table_path, key, f"{key}_kinematics")
+        np.testing.assert_array_equal(get_dt(saved, key), got[key].realize())
+        assert get_dt(saved, key, only_metainfo=True)["columns"] == got[key].columns
 
 
 # --------------------------------------------------------------------------- #

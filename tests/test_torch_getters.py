@@ -36,7 +36,7 @@ from deepof_tpu.ops import geometry as jgeom
 from deepof_tpu.ops import kinematics as jkin
 from deepof_tpu.utils import filter_columns as jfilter_columns
 
-from deepof_tpu_torch.core.storage import LazyFrame
+from deepof_tpu_torch.core.storage import LazyFrame, get_dt
 from deepof_tpu_torch.data import Project, load_project
 from deepof_tpu_torch.ops import alignment as palign
 from deepof_tpu_torch.ops import geometry as pgeom
@@ -270,8 +270,12 @@ def test_metadata_getters(sides):
     assert loaded.exp_conditions == {"test": {"CSDS": ["Stressed"]}, "test2": {"CSDS": ["Control"]}}
     with pytest.raises(FileNotFoundError):
         Project(**{**_project_args(sides["root"], "csv"), "exp_conditions": "no_such.csv"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        p_coords.get_distances(return_path=True)
+    # return_path: each table written to {table_path}/{key}/{key}_got_distances, read back equal.
+    in_memory, pointers = p_coords.get_distances(), p_coords.get_distances(return_path=True)
+    for key in in_memory:
+        assert pointers[key]["npy_table"] == os.path.join(p_coords._table_path, key, f"{key}_got_distances")
+        np.testing.assert_array_equal(get_dt(pointers, key), in_memory[key].realize())
+        assert get_dt(pointers, key, only_metainfo=True)["columns"] == in_memory[key].columns
 
 
 def test_pickle_without_the_store_answers_the_getters(sides, tmp_path, monkeypatch):

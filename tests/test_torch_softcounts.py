@@ -71,7 +71,7 @@ from deepof_tpu.train.inference import embedding_per_video as jax_embed
 
 from deepof_tpu_torch import cluster, gating, msm
 from deepof_tpu_torch import posthoc as pph
-from deepof_tpu_torch.core.storage import LazyFrame
+from deepof_tpu_torch.core.storage import LazyFrame, get_dt
 from deepof_tpu_torch.core.table_dict import TableDict
 from deepof_tpu_torch.data import Project
 from deepof_tpu_torch.ops.hmm_kernels import forward_backward, hmm_scan, hmm_scan_plain
@@ -656,12 +656,38 @@ def test_contrastive_soft_counts_match_jax(jax_hmm_results, case):
         _close(got[key], want[key], atol=PROB_TOL)
 
 
-def test_contrastive_soft_counts_raises():
+@pytest.mark.parametrize("case", CONTRASTIVE_CASES)
+def test_sticky_hmm_fit_then_posteriors(case):
+    """``fit_sticky_hmm`` then ``sticky_hmm_posteriors`` are the extractor
+    bit for bit, and one fitted model decodes other embeddings: a copy
+    moved by 1e-6 keeps its hard labels."""
+    embs, kw = _contrastive_embeddings(), _contrastive_kwargs(case)
+    priors = {k: kw.pop(k) for k in ("soft_counts", "min_confidence") if k in kw}
+    model = msm.fit_sticky_hmm(embs, soft_counts=priors.get("soft_counts"), device="cpu", **kw)
+    assert model.k == 3 and model.means.shape == (3, 3) and model.log_a.shape == (3, 3)
+    got = msm.sticky_hmm_posteriors(model, embs, device="cpu", **priors)
+    want = msm.get_contrastive_soft_counts(None, embs, device="cpu", **kw, **priors)
+    assert list(got) == list(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+    moved = {k: v + 1e-6 * np.random.default_rng(1).standard_normal(v.shape) for k, v in embs.items()}
+    for key, p in msm.sticky_hmm_posteriors(model, moved, device="cpu", **priors).items():
+        np.testing.assert_array_equal(p.argmax(1), want[key].argmax(1))
+
+
+def test_contrastive_soft_counts_raises(tmp_path):
+    """What raises, and a very large project's soft counts saved as
+    pointers to {project}/Tables/{key}/{key}_soft_counts."""
     embs = _contrastive_embeddings()
     with pytest.raises(ValueError, match="empty"):
         msm.get_contrastive_soft_counts(None, {}, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        msm.get_contrastive_soft_counts(SimpleNamespace(_very_large_project=True), embs, device="cpu")
+    project = SimpleNamespace(_very_large_project=True, _table_path=str(tmp_path / "p" / "Tables"),
+                              get_exp_conditions=None)
+    saved = msm.get_contrastive_soft_counts(project, embs, states=2, device="cpu")
+    plain = msm.get_contrastive_soft_counts(None, embs, states=2, device="cpu")
+    for key in embs:
+        assert saved[key]["npy_table"] == os.path.join(str(tmp_path), "p", "Tables", key, f"{key}_soft_counts")
+        np.testing.assert_array_equal(get_dt(saved, key), plain[key])
     with pytest.raises(NotImplementedError, match="invalid states"):
         msm.get_contrastive_soft_counts(None, embs, states="hic", device="cpu")
     with pytest.raises(ValueError, match="must match"):

@@ -507,8 +507,14 @@ def test_bundle_save_load_and_what_raises(tmp_path):
     assert (score, part, summary) == (None, None, {}) and got.rebuild_spec == spec
     with pytest.raises(ValueError, match="num_workers"):
         pharness.train_deepof_model(ds, ADJ, model_name="VQVAE", num_workers=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        pdataset.WindowDataset({}, spill_to_disk=True)
+    # spill_to_disk without a dataset_folder keeps the windows in RAM (the
+    # JAX package's rule); with one they are mapped from files written there.
+    windows = {"v1": (np.ones((5, T, N, 3), np.float32), np.zeros((5, T, E, 1), np.float32),
+                      np.zeros((5, T, 0, 1), np.float32))}
+    assert pdataset.WindowDataset(windows, spill_to_disk=True)._spill_dir is None
+    spilled = pdataset.WindowDataset(windows, dataset_folder=str(tmp_path / "spill"), spill_to_disk=True)
+    assert len(spilled) == 5 and spilled.video_ranges == {"v1": (0, 5)} and isinstance(spilled.x, np.memmap)
+    np.testing.assert_array_equal(next(spilled.batches(5, shuffle=False))[0], windows["v1"][0])
 
 
 @pytest.fixture(scope="module")
