@@ -284,7 +284,31 @@
    equal bit for bit; and card vs CPU on a 2,000-frame copy in paths mode
    at 1e-4 (soft counts by confident hard labels, the CPU's embeddings
    decoded by the card's sticky HMM).
-17. Prints a stage line of each path, a kernels line, and last
+17. Detectors, DeepOF's cluster interpretation on phase 15's chunk
+   statistics of the cohort (10,000 chunks of animal B's kinematics and
+   tags drawn by ``annotate_time_chunks``, 11 statistics a column, those
+   with under 20 values in the chunks or a fold's training chunks dropped;
+   the served VaDE's labels; a fold a recording): from a reset of the
+   kernels' counts, ``train_supervised_cluster_detectors`` (three
+   leave-one-recording-out folds and the full fit of the scaler -> SMOTE ->
+   gradient-boosted trees pipeline, max_iter 200, early stopping past
+   10,000 resampled rows; the trees grown by csrc/gbm.cu's histogram and
+   split kernels, predicted by its ensemble kernel),
+   ``explain_clusters(samples=64)`` and ``compute_UMAP`` of the cohort's
+   embeddings by their labels with a seeded torch projection as the
+   reducer, each timed; the folds disjoint and covering every chunk, the
+   AUCs in [0, 1] wherever sklearn's scorer forms one (as many labels in
+   the fold's rows as its classifier has classes; NaN exactly elsewhere), predict_proba rows summing to 1, each row's Shapley values
+   summing to f(x) - E f within 1e-6, the projection's shape; the full fit
+   again from the numpy state it saw, equal bit for bit; the three kernels
+   against their plain versions at the full fit's shapes (bit for bit) and
+   timed there against their bytes bounds, their plain versions and, for
+   the histograms, ``index_add_`` of the same sums; card vs CPU on a drawn
+   copy (the three most frequent labels, 16 chunks a recording and label,
+   16 columns with every value present): trees compared split by split (the count of differing
+   trees printed), predict_proba and the AUCs within 1e-6 of max(1,
+   |value|).
+18. Prints a stage line of each path, a kernels line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check exits non-zero; without a CUDA device it exits 2 before
@@ -3256,6 +3280,8 @@ def _evaluation_phase(torch, card, cohort, tags):
         out = fn("cuda")
         torch.cuda.synchronize()
         card_s[name] = time.perf_counter() - t0
+        if name == "chunks_stats":
+            chunk_stats = out
         if name != "kinematics" and not len(out[1]) == len(out[0].values) == drawn:
             _fail(f"{name} on the cohort: {len(out[1])} labels, {len(out[0].values)} chunks, not {drawn}")
     chunk_errs = _chunks_card_vs_cpu(cohort["prefix"], counts, tags)
@@ -3266,7 +3292,9 @@ def _evaluation_phase(torch, card, cohort, tags):
         "chunks_card_vs_cpu": chunk_errs, "sizes": sizes, "gmm": EVAL_GMM, "lab": lab,
         "phase_s": time.perf_counter() - t_phase, "card": card,
     }
-    return line, launches
+    z = np.concatenate([np.asarray(emb[k], np.float64) for k in COHORT_KEYS])
+    hard = np.concatenate([np.asarray(counts[k]).argmax(axis=1) for k in COHORT_KEYS])
+    return line, launches, (chunk_stats, z, hard)
 
 
 # Phase 13: VaDE's TURTLE teacher and resumable checkpoints on the training
@@ -4427,6 +4455,368 @@ def _paths_phase(torch, card, tmp, seed=None):
 
 
 
+# Phase 17: the cluster detectors (train_supervised_cluster_detectors ->
+# explain_clusters) and the LDA projection (compute_UMAP) on phase 15's
+# chunk statistics of the cohort: 10,000 chunks of animal B's kinematics and
+# tags, 11 statistics a column, labelled by the served VaDE (K = 10), with
+# their bin_info (a fold a recording). numpy's global state is seeded before
+# each call that draws from it.
+DETECTOR_SEED = 0
+# Rows explained by explain_clusters (and its coalition budget, nsamples =
+# samples, as the JAX package passes it): the coalition values of
+# samples^2 (row, coalition) pairs over a 10-centre background go through
+# every tree, so the call's time grows with its square.
+DETECTOR_EXPLAIN_SAMPLES = 64
+# Card vs CPU from the same host inputs and numpy state, on a drawn copy:
+# the chunks of the DETECTOR_COPY_LABELS most frequent labels, at most
+# DETECTOR_COPY_PER_GROUP of each (recording, label), and DETECTOR_COPY_COLUMNS
+# columns drawn from the statistics (the CPU's plain versions take ~0.1 s a
+# round at the full width). predict_proba and the AUCs within DETECTOR_RTOL
+# of max(1, |value|); the trees' splits are expected equal (a near tie of
+# gains can part them; the count of differing trees is printed).
+DETECTOR_COPY_LABELS = 3
+DETECTOR_COPY_PER_GROUP = 16
+DETECTOR_COPY_COLUMNS = 16
+DETECTOR_RTOL = 1e-6
+SHAP_SUM_TOL = 1e-6  # each row's Shapley values against f(x) - E f
+DETECTOR_MIN_VALUES = 20  # non-NaN values a statistic needs in every fit's chunks
+GBM_KERNELS = ("gbm_histograms", "gbm_best_split", "gbm_predict")
+
+
+def _gbm_counts(reset=False):
+    """{kernel: launches since the last reset} of the tree-fit kernels, or
+    set their counts to 0."""
+    from deepof_tpu_torch.ops import gbm_kernels as gk
+
+    fns = {name: getattr(gk, name) for name in GBM_KERNELS}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+class _SeededProjection:
+    """compute_UMAP's reducer on the card (umap-learn is not installed
+    there): rows projected on two seeded Gaussian directions in torch."""
+
+    def __init__(self, torch, seed=0):
+        self.torch, self.seed = torch, seed
+
+    def fit_transform(self, x):
+        torch = self.torch
+        x = torch.as_tensor(np.asarray(x, np.float64), device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(self.seed)
+        w = torch.randn((x.shape[1], 2), generator=g, device="cuda", dtype=torch.float64)
+        return (x @ w).cpu().numpy()
+
+
+def _gbm_of(pipeline):
+    return pipeline.named_steps["classifier"].estimator_
+
+
+def _splits_of(est):
+    """Each tree's (feature, bin, missing side) of its inner nodes, and its
+    leaf count."""
+    a = est.predictors_
+    roots = list(a["roots"]) + [len(a["feature"])]
+    out = []
+    for lo, hi in zip(roots[:-1], roots[1:]):
+        inner = a["is_leaf"][lo:hi] == 0
+        out.append((tuple(a["feature"][lo:hi][inner]), tuple(a["bin_threshold"][lo:hi][inner]),
+                    tuple(a["missing_left"][lo:hi][inner]), int((~inner).sum())))
+    return out
+
+
+def _detector_checks(name, full, perf, groups, x, y):
+    """Folds disjoint and covering every chunk; AUCs in [0, 1] wherever
+    sklearn's scorer forms one (a fold's rows hold as many labels as its
+    classifier has columns, two for a binary one), NaN exactly elsewhere;
+    predict_proba rows summing to 1. Returns the AUC table."""
+    n = len(y)
+    tests = [np.sort(te) for _, te in groups]
+    if not np.array_equal(np.sort(np.concatenate(tests)), np.arange(n)):
+        _fail(f"{name}: the folds' test rows do not cover the {n} chunks once")
+    for tr, te in groups:
+        if np.intersect1d(tr, te).size:
+            _fail(f"{name}: a fold shares rows between train and test")
+    aucs = {k: [float(v) for v in perf[k]] for k in perf if k.startswith(("test_", "train_"))}
+    for i, ((tr, te), est) in enumerate(zip(groups, perf["estimator"])):
+        for part, rows in (("test", te), ("train", tr)):
+            k_est, k_true = len(est.classes_), len(np.unique(y[rows]))
+            defined = k_true == 2 if k_est == 2 else k_true == k_est
+            for scorer in ("roc_auc_ovo_weighted", "roc_auc_ovr_weighted"):
+                v = aucs[f"{part}_{scorer}"][i]
+                if defined != np.isfinite(v) or (defined and not 0.0 <= v <= 1.0):
+                    _fail(f"{name}: fold {i} {part} {scorer} = {v} ({k_true} labels in the rows, {k_est} "
+                          f"classes fitted)")
+    proba = full.predict_proba(x)
+    proba = proba.cpu().numpy() if hasattr(proba, "cpu") else proba
+    sum_err = float(np.abs(proba.sum(axis=1) - 1.0).max())
+    if proba.shape != (n, len(full.classes_)) or not sum_err <= 1e-12:
+        _fail(f"{name}: predict_proba {proba.shape}, rows off 1 by {sum_err}")
+    return aucs, proba
+
+
+def _detectors_copy(stats, y, bin_info):
+    """The card-vs-CPU copy: the chunks of the most frequent labels, at most
+    DETECTOR_COPY_PER_GROUP of each (recording, label) (the first ones), and
+    DETECTOR_COPY_COLUMNS seeded columns among those with a value in every
+    one of those chunks. Returns (the statistics, labels, bin_info)."""
+    from deepof_tpu_torch.posthoc import Labelled
+
+    labels, counts = np.unique(y, return_counts=True)
+    keep_labels = labels[np.argsort(-counts, kind="stable")[:DETECTOR_COPY_LABELS]]
+    rows, info, start = [], {}, 0
+    for key, chunk_ids in bin_info.items():
+        idx = np.arange(start, start + len(chunk_ids))
+        start += len(chunk_ids)
+        picked = np.sort(np.concatenate([idx[y[idx] == lab][:DETECTOR_COPY_PER_GROUP] for lab in keep_labels]))
+        if len(picked):  # a recording without those labels is no fold
+            rows.append(picked)
+            info[key] = np.asarray(chunk_ids)[picked - idx[0]]
+    rows = np.concatenate(rows)
+    full_columns = np.flatnonzero(~np.isnan(stats.values[rows]).any(axis=0))  # no fold of the copy lacks them
+    cols = np.sort(np.random.default_rng(DETECTOR_SEED).choice(
+        full_columns, min(DETECTOR_COPY_COLUMNS, len(full_columns)), replace=False))
+    values = stats.values[np.ix_(rows, cols)]
+    return Labelled(values, list(range(len(rows))), [stats.columns[c] for c in cols]), y[rows], info
+
+
+def _detectors_card_vs_cpu(stats, y, bin_info):
+    """train_supervised_cluster_detectors on the copy, card and CPU (plain
+    versions), numpy seeded alike: trees, predict_proba, AUCs."""
+    from deepof_tpu_torch import posthoc as ph
+
+    copy, y_copy, info = _detectors_copy(stats, y, bin_info)
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        np.random.seed(DETECTOR_SEED)
+        t0 = time.perf_counter()
+        out[dev] = ph.train_supervised_cluster_detectors(copy, y_copy, info, verbose=0, device=dev)
+        secs[dev] = time.perf_counter() - t0
+    (c_full, c_perf, _), (p_full, p_perf, _) = out["cuda"], out["cpu"]
+    trees = differing = 0
+    for c_est, p_est in zip([c_full] + c_perf["estimator"], [p_full] + p_perf["estimator"]):
+        a, b = _splits_of(_gbm_of(c_est)), _splits_of(_gbm_of(p_est))
+        trees += max(len(a), len(b))
+        differing += sum(1 for s, t in zip(a, b) if s != t) + abs(len(a) - len(b))
+    rel = 0.0
+    for k in c_perf:
+        if k.startswith(("test_", "train_")):
+            g, w = np.asarray(c_perf[k]), np.asarray(p_perf[k])
+            if not np.array_equal(np.isnan(g), np.isnan(w)):
+                _fail(f"detectors card vs CPU: {k} NaN on one side only ({g} vs {w})")
+            rel = max(rel, float((np.abs(np.nan_to_num(g - w)) / np.maximum(1.0, np.abs(np.nan_to_num(w)))).max()))
+    x = copy.values
+    for c_est, p_est in zip([c_full] + c_perf["estimator"], [p_full] + p_perf["estimator"]):
+        g, w = c_est.predict_proba(x), p_est.predict_proba(x)
+        rel = max(rel, float((np.abs(g - w) / np.maximum(1.0, np.abs(w))).max()))
+    report = {"chunks": int(len(y_copy)), "columns": int(x.shape[1]), "labels": int(len(np.unique(y_copy))),
+              "card_s": secs["cuda"], "cpu_s": secs["cpu"], "trees": trees, "differing_trees": differing,
+              "max_rel_err": rel}
+    _log(f"detectors card vs CPU on a copy: {report} (tol {DETECTOR_RTOL:.0e})")
+    if not rel <= DETECTOR_RTOL:
+        _fail(f"card and CPU disagree on the detectors' copy: {report}")
+    return report
+
+
+def _check_time_gbm(torch, est, x):
+    """Each tree-fit kernel against its plain version at the full fit's
+    shapes and timed there: the K root histograms of its n training rows
+    (against the CPU's plain version, bit for bit; its plain version and
+    index_add_ of the same sums timed on the card), the K roots' split search
+    (bit for bit), the whole ensemble over the chunk table (the plain version
+    on the card, bit for bit). Returns ({kernel: line entry})."""
+    from deepof_tpu_torch.ops import gbm_kernels as gk
+
+    dev = torch.device("cuda")
+    n, f, k = est.n_train_, est.n_features_in_, est.n_trees_per_iteration_
+    rng = np.random.default_rng(DETECTOR_SEED)
+    bins = torch.as_tensor(rng.integers(0, 256, size=(f, n), dtype=np.uint8), device=dev)
+    g = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=dev)
+    h = torch.as_tensor(rng.random(size=(n, k)).astype(np.float32), device=dev)
+    ids = torch.zeros((k, n), dtype=torch.int32, device=dev)
+    tasks = torch.as_tensor([[t, 0, t] for t in range(k)], dtype=torch.int32, device=dev)
+    pool = torch.zeros((k, f, gk.N_BINS, 3), dtype=torch.float64, device=dev)
+    out = {}
+
+    gk.gbm_histograms(bins, g, h, ids, tasks, pool)
+    torch.cuda.synchronize()
+    want = gk.gbm_histograms_plain(bins.cpu(), g.cpu(), h.cpu(), ids.cpu(), tasks.cpu(), torch.zeros_like(pool.cpu()))
+    hist_err = float((pool.cpu() - want).abs().max())
+    ms = _cuda_ms(torch, lambda: gk.gbm_histograms(bins, g, h, ids, tasks, pool), reps=5, warmup=1)
+    plain_pool = torch.zeros_like(pool)
+    t0 = time.perf_counter()
+    gk.gbm_histograms_plain(bins, g, h, ids, tasks, plain_pool)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    flat = (torch.arange(f, device=dev)[:, None] * gk.N_BINS + bins.long()).flatten()
+    target = torch.zeros((f * gk.N_BINS, 3), dtype=torch.float64, device=dev)
+    src = torch.stack([g[:, 0].double(), h[:, 0].double(), torch.ones(n, dtype=torch.float64, device=dev)], 1)
+    src = src.expand(f, n, 3).reshape(-1, 3)
+    library_ms = _cuda_ms(torch, lambda: target.index_add_(0, flat, src), reps=5, warmup=1) * k
+    n_bytes = f * n + k * n * (8 + 4) + k * f * gk.N_BINS * 24
+    out["gbm_histograms"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": n_bytes / PEAK_BYTES * 1e3,
+                             "bound_by": "bytes", "library_ms": library_ms, "max_abs_err": hist_err,
+                             "shape": f"bins ({f}, {n}) uint8, g/h ({n}, {k}) float32, {k} root tasks",
+                             "library": "index_add_ of (g, h, 1) a tree, times K"}
+
+    nodes = torch.zeros((k, gk.NODE_WIDTH), dtype=torch.float64, device=dev)
+    nodes[:, 0] = n
+    nodes[:, 4] = 1.0
+    slots = torch.arange(k, dtype=torch.int32, device=dev)
+    nbnm = torch.full((f,), 255, dtype=torch.int32, device=dev)
+    miss = torch.zeros(f, dtype=torch.uint8, device=dev)
+    miss[::9] = 1
+    got = gk.gbm_best_split(pool, slots, nodes, nbnm, miss)
+    torch.cuda.synchronize()
+    want = gk.gbm_best_split_plain(pool.cpu(), slots.cpu(), nodes.cpu(), nbnm.cpu(), miss.cpu())
+    split_err = float((got.cpu() - want).abs().max())
+    ms = _cuda_ms(torch, lambda: gk.gbm_best_split(pool, slots, nodes, nbnm, miss), reps=5, warmup=1)
+    t0 = time.perf_counter()
+    gk.gbm_best_split_plain(pool, slots, nodes, nbnm, miss)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_bytes = k * (f * gk.N_BINS * 24 + gk.RECORD_WIDTH * 8)
+    out["gbm_best_split"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": n_bytes / PEAK_BYTES * 1e3,
+                             "bound_by": "bytes", "library_ms": None, "max_abs_err": split_err,
+                             "shape": f"{k} tasks of ({f}, 256, 3) float64 histograms"}
+
+    xt = torch.as_tensor(np.asarray(x, np.float64), device=dev).contiguous()
+    arrays = est._ensemble.device_arrays(dev)
+    base = torch.as_tensor(est._baseline_prediction, device=dev)
+    raw = base[None, :].expand(len(xt), k).contiguous()
+    got = gk.gbm_predict(xt, *arrays, raw.clone())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = gk.gbm_predict_plain(xt, *arrays, raw.clone())
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    pred_err = float((got - want).abs().max())
+    ms = _cuda_ms(torch, lambda: gk.gbm_predict(xt, *arrays, raw.clone()), reps=5, warmup=1)
+    n_nodes = int(arrays[0].numel())
+    n_bytes = xt.numel() * 8 + 2 * raw.numel() * 8 + n_nodes * 30
+    out["gbm_predict"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": n_bytes / PEAK_BYTES * 1e3,
+                          "bound_by": "bytes", "library_ms": None, "max_abs_err": pred_err,
+                          "shape": f"x {tuple(xt.shape)} float64 through {len(est._ensemble.roots)} trees "
+                                   f"({n_nodes} nodes)"}
+    _log(f"tree-fit kernels at the full fit's shapes: {out}")
+    for name, entry in out.items():
+        if entry["max_abs_err"] != 0.0:
+            _fail(f"{name} differs from its plain version: {entry['max_abs_err']}")
+    return out
+
+
+def _detectors_phase(torch, card, chunks, emb, labels):
+    """Phase 17: the cluster detectors on phase 15's chunk statistics
+    (``chunks``: statistics, VaDE labels, bin_info) and the LDA projection
+    of the cohort's embeddings ``emb`` by their labels. From a reset of the
+    kernels' counts: ``train_supervised_cluster_detectors`` (3 folds and
+    the full fit, max_iter 200, early stopping past 10,000 resampled rows),
+    ``explain_clusters(samples=DETECTOR_EXPLAIN_SAMPLES)`` and
+    ``compute_UMAP`` with a seeded projection; then the full fit again from
+    the same numpy state (equal bit for bit), the kernels checked and timed
+    at its shapes, and card vs CPU on a drawn copy. Returns (the detectors
+    line, the launches)."""
+    from deepof_tpu_torch import posthoc as ph
+
+    t_phase = time.perf_counter()
+    stats, y, bin_info = chunks
+    # A statistic with no value in a fit's rows (the skew of a tag that
+    # never fires in a recording) cannot be binned: sklearn raises on it, as
+    # the port does, so a user drops it first: every statistic with fewer
+    # than DETECTOR_MIN_VALUES values in the chunks or in a fold's training
+    # chunks (the fit's stratified 10% validation split could take a
+    # sparser one's every value).
+    values = np.asarray(stats.values, np.float64)
+    present = ~np.isnan(values)
+    kept = present.sum(axis=0) >= DETECTOR_MIN_VALUES
+    for train, _ in ph.chunk_cv_splitter(values, bin_info):
+        kept &= present[train].sum(axis=0) >= DETECTOR_MIN_VALUES
+    stats = ph.Labelled(np.ascontiguousarray(values[:, kept]), list(stats.index),
+                        [c for c, k in zip(stats.columns, kept) if k])
+    x = stats.values
+    _log(f"detectors: {len(y)} chunks, {x.shape[1]} of {values.shape[1]} statistics kept, labels "
+         f"{np.unique(y, return_counts=True)[1].tolist()}")
+    calls_s = {}
+    torch.cuda.synchronize()
+    _kernel_counts(reset=True)
+    _gbm_counts(reset=True)
+    np.random.seed(DETECTOR_SEED)
+    t0 = time.perf_counter()
+    full, perf, groups = ph.train_supervised_cluster_detectors(stats, y, bin_info, verbose=0)
+    torch.cuda.synchronize()
+    calls_s["train_supervised_cluster_detectors"] = time.perf_counter() - t0
+    fit_launches = _gbm_counts()
+    _log(f"detectors: train_supervised_cluster_detectors {calls_s['train_supervised_cluster_detectors']:.1f} s, "
+         f"fits (rows, iterations) {[(e.n_train_, e.n_iter_) for e in map(_gbm_of, perf['estimator'] + [full])]}")
+    fits = [_gbm_of(e) for e in perf["estimator"]] + [_gbm_of(full)]
+    n_trees = sum(len(f._ensemble.roots) for f in fits)
+    if len(groups) != len(bin_info):
+        _fail(f"detectors: {len(groups)} folds for {len(bin_info)} recordings")
+    aucs, proba = _detector_checks("detectors", full, perf, groups, x, y)
+
+    np.random.seed(DETECTOR_SEED)
+    t0 = time.perf_counter()
+    shap_values, explainer, explained = ph.explain_clusters(stats, y, full, samples=DETECTOR_EXPLAIN_SAMPLES)
+    torch.cuda.synchronize()
+    calls_s["explain_clusters"] = time.perf_counter() - t0
+    k = len(full.classes_)
+    fx = full.named_steps["classifier"].predict_proba(explained.values)
+    if len(shap_values) != k or any(v.shape != explained.values.shape for v in shap_values):
+        _fail(f"explain_clusters: {len(shap_values)} arrays of {[v.shape for v in shap_values]}")
+    sums = np.stack([v.sum(axis=1) for v in shap_values], 1)
+    shap_sum_err = float(np.abs(sums - (fx - np.asarray(explainer.expected_value)[None, :])).max())
+    if not shap_sum_err <= SHAP_SUM_TOL:
+        _fail(f"explain_clusters: Shapley values off f(x) - E f by {shap_sum_err}")
+
+    t0 = time.perf_counter()
+    projected = ph.compute_UMAP(emb, labels, reducer=_SeededProjection(torch))
+    torch.cuda.synchronize()
+    calls_s["compute_UMAP"] = time.perf_counter() - t0
+    if projected.shape != (len(emb), 2) or not np.isfinite(projected).all():
+        _fail(f"compute_UMAP: {projected.shape}, finite {np.isfinite(projected).all()}")
+    launches = {**_kernel_counts(), **_gbm_counts()}
+    for name in GBM_KERNELS:
+        if launches[name] <= 0:
+            _fail(f"the detectors phase did not launch {name}")
+
+    # The full fit again from the numpy state it saw (the folds' fits drew
+    # two seeds each before it): equal trees and probabilities, bit for bit.
+    np.random.seed(DETECTOR_SEED)
+    for _ in range(2 * len(groups)):
+        np.random.randint(np.iinfo(np.uint32).max, dtype="u8")
+    again = ph._make_cluster_detector(0)
+    t0 = time.perf_counter()
+    again.fit(x, y)
+    torch.cuda.synchronize()
+    calls_s["full_fit_again"] = time.perf_counter() - t0
+    _log(f"detectors: calls {calls_s}")
+    a, b = _gbm_of(again).predictors_, _gbm_of(full).predictors_
+    same = all(np.array_equal(a[f], b[f]) for f in a) and np.array_equal(again.predict_proba(x), proba)
+    if not same:
+        _fail("two card fits of the full detector differ")
+    kernels = _check_time_gbm(torch, _gbm_of(full), x)
+    copy = _detectors_card_vs_cpu(stats, y, bin_info)
+    n_iter = sum(f.n_iter_ for f in fits)
+    line = {
+        "path": "detectors", "chunks": int(len(y)), "statistics": int(x.shape[1]),
+        "sparse_statistics_dropped": int((~kept).sum()), "labels": int(len(np.unique(y))), "folds": len(groups),
+        "fits": [{"rows_resampled": int(f.n_rows_), "train_rows": int(f.n_train_), "n_iter": int(f.n_iter_),
+                  "early_stopping": bool(f.do_early_stopping_), "trees": len(f._ensemble.roots),
+                  "host_reads": int(f.host_reads_)} for f in fits],
+        "aucs": aucs, "calls_s": calls_s, "launches": launches, "fit_launches": fit_launches,
+        "launches_per_tree": {name: fit_launches[name] / max(n_trees, 1) for name in GBM_KERNELS},
+        "launches_per_iteration": {name: fit_launches[name] / max(n_iter, 1) for name in GBM_KERNELS},
+        "host_reads_per_iteration": sum(f.host_reads_ for f in fits) / max(n_iter, 1),
+        "explain_samples": DETECTOR_EXPLAIN_SAMPLES, "shap_sum_err": shap_sum_err,
+        "umap_rows": int(len(emb)), "two_fits_equal": same, "kernels": kernels, "card_vs_cpu": copy,
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    _log(f"detectors: {line}")
+    return line, launches
+
+
 def _unequal_leaves(got, want, where=""):
     """The paths where two nested states (dicts, lists, tensors, numbers)
     differ, tensors compared bit for bit on the CPU."""
@@ -4522,12 +4912,13 @@ def main() -> int:
     launches["gru_scan_bwd"] = bwd_launches
     _log(f"main path: embeddings {emb.shape}, soft counts {sc.shape}, launches {launches}")
 
-    # Phases 4-16: the public path, the getters, supervised annotation,
+    # Phases 4-17: the public path, the getters, supervised annotation,
     # training and VaDE on its project, then the cohort, its group
     # comparison, its soft counts and its evaluation (phase 15, run while
     # the cohort is held), the other encoders, VaDE's teacher and
     # checkpoints, full imputation with a project past the device budgets,
-    # and a very large project in paths mode.
+    # a very large project in paths mode, and the cluster detectors on
+    # phase 15's chunk statistics.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_public_")
     try:
         public_line, public_launches, full, tables = _public_phase(torch, card, tmp)
@@ -4540,13 +4931,15 @@ def main() -> int:
         cohort_line, cohort_launches, cohort = _cohort_phase(torch, card, tmp)
         posthoc_line, posthoc_launches, tags = _posthoc_phase(torch, card, cohort)
         softcounts_line, softcounts_launches, hmm_res = _softcounts_phase(torch, card, cohort)
-        evaluation_line, evaluation_launches = _evaluation_phase(torch, card, cohort, tags)
+        evaluation_line, evaluation_launches, detector_inputs = _evaluation_phase(torch, card, cohort, tags)
         del cohort, tags
         encoders_line, encoders_launches = _encoders_phase(torch, card, data, tmp, tables)
         teacher_line, teacher_launches = _teacher_phase(torch, card, data)
         del data
         imputation_line, imputation_launches, kalman_err, kalman_t = _imputation_phase(torch, card, tmp, tables)
         paths_line, paths_launches = _paths_phase(torch, card, tmp)
+        detectors_line, detectors_launches = _detectors_phase(torch, card, *detector_inputs)
+        del detector_inputs
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4564,6 +4957,7 @@ def main() -> int:
     print(json.dumps(imputation_line), flush=True)
     print(json.dumps(evaluation_line), flush=True)
     print(json.dumps(paths_line), flush=True)
+    print(json.dumps(detectors_line), flush=True)
     print(json.dumps({
         "stages_s": stages, "total_s": total_s, "frames_per_s": T_FRAMES / total_s, "cuda_mallocs": mallocs,
         "first_stages_s": first_stages, "first_run_s": first_run_s,
@@ -4581,7 +4975,8 @@ def main() -> int:
                       **{f"softcounts_{p}": c[name] for p, c in softcounts_launches.items() if name in c},
                       **{p: c[name] for p, c in encoders_launches.items()}, "teacher": teacher_launches[name],
                       **{p: c[name] for p, c in imputation_launches.items()},
-                      "evaluation": evaluation_launches[name], "paths": paths_launches["paths"][name]}
+                      "evaluation": evaluation_launches[name], "paths": paths_launches["paths"][name],
+                      "detectors": detectors_launches[name]}
                for name in ("window_streams", "gru_scan", "gru_scan_bwd")}
     hmm_abs, hmm_rel, hmm_timed = hmm_res
     kernels = [
@@ -4608,7 +5003,8 @@ def main() -> int:
                               "teacher": teacher_launches["hmm_scan"],
                               **{p: c["hmm_scan"] for p, c in imputation_launches.items()},
                               "evaluation": evaluation_launches["hmm_scan"],
-                              "paths": paths_launches["paths"]["hmm_scan"]},
+                              "paths": paths_launches["paths"]["hmm_scan"],
+                              "detectors": detectors_launches["hmm_scan"]},
          "max_abs_err": hmm_abs, "max_rel_err": hmm_rel, **hmm_timed[0], "library_ms": None,
          "at_shapes": hmm_timed},
         {"name": "kalman_rts", "route": "cuda",
@@ -4621,9 +5017,18 @@ def main() -> int:
                               "teacher": teacher_launches["kalman_rts"],
                               **{p: c["kalman_rts"] for p, c in imputation_launches.items()},
                               "evaluation": evaluation_launches["kalman_rts"],
-                              "paths": paths_launches["paths"]["kalman_rts"]},
+                              "paths": paths_launches["paths"]["kalman_rts"],
+                              "detectors": detectors_launches["kalman_rts"]},
          "max_abs_err": kalman_err[0], "max_rel_err": kalman_err[1], **kalman_t},
     ]
+    for name in GBM_KERNELS:
+        timed = detectors_line["kernels"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "deepof_tpu_torch/csrc/gbm.cu",
+            "replaces": "deepof_tpu/posthoc.py:932 (no TPU kernel: sklearn's HistGradientBoostingClassifier on "
+                        "the host)",
+            "launches": detectors_launches[name], "launches_by_path": {"detectors": detectors_launches[name]},
+            **timed})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

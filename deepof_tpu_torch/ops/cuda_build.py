@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cuda")
-SOURCES = ("window_gather", "gru_scan", "gru_scan_bwd", "hmm_scan", "kalman_rts")
+SOURCES = ("window_gather", "gru_scan", "gru_scan_bwd", "hmm_scan", "kalman_rts", "gbm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -52,6 +52,11 @@ SIGNATURES = {
     },
     "kalman_rts": {
         "kalman_rts_launch": ([_P] * 9 + [_I] * 3 + [_P], _I),
+    },
+    "gbm": {
+        "gbm_histograms_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),
+        "gbm_best_split_launch": ([_P] * 8 + [_I] * 3 + [ctypes.c_double] * 2 + [_P], _I),
+        "gbm_predict_launch": ([_P] * 9 + [_I] * 4 + [_P], _I),
     },
 }
 

@@ -4,9 +4,10 @@ supervised tags, and the kinematics tables the supervised engine reads
 :46 and ``_kinematics_table_views`` :76, the cluster usage statistics
 :222-421, transitions :423-571, condition separability :574-736, the
 normative KDE :739-770, chunk statistics and annotation :786-905, the
-grouped CV folds :909 and HMM reclustering :1114). The gating API and
-``get_contrastive_soft_counts`` are re-exported here, where the JAX package
-exposes them (:30-38).
+grouped CV folds :909, the cluster detectors and their explanations
+:932-1062, the LDA projection ``compute_UMAP`` :1064 and HMM reclustering
+:1114). The gating API and ``get_contrastive_soft_counts`` are re-exported
+here, where the JAX package exposes them (:30-38).
 
 Every entry point takes ``device`` (default "cuda"; it raises without a GPU
 unless given "cpu"). Each recording's table is uploaded once per call in
@@ -18,6 +19,15 @@ host copy. The KDE draw and the sliced Wasserstein distance run in numpy on
 the host, from numpy's seeded streams as the JAX package's do, and so do
 the chunk draw and the CV folds; the chunk windows, their statistics and
 the normative KDE's fold scores are formed on the device.
+
+The cluster detectors restate what the JAX package takes from sklearn (the
+machine with the card has none): ``gbm.HistGradientBoostingClassifier``
+(its trees grown by the kernels of ``ops.gbm_kernels``), SMOTE, the
+scaler, the pipeline and ``clone`` from ``legacy_compat``, and here
+``cross_validate`` (folds fitted in series) and the weighted OVO / OVR ROC
+AUC (sklearn's ``roc_auc_score``, on the host in numpy). The Shapley values
+always come from the port's Kernel SHAP (``shap_kernel``); the LDA's class
+means and scaling run on the device and its two SVDs in scipy on the host.
 
 Results are numpy arrays with their labels, not DataFrames: a
 :class:`Labelled` (values, index, columns) for a per-experiment table, a
@@ -31,7 +41,9 @@ from __future__ import annotations
 
 import os
 import pickle
+import time
 import warnings
+from itertools import combinations
 from typing import Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -1009,3 +1021,280 @@ def chunk_cv_splitter(chunk_stats, bin_info: dict, n_folds: int = None) -> list:
     fold_of = group_to_fold[group_idx]
     indices = np.arange(len(groups))
     return [(indices[fold_of != f], indices[fold_of == f]) for f in range(n_splits)]
+
+
+# --------------------------------------------------------------------------- #
+# Cluster detectors and their explanations
+# --------------------------------------------------------------------------- #
+
+DETECTOR_SCORING = ("roc_auc_ovo_weighted", "roc_auc_ovr_weighted")
+
+
+def _binary_roc_auc(y_true: np.ndarray, y_score: np.ndarray) -> float:
+    """sklearn's ``_binary_roc_auc_score``: NaN unless both classes are
+    present; the ROC curve at the distinct scores (descending), collinear
+    points dropped, its area by the trapezoid rule, in float64."""
+    y_true = np.asarray(y_true).astype(bool)
+    if len(np.unique(y_true)) != 2:
+        warnings.warn("Only one class is present in y_true. ROC AUC score is not defined in that case.")
+        return float("nan")
+    y_score = np.asarray(y_score, np.float64)
+    order = np.flip(np.argsort(np.flip(y_score), kind="stable"))
+    order = len(y_score) - 1 - order
+    y_score, y_sorted = y_score[order], y_true[order].astype(np.float64)
+    idx = np.concatenate([np.nonzero(np.diff(y_score))[0], [len(y_sorted) - 1]])
+    tps = np.cumsum(y_sorted)[idx]
+    fps = 1 + idx.astype(np.float64) - tps
+    if fps.shape[0] > 2:
+        keep = np.where(np.concatenate([[True], np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), [True]]))[0]
+        fps, tps = fps[keep], tps[keep]
+    fpr = np.concatenate([[0.0], fps]) / fps[-1]
+    tpr = np.concatenate([[0.0], tps]) / tps[-1]
+    return float(np.add.reduce(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0))
+
+
+def roc_auc_weighted(y_true, y_score, multi_class: str) -> float:
+    """sklearn's ``roc_auc_score(y_true, y_score, multi_class=...,
+    average="weighted")`` for the scorers ``roc_auc_ovo_weighted`` and
+    ``roc_auc_ovr_weighted``: a 1-d ``y_score`` (a binary classifier's
+    second column) against the larger label of ``y_true``; a 2-d one
+    (n, K > 2) needs every one of its K classes in ``y_true`` (else
+    ValueError, as sklearn raises), then Hand & Till's pairs weighted by
+    their prevalence ("ovo") or each class against the rest weighted by its
+    count ("ovr")."""
+    y_true = np.asarray(host_array(y_true))
+    y_score = np.asarray(host_array(y_score), np.float64)
+    classes = np.unique(y_true)
+    if y_score.ndim == 1:
+        if len(classes) > 2:
+            raise ValueError("`y_score` needs to be of shape `(n_samples, n_classes)`, since `y_true` contains "
+                             "multiple classes.")
+        return _binary_roc_auc(y_true == classes[-1], y_score)
+    if len(classes) <= 2 and y_score.shape[1] <= 2:
+        raise ValueError("y should be a 1d array for a binary y_true")
+    if len(classes) != y_score.shape[1]:
+        raise ValueError("Number of classes in y_true not equal to the number of columns in 'y_score'")
+    if not np.allclose(1, y_score.sum(axis=1)):
+        raise ValueError("Target scores need to be probabilities for multiclass roc_auc, i.e. they should sum up to "
+                         "1.0 over classes")
+    encoded = np.searchsorted(classes, y_true)
+    if multi_class == "ovo":
+        pairs = list(combinations(range(len(classes)), 2))
+        scores, prevalence = np.empty(len(pairs)), np.empty(len(pairs))
+        for ix, (a, b) in enumerate(pairs):
+            a_mask, b_mask = encoded == a, encoded == b
+            ab = a_mask | b_mask
+            prevalence[ix] = np.average(ab)
+            scores[ix] = (_binary_roc_auc(a_mask[ab], y_score[ab, a]) + _binary_roc_auc(b_mask[ab], y_score[ab, b])) / 2
+        return float(np.average(scores, weights=prevalence))
+    if multi_class != "ovr":
+        raise ValueError(f"multi_class must be 'ovo' or 'ovr', got {multi_class!r}")
+    onehot = encoded[:, None] == np.arange(len(classes))[None, :]
+    weights = onehot.sum(axis=0)
+    scores = np.array([_binary_roc_auc(onehot[:, c], y_score[:, c]) for c in range(len(classes))])
+    scores[weights == 0] = 0
+    return float(np.average(scores, weights=weights))
+
+
+def _detector_score(estimator, x, y, scorer: str) -> float:
+    """A scorer ``roc_auc_{ovo,ovr}_weighted`` on ``predict_proba``: the
+    positive class's column for a binary classifier, all columns else."""
+    proba = estimator.predict_proba(x)
+    proba = proba.cpu().numpy() if isinstance(proba, torch.Tensor) else np.asarray(proba)
+    if len(estimator.classes_) == 2:
+        proba = proba[:, 1]
+    return roc_auc_weighted(y, proba, scorer.split("_")[2])
+
+
+def cross_validate(estimator, x, y, cv, verbose: int = 0) -> dict:
+    """sklearn's ``cross_validate`` as the detectors call it (the
+    ``DETECTOR_SCORING`` scorers, train scores and estimators returned),
+    the folds fitted in series: a clone of ``estimator`` fitted on each
+    fold's train rows and scored on its test and train rows; a score that
+    cannot be formed (a fold lacking a class) is NaN with a warning
+    (``error_score=nan``). Keys as sklearn's: ``fit_time``,
+    ``score_time``, ``estimator``, ``test_{scorer}`` and ``train_{scorer}``."""
+    from deepof_tpu_torch.legacy_compat import clone
+
+    y = np.asarray(host_array(y))
+    out = {"fit_time": [], "score_time": [], "estimator": []}
+    for name in DETECTOR_SCORING:
+        out[f"test_{name}"] = []
+        out[f"train_{name}"] = []
+
+    def score(est, rows, name):
+        try:
+            return _detector_score(est, x[rows], y[rows], name)
+        except ValueError as e:
+            warnings.warn(f"Scoring failed. The score on this train-test partition for these parameters will be set "
+                          f"to nan. Details: {e}")
+            return float("nan")
+
+    for i, (train, test) in enumerate(cv):
+        est = clone(estimator)
+        t0 = time.perf_counter()
+        est.fit(x[train], y[train])
+        out["fit_time"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for name in DETECTOR_SCORING:
+            out[f"test_{name}"].append(score(est, test, name))
+        out["score_time"].append(time.perf_counter() - t0)
+        for name in DETECTOR_SCORING:
+            out[f"train_{name}"].append(score(est, train, name))
+        out["estimator"].append(est)
+        if verbose:
+            print(f"[CV] fold {i}: " + ", ".join(f"{k}={v[-1]:.3f}" for k, v in out.items() if k.startswith("test_")))
+    return {k: (v if k == "estimator" else np.asarray(v, np.float64)) for k, v in out.items()}
+
+
+def _make_cluster_detector(verbose: int, device="cuda"):
+    """Scaler -> SMOTE-resampled gradient boosting (``deepof_tpu/posthoc.py:932``):
+    :class:`~deepof_tpu_torch.legacy_compat.StandardScaler`, then
+    :class:`~deepof_tpu_torch.legacy_compat.ResampledClassifier` of
+    :class:`~deepof_tpu_torch.gbm.HistGradientBoostingClassifier` (max_iter
+    200) over ``SimpleSMOTE(random_state=42)``, all on ``device``.
+    ``verbose`` is the JAX package's argument; the port's estimator prints
+    nothing a fit."""
+    from deepof_tpu_torch.gbm import HistGradientBoostingClassifier
+    from deepof_tpu_torch.legacy_compat import Pipeline, ResampledClassifier, SimpleSMOTE, StandardScaler
+
+    return Pipeline([
+        ("normalization", StandardScaler(device=device)),
+        ("classifier", ResampledClassifier(
+            estimator=HistGradientBoostingClassifier(max_iter=200, device=device),
+            resampler=SimpleSMOTE(random_state=42, device=device),
+        )),
+    ])
+
+
+def train_supervised_cluster_detectors(chunk_stats, hard_counts, bin_info: dict, n_folds: int = None,
+                                       verbose: int = 1, device="cuda"):
+    """Supervised cluster detectors from kinematic chunk features
+    (``deepof_tpu/posthoc.py:955``): :func:`cross_validate` of
+    :func:`_make_cluster_detector` over :func:`chunk_cv_splitter`'s folds
+    (leave one experiment out by default), scored by the weighted OVO and
+    OVR ROC AUCs on train and test, then the same pipeline fitted on every
+    chunk. The statistics go to ``device`` once; the folds are fitted in
+    series there, each fit drawing its two seeds from numpy's global state
+    in fold order.
+
+    Returns (the pipeline fitted on all chunks, the cross-validation dict,
+    the folds)."""
+    dev = resolve_device(device)
+    groups = chunk_cv_splitter(chunk_stats, bin_info, n_folds=n_folds)
+    x = torch.as_tensor(np.asarray(host_array(chunk_stats), np.float64), device=dev)
+    y = np.asarray(host_array(hard_counts))
+    if verbose:
+        print("Training cross-validated models for performance estimation...")
+    performance = cross_validate(_make_cluster_detector(verbose, dev), x, y, cv=groups, verbose=int(verbose > 1))
+    if verbose:
+        print("Training on full dataset for feature importance estimation...")
+    full_cluster_clf = _make_cluster_detector(verbose, dev)
+    full_cluster_clf.fit(x, y)
+    if verbose:
+        print("Done!")
+    return full_cluster_clf, performance, groups
+
+
+def explain_clusters(chunk_stats, hard_counts, full_cluster_clf, samples: int = 10000, n_jobs: int = -1,
+                     device="cuda"):
+    """Kernel SHAP values of the fitted detectors (``deepof_tpu/posthoc.py:1007``),
+    always through the port's :class:`~deepof_tpu_torch.shap_kernel.KernelExplainer`:
+    the chunk statistics scaled by the pipeline's scaler and resampled by a
+    clone of its fitted SMOTE (as the detectors were trained), a k-means
+    background of one centre a cluster, and, past ``samples`` rows,
+    ``np.random.choice(rows, samples, replace=False)`` of the resampled rows
+    (pandas' ``DataFrame.sample`` draw) explained with ``nsamples=samples``
+    coalitions.
+
+    Returns (a list of (samples, features) arrays, one a class; the
+    explainer; the explained rows as a :class:`Labelled` whose index holds
+    their row numbers in the resampled table)."""
+    from deepof_tpu_torch.legacy_compat import clone
+    from deepof_tpu_torch.shap_kernel import KernelExplainer, kmeans_background
+
+    dev = resolve_device(device)
+    values = np.asarray(host_array(chunk_stats), np.float64)
+    columns = list(chunk_stats.columns) if hasattr(chunk_stats, "columns") else list(range(values.shape[1]))
+    hard = np.asarray(host_array(hard_counts))
+    scaler = full_cluster_clf.named_steps["normalization"]
+    clfwrap = full_cluster_clf.named_steps["classifier"]
+    x_scaled = scaler.transform(torch.as_tensor(values, device=dev))
+    resampler = getattr(clfwrap, "resampler_", None) or getattr(clfwrap, "resampler", None)
+    if resampler is not None:
+        x_scaled, _ = clone(resampler).fit_resample(x_scaled, hard)
+    n_clusters = len(np.unique(hard))
+    explainer = KernelExplainer(clfwrap.predict_proba, data=kmeans_background(x_scaled, n_clusters, device=dev),
+                                normalize=False, device=dev)
+    index = np.arange(len(x_scaled))
+    if samples is not None and samples < values.shape[0]:
+        index = np.random.choice(len(x_scaled), samples, replace=False)
+        x_scaled = x_scaled[torch.as_tensor(index, device=dev)]
+    rows = x_scaled.cpu().numpy()
+    shap_values = explainer.shap_values(rows, nsamples=samples, n_jobs=n_jobs)
+    return shap_values, explainer, Labelled(rows, [int(i) for i in index], columns)
+
+
+def _lda_transform(x: torch.Tensor, labels: np.ndarray, n_components: int) -> np.ndarray:
+    """sklearn's ``LinearDiscriminantAnalysis(solver="svd", n_components).fit_transform``
+    in float64: the class means (rows added in order) and the within-class
+    centring and scaling on the device, the two SVDs in scipy on the host
+    (sklearn's, so the components' signs are LAPACK's), the projection on
+    the device."""
+    import scipy.linalg
+
+    tol = 1e-4
+    classes, y_idx, counts = np.unique(labels, return_inverse=True, return_counts=True)
+    n, d = x.shape
+    k = len(classes)
+    if n == k:
+        raise ValueError("The number of samples must be more than the number of classes.")
+    if n_components > min(k - 1, d):
+        raise ValueError("n_components cannot be larger than min(n_features, n_classes - 1).")
+    from deepof_tpu_torch.train.gmm import cluster_sums
+
+    dev = x.device
+    priors = counts.astype(np.float64) / float(n)
+    y_t = torch.as_tensor(y_idx, device=dev)
+    means = cluster_sums(x, y_t, k) / torch.as_tensor(counts, dtype=torch.float64, device=dev)[:, None]
+    order = torch.as_tensor(np.argsort(y_idx, kind="stable"), device=dev)
+    xc = x[order] - means[y_t[order]]
+    xbar = torch.as_tensor(priors, device=dev) @ means
+    std = xc.std(dim=0, correction=0)
+    std = torch.where(std == 0, 1.0, std)
+    scaled = (np.sqrt(1.0 / (n - k)) * (xc / std)).cpu().numpy()
+    _, s, vt = scipy.linalg.svd(scaled, full_matrices=False)
+    rank = int(np.sum(s > tol))
+    std_h, means_h, xbar_h = std.cpu().numpy(), means.cpu().numpy(), xbar.cpu().numpy()
+    scalings = (vt[:rank, :] / std_h).T / s[:rank]
+    fac = 1.0 if k == 1 else 1.0 / (k - 1)
+    centers = ((np.sqrt((n * priors) * fac)) * (means_h - xbar_h).T).T @ scalings
+    _, s, vt = scipy.linalg.svd(centers, full_matrices=False)
+    rank = int(np.sum(s > tol * s[0]))
+    projection = torch.as_tensor(scalings @ vt.T[:, :rank], device=dev)
+    return ((x - xbar) @ projection)[:, :n_components].cpu().numpy()
+
+
+def compute_UMAP(embeddings, cluster_assignments, random_state: int = 0, reducer=None, device="cuda"):
+    """LDA-then-UMAP 2-d projection of embeddings (``deepof_tpu/posthoc.py:1064``):
+    a supervised LDA (:func:`_lda_transform`, min(width, clusters - 1)
+    components), then ``reducer.fit_transform`` (any object with one), by
+    default umap-learn's ``UMAP(min_dist=0.99, n_components=2, init="random")``
+    seeded with ``random_state``. Raises ValueError for a single cluster
+    (the JAX package asserts)."""
+    labels = np.asarray(host_array(cluster_assignments))
+    if np.unique(labels).size <= 1:
+        raise ValueError("LDA could not be computed, as these soft_counts correspond to a collapsed model that only "
+                         "contains a single cluster!")
+    dev = resolve_device(device)
+    x = (embeddings.to(dev, torch.float64) if isinstance(embeddings, torch.Tensor)
+         else torch.as_tensor(np.asarray(host_array(embeddings), np.float64), device=dev))
+    reduced = _lda_transform(x, labels, int(min(x.shape[1], len(set(labels.tolist())) - 1)))
+    if reducer is None:
+        try:
+            import umap
+        except ImportError as e:
+            raise ImportError("compute_UMAP requires the optional 'umap-learn' package (or pass reducer=...).") from e
+        reducer = umap.UMAP(min_dist=0.99, n_components=2, random_state=random_state,
+                            n_jobs=1 if random_state is not None else -1, transform_seed=random_state, init="random")
+    return reducer.fit_transform(reduced)
