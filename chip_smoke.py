@@ -300,10 +300,15 @@
    AUCs in [0, 1] wherever sklearn's scorer forms one (as many labels in
    the fold's rows as its classifier has classes; NaN exactly elsewhere), predict_proba rows summing to 1, each row's Shapley values
    summing to f(x) - E f within 1e-6, the projection's shape; the full fit
-   again from the numpy state it saw, equal bit for bit; the three kernels
-   against their plain versions at the full fit's shapes (bit for bit) and
-   timed there against their bytes bounds, their plain versions and, for
-   the histograms, ``index_add_`` of the same sums; card vs CPU on a drawn
+   again from the numpy state it saw, equal bit for bit; the histogram and
+   split kernels against their plain versions (bit for bit) at three
+   seeded rounds of the full fit's rows, features and trees
+   (``GBM_SHAPES``: the roots; a mid round whose smaller children hold
+   ~10% of the rows and a deep one at ~1%, each with its siblings'
+   subtraction, on a seeded partition) and at roots too few rows to split
+   (the empty record, at the fit's features and at 37), the ensemble
+   kernel over the chunk table, each timed against its bytes bound, its plain version and, for
+   the roots' histograms, ``index_add_`` of the same sums; card vs CPU on a drawn
    copy (the three most frequent labels, 16 chunks a recording and label,
    16 columns with every value present): trees compared split by split (the count of differing
    trees printed), predict_proba and the AUCs within 1e-6 of max(1,
@@ -4481,6 +4486,10 @@ DETECTOR_RTOL = 1e-6
 SHAP_SUM_TOL = 1e-6  # each row's Shapley values against f(x) - E f
 DETECTOR_MIN_VALUES = 20  # non-NaN values a statistic needs in every fit's chunks
 GBM_KERNELS = ("gbm_histograms", "gbm_best_split", "gbm_predict")
+# The tree fit's rounds timed by kernel: the share of the rows each task's
+# node holds (root: every row; mid and deep: the smaller child of a split
+# of 2.5x as many rows, 40 / 60, with the larger sibling's subtraction).
+GBM_SHAPES = {"root": 1.0, "mid": 0.10, "deep": 0.01}
 
 
 def _gbm_counts(reset=False):
@@ -4620,67 +4629,188 @@ def _detectors_card_vs_cpu(stats, y, bin_info):
     return report
 
 
+def _gbm_round(n, f, k, share, seed=DETECTOR_SEED):
+    """A seeded round of the tree fit on the host (numpy) at n rows, f
+    features and k trees: bins (f, n) uint8 (each feature's count of
+    non-missing bins ``nbnm``, 255 but a twelfth few-valued; 2% missing
+    values in half the features, ``has_missing``), g / h (k, n) float32, and
+    ``rounds``: [(node ids (k, n) int32, tasks (k, 4) int32)] to run in
+    order, the last one the round timed. At share 1, the roots (slot t);
+    else, in tree t, a parent node of 2.5 x share of the rows (slot k + t)
+    first, then its 40 / 60 split: the smaller child's task (slot t) with
+    the parent's slot, which becomes the larger child's."""
+    rng = np.random.default_rng(seed)
+    nbnm = np.full(f, 255, np.int32)
+    few = rng.random(f) < 1 / 12
+    nbnm[few] = rng.integers(2, 12, int(few.sum()))
+    has_missing = rng.random(f) < 0.5
+    bins = (rng.random((f, n)) * nbnm[:, None]).astype(np.uint8)
+    bins[has_missing[:, None] & (rng.random((f, n)) < 0.02)] = 255
+    g = rng.normal(size=(k, n)).astype(np.float32)
+    h = rng.uniform(0.01, 0.25, size=(k, n)).astype(np.float32)
+    t = np.arange(k)
+    tasks = lambda node, slot, parent: np.stack([t, np.full(k, node), slot, parent], 1).astype(np.int32)
+    if share >= 1.0:
+        rounds = [(np.zeros((k, n), np.int32), tasks(0, t, np.full(k, -1)))]
+    else:
+        u = rng.random((k, n))
+        parent, small = u < 2.5 * share, u < share
+        rounds = [(np.where(parent, 1, 2).astype(np.int32), tasks(1, k + t, np.full(k, -1))),
+                  (np.where(small, 3, np.where(parent, 4, 2)).astype(np.int32), tasks(3, t, k + t))]
+    return {"bins": bins, "g": g, "h": h, "nbnm": nbnm, "has_missing": has_missing, "rounds": rounds}
+
+
+def _gbm_split_jobs(pool, ids, tasks, n):
+    """The split search's jobs after a round (torch CPU tensors): each
+    task's node and, with a parent slot, the larger sibling in that slot;
+    a root's sums left to the search. Returns (slots, nodes)."""
+    import torch
+
+    slots, nodes = [], []
+    for tree, node, slot, parent in tasks.tolist():
+        if node == 0:
+            slots.append(slot)
+            nodes.append([n, 0.0, 0.0, 0.0, 1.0])
+            continue
+        for s_, rows in ((slot, int((ids[tree] == node).sum())), (parent, -1)):
+            if s_ < 0:
+                continue
+            hist = pool[s_, 0]
+            rows = rows if rows >= 0 else int(hist[:, 2].sum())
+            sg, sh = float(hist[:, 0].sum()), float(hist[:, 1].sum())
+            slots.append(s_)
+            nodes.append([rows, sg, sh, -sg / (sh + 1e-15), 0.0])
+    return torch.tensor(slots, dtype=torch.int32), torch.tensor(nodes, dtype=torch.float64)
+
+
+def _check_time_gbm_rounds(torch, n, f, k):
+    """gbm_histograms and gbm_best_split against their plain versions (the
+    CPU's, bit for bit) at each of GBM_SHAPES' seeded rounds of n rows, f
+    features and k trees, and timed there: the kernel (CUDA events over 5
+    calls; the timed calls subtract from the parents again, the same work),
+    its plain version on the card (once) and, for the roots' histograms,
+    index_add_ of the same sums; bounds: the tasks' union of rows' bins,
+    each task's rows' g and h, the histograms written, a parent's read and
+    written (bytes). Returns {kernel: [entry a shape]}."""
+    from deepof_tpu_torch.ops import gbm_kernels as gk
+
+    dev = torch.device("cuda")
+    out = {"gbm_histograms": [], "gbm_best_split": []}
+    for shape, share in GBM_SHAPES.items():
+        r = _gbm_round(n, f, k, share)
+        bins = torch.zeros((n, gk.padded_width(f)), dtype=torch.uint8, device=dev)
+        bins[:, :f] = torch.as_tensor(r["bins"], device=dev).T
+        g, h = (torch.as_tensor(r[c], device=dev) for c in ("g", "h"))
+        pool = torch.zeros((2 * k, f, gk.N_BINS, 3), dtype=torch.float64, device=dev)
+        *setup, (ids_np, tasks_np) = r["rounds"]
+        for ids_s, tasks_s in setup:
+            gk.gbm_histograms(bins, g, h, torch.as_tensor(ids_s, device=dev), torch.as_tensor(tasks_s, device=dev),
+                              pool)
+        ids, tasks = torch.as_tensor(ids_np, device=dev), torch.as_tensor(tasks_np, device=dev)
+        before = pool.to("cpu", copy=True)
+        gk.gbm_histograms(bins, g, h, ids, tasks, pool)
+        torch.cuda.synchronize()
+        want = gk.gbm_histograms_plain(bins.cpu(), g.cpu(), h.cpu(), ids.cpu(), tasks.cpu(), before.clone())
+        equal = torch.equal(pool.cpu(), want)
+        err = float((pool.cpu() - want).abs().max())
+        ms = _cuda_ms(torch, lambda: gk.gbm_histograms(bins, g, h, ids, tasks, pool), reps=5, warmup=1)
+        plain_pool = before.to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gk.gbm_histograms_plain(bins, g, h, ids, tasks, plain_pool)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        member = ids_np == tasks_np[:, 1:2]
+        has_parent = tasks_np[:, 3] >= 0
+        n_bytes = (int(member.any(0).sum()) * f + int(member.sum()) * 8
+                   + int(k + 2 * has_parent.sum()) * f * gk.N_BINS * 24)
+        library_ms = None
+        if shape == "root":
+            flat = (torch.arange(f, device=dev)[:, None] * gk.N_BINS + bins[:, :f].T.long()).flatten()
+            target = torch.zeros((f * gk.N_BINS, 3), dtype=torch.float64, device=dev)
+            src = torch.stack([g[0].double(), h[0].double(), torch.ones(n, dtype=torch.float64, device=dev)], 1)
+            src = src.expand(f, n, 3).reshape(-1, 3)
+            library_ms = _cuda_ms(torch, lambda: target.index_add_(0, flat, src), reps=5, warmup=1) * k
+            del flat, target, src
+        out["gbm_histograms"].append({
+            "shape": f"{shape}: bins ({n}, {f}) uint8, g/h ({k}, {n}) float32, {k} tasks of "
+                     f"{int(member.sum(1).mean())} rows{', with subtractions' if has_parent.any() else ''}",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": n_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "library_ms": library_ms, "max_abs_err": 0.0 if equal else max(err, 1e-300)})
+
+        pool = want.to(dev, copy=True)  # the checked state, before the timed calls' subtractions
+        slots, nodes = _gbm_split_jobs(want, ids_np, tasks_np, n)
+        nbnm = torch.as_tensor(r["nbnm"], device=dev)
+        miss = torch.as_tensor(r["has_missing"].astype(np.uint8), device=dev)
+        slots_d, nodes_d = slots.to(dev), nodes.to(dev)
+        got = gk.gbm_best_split(pool, slots_d, nodes_d, nbnm, miss)
+        torch.cuda.synchronize()
+        want_s = gk.gbm_best_split_plain(want, slots, nodes, nbnm.cpu(), miss.cpu())
+        equal = torch.equal(got.cpu(), want_s)
+        err = float((got.cpu() - want_s).abs().max())
+        ms = _cuda_ms(torch, lambda: gk.gbm_best_split(pool, slots_d, nodes_d, nbnm, miss), reps=5, warmup=1)
+        t0 = time.perf_counter()
+        gk.gbm_best_split_plain(pool, slots_d, nodes_d, nbnm, miss)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        n_bytes = len(slots) * (f * gk.N_BINS * 24 + gk.RECORD_WIDTH * 8)
+        out["gbm_best_split"].append({
+            "shape": f"{shape}: {len(slots)} tasks of ({f}, 256, 3) float64 histograms",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": n_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": 0.0 if equal else max(err, 1e-300),
+            "splits_found": int((want_s[:, 0] > 0).sum())})
+        del bins, g, h, pool, plain_pool, ids, tasks
+    return out
+
+
+def _check_gbm_no_split(torch, f, n=30, k=3):
+    """Both kernels against their plain versions, bit for bit, at k roots of
+    n seeded rows too few to split (under 2 x MIN_SAMPLES_LEAF) over f
+    features: every record must be the empty one (gain -1, feature 0, bin 0,
+    sums 0), whichever CTA or lane holds no feature."""
+    from deepof_tpu_torch.ops import gbm_kernels as gk
+
+    dev = torch.device("cuda")
+    r = _gbm_round(n, f, k, 1.0)
+    (ids_np, tasks_np), = r["rounds"]
+    bins = torch.zeros((n, gk.padded_width(f)), dtype=torch.uint8, device=dev)
+    bins[:, :f] = torch.as_tensor(r["bins"], device=dev).T
+    g, h = (torch.as_tensor(r[c], device=dev) for c in ("g", "h"))
+    ids, tasks = torch.as_tensor(ids_np, device=dev), torch.as_tensor(tasks_np, device=dev)
+    pool = torch.zeros((k, f, gk.N_BINS, 3), dtype=torch.float64, device=dev)
+    gk.gbm_histograms(bins, g, h, ids, tasks, pool)
+    want = gk.gbm_histograms_plain(bins.cpu(), g.cpu(), h.cpu(), ids.cpu(), tasks.cpu(),
+                                   torch.zeros(pool.shape, dtype=torch.float64))
+    slots, nodes = _gbm_split_jobs(want, ids_np, tasks_np, n)
+    nbnm = torch.as_tensor(r["nbnm"], device=dev)
+    miss = torch.as_tensor(r["has_missing"].astype(np.uint8), device=dev)
+    got = gk.gbm_best_split(pool, slots.to(dev), nodes.to(dev), nbnm, miss).cpu()
+    want_s = gk.gbm_best_split_plain(want, slots, nodes, nbnm.cpu(), miss.cpu())
+    report = {"features": f, "tasks": k, "rows": n, "histograms_equal": torch.equal(pool.cpu(), want),
+              "records_equal": torch.equal(got, want_s), "records": got[:, :4].tolist()}
+    _log(f"tree-fit kernels at roots with no split: {report}")
+    if not (report["histograms_equal"] and report["records_equal"]) \
+            or not bool((want_s[:, 0] == -1).all() and (want_s[:, 1:4] == 0).all()):
+        _fail(f"the tree-fit kernels differ from their plain versions where no feature splits: {report}")
+    return report
+
+
 def _check_time_gbm(torch, est, x):
-    """Each tree-fit kernel against its plain version at the full fit's
-    shapes and timed there: the K root histograms of its n training rows
-    (against the CPU's plain version, bit for bit; its plain version and
-    index_add_ of the same sums timed on the card), the K roots' split search
-    (bit for bit), the whole ensemble over the chunk table (the plain version
-    on the card, bit for bit). Returns ({kernel: line entry})."""
+    """Each tree-fit kernel against its plain version, bit for bit, and
+    timed: the histograms and the split search at GBM_SHAPES' seeded rounds
+    of the full fit's rows, features and trees (``_check_time_gbm_rounds``;
+    the line's own numbers are the roots'), the whole ensemble over the
+    chunk table (the plain version on the card). Returns ({kernel: line
+    entry})."""
     from deepof_tpu_torch.ops import gbm_kernels as gk
 
     dev = torch.device("cuda")
     n, f, k = est.n_train_, est.n_features_in_, est.n_trees_per_iteration_
-    rng = np.random.default_rng(DETECTOR_SEED)
-    bins = torch.as_tensor(rng.integers(0, 256, size=(f, n), dtype=np.uint8), device=dev)
-    g = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=dev)
-    h = torch.as_tensor(rng.random(size=(n, k)).astype(np.float32), device=dev)
-    ids = torch.zeros((k, n), dtype=torch.int32, device=dev)
-    tasks = torch.as_tensor([[t, 0, t] for t in range(k)], dtype=torch.int32, device=dev)
-    pool = torch.zeros((k, f, gk.N_BINS, 3), dtype=torch.float64, device=dev)
-    out = {}
-
-    gk.gbm_histograms(bins, g, h, ids, tasks, pool)
-    torch.cuda.synchronize()
-    want = gk.gbm_histograms_plain(bins.cpu(), g.cpu(), h.cpu(), ids.cpu(), tasks.cpu(), torch.zeros_like(pool.cpu()))
-    hist_err = float((pool.cpu() - want).abs().max())
-    ms = _cuda_ms(torch, lambda: gk.gbm_histograms(bins, g, h, ids, tasks, pool), reps=5, warmup=1)
-    plain_pool = torch.zeros_like(pool)
-    t0 = time.perf_counter()
-    gk.gbm_histograms_plain(bins, g, h, ids, tasks, plain_pool)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    flat = (torch.arange(f, device=dev)[:, None] * gk.N_BINS + bins.long()).flatten()
-    target = torch.zeros((f * gk.N_BINS, 3), dtype=torch.float64, device=dev)
-    src = torch.stack([g[:, 0].double(), h[:, 0].double(), torch.ones(n, dtype=torch.float64, device=dev)], 1)
-    src = src.expand(f, n, 3).reshape(-1, 3)
-    library_ms = _cuda_ms(torch, lambda: target.index_add_(0, flat, src), reps=5, warmup=1) * k
-    n_bytes = f * n + k * n * (8 + 4) + k * f * gk.N_BINS * 24
-    out["gbm_histograms"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": n_bytes / PEAK_BYTES * 1e3,
-                             "bound_by": "bytes", "library_ms": library_ms, "max_abs_err": hist_err,
-                             "shape": f"bins ({f}, {n}) uint8, g/h ({n}, {k}) float32, {k} root tasks",
-                             "library": "index_add_ of (g, h, 1) a tree, times K"}
-
-    nodes = torch.zeros((k, gk.NODE_WIDTH), dtype=torch.float64, device=dev)
-    nodes[:, 0] = n
-    nodes[:, 4] = 1.0
-    slots = torch.arange(k, dtype=torch.int32, device=dev)
-    nbnm = torch.full((f,), 255, dtype=torch.int32, device=dev)
-    miss = torch.zeros(f, dtype=torch.uint8, device=dev)
-    miss[::9] = 1
-    got = gk.gbm_best_split(pool, slots, nodes, nbnm, miss)
-    torch.cuda.synchronize()
-    want = gk.gbm_best_split_plain(pool.cpu(), slots.cpu(), nodes.cpu(), nbnm.cpu(), miss.cpu())
-    split_err = float((got.cpu() - want).abs().max())
-    ms = _cuda_ms(torch, lambda: gk.gbm_best_split(pool, slots, nodes, nbnm, miss), reps=5, warmup=1)
-    t0 = time.perf_counter()
-    gk.gbm_best_split_plain(pool, slots, nodes, nbnm, miss)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    n_bytes = k * (f * gk.N_BINS * 24 + gk.RECORD_WIDTH * 8)
-    out["gbm_best_split"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": n_bytes / PEAK_BYTES * 1e3,
-                             "bound_by": "bytes", "library_ms": None, "max_abs_err": split_err,
-                             "shape": f"{k} tasks of ({f}, 256, 3) float64 histograms"}
+    rounds = _check_time_gbm_rounds(torch, n, f, k)
+    for width in sorted({f, 37}):  # the fit's features, and fewer than 32 split CTAs
+        _check_gbm_no_split(torch, width)
+    out = {name: {**entries[0], "at_shapes": entries} for name, entries in rounds.items()}
+    out["gbm_histograms"]["library"] = "index_add_ of (g, h, 1) a tree, times K"
 
     xt = torch.as_tensor(np.asarray(x, np.float64), device=dev).contiguous()
     arrays = est._ensemble.device_arrays(dev)
@@ -4702,8 +4832,9 @@ def _check_time_gbm(torch, est, x):
                                    f"({n_nodes} nodes)"}
     _log(f"tree-fit kernels at the full fit's shapes: {out}")
     for name, entry in out.items():
-        if entry["max_abs_err"] != 0.0:
-            _fail(f"{name} differs from its plain version: {entry['max_abs_err']}")
+        for at in entry.get("at_shapes", [entry]):
+            if at["max_abs_err"] != 0.0:
+                _fail(f"{name} differs from its plain version at {at['shape']}: {at['max_abs_err']}")
     return out
 
 

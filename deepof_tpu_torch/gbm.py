@@ -22,13 +22,17 @@ What runs where:
 The K trees of an iteration depend only on that iteration's gradients, so
 they grow together: each round pops, in every tree still growing, the best
 node (a heap a tree, ordered as sklearn's ``TreeNode.__lt__``), and the
-next ones while a split leaves only leaves; it updates each row's node id,
+next ones while a split leaves only leaves. The round's splits, histogram
+tasks and split-search jobs then go to the device in one non-blocking copy
+from a pinned buffer (``_Upload``); the round updates each row's node id,
 builds the histograms of the smaller children in one ``gbm_histograms``
-launch (the larger child is its parent's minus its sibling's, as sklearn
-forms it), finds the children's splits in one ``gbm_best_split`` launch and
-reads the records back in one host copy. A
-node's rows are the rows whose id names it, taken in ascending order, as
-sklearn's stable partition keeps them. Trees: best-first growth with
+launch, which also forms each larger child's as its parent's minus its
+sibling's (as sklearn forms it) in the parent's slot, finds the children's
+splits in one ``gbm_best_split`` launch and reads the records back in one
+host copy. The gradients and hessians go to the kernels as (K, n), one
+tree's values contiguous, and the bins as (n, Fp) rows. A node's rows are
+the rows whose id names it, taken in ascending order, as sklearn's stable
+partition keeps them. Trees: best-first growth with
 ``max_leaf_nodes=31``, ``min_samples_leaf=20``, ``min_hessian_to_split=1e-3``,
 ``l2_regularization=0``, leaf values shrunk by ``learning_rate=0.1``.
 """
@@ -43,7 +47,8 @@ import torch
 
 from deepof_tpu_torch.device import host_array, resolve_device
 from deepof_tpu_torch.ops.gbm_kernels import (
-    MIN_HESSIAN, MIN_SAMPLES_LEAF, MISSING_BIN, N_BINS, NODE_WIDTH, gbm_best_split, gbm_histograms, gbm_predict,
+    MIN_HESSIAN, MIN_SAMPLES_LEAF, MISSING_BIN, N_BINS, NODE_WIDTH, TASK_WIDTH, gbm_best_split, gbm_histograms,
+    gbm_predict, padded_width,
 )
 
 ALMOST_INF = 1e300
@@ -294,37 +299,86 @@ class _Tree:
             node.slot = -1
 
 
-class _Context:
-    """Per-fit device state: bins (F, n), labels, the histogram pool and the
-    feature facts the split search reads."""
+class _Upload:
+    """A round's host arrays (int32 and float64) in one host-to-device
+    copy: packed into one int32 buffer, pinned where the device is CUDA,
+    and copied with one non-blocking copy into a device buffer; ``send``
+    returns each array's view there. The host buffer is reused, so a fill
+    first waits for the last copy (an event). On the CPU the views are the
+    host buffer's own, read before the next fill."""
 
-    def __init__(self, bins, n_bins_non_missing, has_missing, n_trees, dev):
-        self.bins = bins
-        self.n = bins.shape[1]
+    def __init__(self, dev):
+        self.dev = dev
+        self.cuda = dev.type == "cuda"
+        self.host = self.device = self.copied = None
+
+    def send(self, arrays) -> list:
+        spans, words = [], 0
+        for a in arrays:
+            if a.dtype not in (np.int32, np.float64):
+                raise TypeError(f"_Upload takes int32 and float64 arrays, not {a.dtype}")
+            size = a.size * (a.itemsize // 4)
+            spans.append((words, size))
+            words += size + (size & 1)  # every array starts at an even word: a float64 view
+        if self.host is None or self.host.numel() < words:
+            cap = max(2 * words, 1024)
+            self.host = torch.empty(cap, dtype=torch.int32, pin_memory=self.cuda)
+            self.device = torch.empty(cap, dtype=torch.int32, device=self.dev) if self.cuda else self.host
+        elif self.copied is not None:
+            self.copied.synchronize()
+        host = self.host.numpy()
+        for (at, size), a in zip(spans, arrays):
+            host[at:at + size] = np.ascontiguousarray(a).reshape(-1).view(np.int32)
+        if self.cuda:
+            self.device[:words].copy_(self.host[:words], non_blocking=True)
+            self.copied = torch.cuda.Event()
+            self.copied.record()
+        out = []
+        for (at, size), a in zip(spans, arrays):
+            view = self.device[at:at + size]
+            out.append((view.view(torch.float64) if a.dtype == np.float64 else view).view(a.shape))
+        return out
+
+
+class _Context:
+    """Per-fit device state: the bins as (n, Fp) rows, the histogram pool,
+    the feature facts the split search reads and the rounds' upload."""
+
+    def __init__(self, bins_np, n_bins_non_missing, has_missing, n_trees, dev):
+        f, self.n = bins_np.shape
+        self.bins = torch.zeros((self.n, padded_width(f)), dtype=torch.uint8, device=dev)
+        self.bins[:, :f] = torch.as_tensor(bins_np, device=dev).T
         self.nbnm = torch.as_tensor(n_bins_non_missing.astype(np.int32), device=dev)
         self.miss = torch.as_tensor(has_missing.astype(np.uint8), device=dev)
         self.has_missing = has_missing.astype(bool)
-        self.pool = torch.empty((n_trees * HIST_SLOTS, bins.shape[0], N_BINS, 3), dtype=torch.float64, device=dev)
+        self.pool = torch.empty((n_trees * HIST_SLOTS, f, N_BINS, 3), dtype=torch.float64, device=dev)
+        self.upload = _Upload(dev)
         self.dev = dev
 
 
 def _grow_trees(est, ctx: _Context, g: torch.Tensor, h: torch.Tensor):
-    """The K trees of one iteration, grown together. Returns (trees, node
-    ids (K, n) of each row's leaf)."""
-    dev, n, n_trees = ctx.dev, ctx.n, g.shape[1]
-    ids = torch.zeros((n_trees, n), dtype=torch.int32, device=dev)
+    """The K trees of one iteration, grown together from (K, n) gradients
+    and hessians. Returns (trees, node ids (K, n) of each row's leaf)."""
+    n, n_trees = ctx.n, g.shape[0]
+    ids = torch.zeros((n_trees, n), dtype=torch.int32, device=ctx.dev)
     trees = [_Tree(k, k * HIST_SLOTS) for k in range(n_trees)]
     msl = MIN_SAMPLES_LEAF
 
-    def find(jobs):
+    def send(splits, tasks, jobs):
+        """One upload of a round's splits, histogram tasks and jobs' slots
+        and node descriptions (a root's sums come from the split search)."""
+        return ctx.upload.send([
+            np.asarray(splits, np.int32).reshape(-1, 7), np.asarray(tasks, np.int32).reshape(-1, TASK_WIDTH),
+            np.asarray([node.slot for _, node in jobs], np.int32),
+            np.asarray([[node.n, node.sum_g, node.sum_h, node.value, float(node.depth == 0)] for _, node in jobs],
+                       np.float64).reshape(-1, NODE_WIDTH)])
+
+    def find(jobs, slots, info):
         """The split search of (tree, node) jobs, whose histograms are in
         their slots; one host read of the records."""
         if not jobs:
             return
-        slots = torch.as_tensor([node.slot for _, node in jobs], dtype=torch.int32)
-        info = torch.as_tensor([[node.n, node.sum_g, node.sum_h, node.value, float(node.depth == 0)]
-                                for _, node in jobs], dtype=torch.float64).reshape(-1, NODE_WIDTH)
-        recs = gbm_best_split(ctx.pool, slots.to(dev), info.to(dev), ctx.nbnm, ctx.miss).cpu().numpy()
+        recs = gbm_best_split(ctx.pool, slots, info, ctx.nbnm, ctx.miss).cpu().numpy()
         est.host_reads_ += 1
         for (tree, node), rec in zip(jobs, recs):
             node.rec = rec
@@ -340,16 +394,17 @@ def _grow_trees(est, ctx: _Context, g: torch.Tensor, h: torch.Tensor):
         return trees, ids
     for t, r in zip(trees, roots):
         r.slot = t.free.pop()
-    gbm_histograms(ctx.bins, g, h, ids, torch.as_tensor([[t.k, 0, r.slot] for t, r in zip(trees, roots)],
-                                                         dtype=torch.int32), ctx.pool)
-    find(list(zip(trees, roots)))
+    jobs = list(zip(trees, roots))
+    _, tasks, slots, info = send([], [[t.k, 0, r.slot, -1] for t, r in jobs], jobs)
+    gbm_histograms(ctx.bins, g, h, ids, tasks, ctx.pool)
+    find(jobs, slots, info)
     for t, r in zip(trees, roots):
         if r.sum_h < MIN_HESSIAN or r.rec[0] <= 0:
             t.leaf(r)
         else:
             heapq.heappush(t.heap, r)
 
-    def pop(t, splits, brute, subtract, jobs) -> bool:
+    def pop(t, splits, tasks, jobs) -> bool:
         """sklearn's ``split_next`` for tree ``t``: True where a child
         needs a histogram and a split search (queued here), so that the
         tree's next pop waits for them."""
@@ -379,12 +434,12 @@ def _grow_trees(est, ctx: _Context, g: torch.Tensor, h: torch.Tensor):
             return False
         small, large = (left, right) if left.n < right.n else (right, left)
         small.slot = t.free.pop()
-        brute.append((t.k, small.id, small.slot))
-        if not large.is_leaf:
+        if not large.is_leaf:  # the parent's slot becomes parent - small
             large.slot = parent_slot
-            subtract.append((parent_slot, small.slot))
+            tasks.append((t.k, small.id, small.slot, parent_slot))
         else:
             t.free.append(parent_slot)
+            tasks.append((t.k, small.id, small.slot, -1))
         for child in (left, right):
             if not child.is_leaf:
                 jobs.append((t, child))
@@ -400,18 +455,15 @@ def _grow_trees(est, ctx: _Context, g: torch.Tensor, h: torch.Tensor):
         # Each tree pops until a split needs its children searched: a split
         # whose children are both leaves pushes nothing, so the next pop
         # sees the heap sklearn's would.
-        splits, brute, subtract, jobs = [], [], [], []
+        splits, tasks, jobs = [], [], []
         for t in growing:
-            while t.heap and not pop(t, splits, brute, subtract, jobs):
+            while t.heap and not pop(t, splits, tasks, jobs):
                 pass
-        _apply_splits(ctx, ids, splits)
-        if brute:
-            gbm_histograms(ctx.bins, g, h, ids, torch.as_tensor(brute, dtype=torch.int32), ctx.pool)
-        if subtract:
-            par = torch.as_tensor([p for p, _ in subtract], device=dev)
-            sib = torch.as_tensor([s for _, s in subtract], device=dev)
-            ctx.pool[par] = ctx.pool[par] - ctx.pool[sib]
-        find(jobs)
+        split_arr, task_arr, slots, info = send(splits, tasks, jobs)
+        _apply_splits(ctx, ids, split_arr)
+        if tasks:
+            gbm_histograms(ctx.bins, g, h, ids, task_arr, ctx.pool)
+        find(jobs, slots, info)
         for t, child in jobs:
             if child.rec[0] <= 0:
                 t.leaf(child)
@@ -420,16 +472,17 @@ def _grow_trees(est, ctx: _Context, g: torch.Tensor, h: torch.Tensor):
     return trees, ids
 
 
-def _apply_splits(ctx: _Context, ids: torch.Tensor, splits) -> None:
+def _apply_splits(ctx: _Context, ids: torch.Tensor, s: torch.Tensor) -> None:
     """Move the rows of each split node to its left or right child:
     ``sample_goes_left`` (bin <= threshold, or missing and sent left). A
-    tree may split several nodes at once; their rows are disjoint."""
-    if not splits:
+    tree may split several nodes at once; their rows are disjoint. ``s``:
+    (S, 7) int32 on the device, (tree, node, feature, bin, missing left,
+    left id, right id)."""
+    if not len(s):
         return
-    s = torch.as_tensor(splits, dtype=torch.int32).to(ctx.dev)
     k = s[:, 0].long()
     parent, b, ml, lid, rid = (s[:, i:i + 1] for i in (1, 3, 4, 5, 6))
-    col = ctx.bins[s[:, 2].long()].to(torch.int32)  # (S, n)
+    col = ctx.bins[:, s[:, 2].long()].T.to(torch.int32)  # (S, n)
     go_left = (col <= b) | ((ml > 0) & (col == MISSING_BIN))
     moved = torch.where(ids[k] == parent, torch.where(go_left, lid, rid), -1)  # -1: not that node's row
     new = torch.full_like(ids, -1).scatter_reduce_(0, k[:, None].expand_as(moved), moved, "amax")
@@ -567,8 +620,7 @@ class HistGradientBoostingClassifier:
         self._bin_mapper = BinMapper(random_state=self._random_seed).fit(x_train)
         bins_np = self._bin_mapper.transform(x_train)
         has_missing = (bins_np == MISSING_BIN).any(axis=1)
-        ctx = _Context(torch.as_tensor(bins_np, device=dev), self._bin_mapper.n_bins_non_missing_, has_missing,
-                       n_trees, dev)
+        ctx = _Context(bins_np, self._bin_mapper.n_bins_non_missing_, has_missing, n_trees, dev)
         self._baseline_prediction = _baseline(y_train, n_trees)
         base = torch.as_tensor(self._baseline_prediction, device=dev)
         y_t = torch.as_tensor(y_train, device=dev)
@@ -596,7 +648,7 @@ class HistGradientBoostingClassifier:
         thresholds, nbnm = self._bin_mapper.bin_thresholds_, self._bin_mapper.n_bins_non_missing_
         for _ in range(self.max_iter):
             g, h = gradient_hessian(y_t, raw)
-            trees, ids = _grow_trees(self, ctx, g.contiguous(), h.contiguous())
+            trees, ids = _grow_trees(self, ctx, g.T.contiguous(), h.T.contiguous())
             values = torch.zeros((n_trees, max(len(t.nodes) for t in trees)), dtype=torch.float64)
             first = len(self._ensemble.roots)
             for t in trees:

@@ -10,19 +10,27 @@ node and, with ``index_add_``, float sums whose order changes from run to
 run on CUDA. Each kernel keeps sklearn's order of additions, so that a fit
 gives sklearn's trees and two fits on the card give the same bits:
 
-- :func:`gbm_histograms`: for each (tree, node) task, the float64 sums of
-  the float32 gradients and hessians and the row count in every (feature,
-  bin), each bin's rows added in ascending row order (sklearn's
-  ``_build_histogram``). A row belongs to the node its tree's ``node_ids``
-  entry names. Bound: the uint8 bins of the node's rows and their g and h
-  (bytes).
+- :func:`gbm_histograms`: for each (tree, node, slot, parent) task, the
+  float64 sums of the float32 gradients and hessians and the row count in
+  every (feature, bin), each bin's rows added in ascending row order
+  (sklearn's ``_build_histogram``); where the task names a parent slot, the
+  parent's histograms then become parent minus this child (sklearn's
+  ``_subtract_histograms``: the larger sibling). A row belongs to the node
+  its tree's ``node_ids`` entry names. A CTA is a task and
+  ``HIST_FEATURES`` features: it walks the tree's node ids once, stages the
+  node's rows (their g, h and the group's bins, one 16-byte slice of a
+  row-major bin row) in shared memory, and a warp a feature adds them.
+  Bound: the node rows' bins, g and h read once and the histograms written
+  once, the parent's read and written once (bytes).
 - :func:`gbm_best_split`: for each task, every feature's bins scanned left
   to right (and right to left when the feature has missing values) with
   sklearn's gain and its ``min_samples_leaf`` / ``min_hessian_to_split``
   rules (``splitting.pyx``), the first feature of the largest gain. A root
   task forms the node's sums from its first feature's bins in numpy's
   pairwise order, as sklearn's ``histogram_array["sum_gradients"].sum()``
-  does. Bound: one read of the tasks' histograms (bytes).
+  does. A CTA stages ``SPLIT_FEATURES`` histograms in shared memory and a
+  thread scans each (feature, direction) from there. Bound: one read of
+  the tasks' histograms (bytes).
 - :func:`gbm_predict`: each row through every tree of the given iterations,
   the leaf values added into float64 raw predictions in iteration order
   (sklearn's ``_raw_predict``). Bound: the rows' features read once
@@ -48,6 +56,12 @@ RECORD_WIDTH = len(RECORD)
 # Columns of a task's node description (float64): rows, sum of g, sum of h,
 # value, and 1 for a root (whose sums the split search forms itself).
 NODE_WIDTH = 5
+# Columns of a histogram task (int32): tree, node, slot, and the parent's
+# slot to subtract the histograms from (-1: none).
+TASK_WIDTH = 4
+# Features a CTA of gbm_histograms (csrc/gbm.cu kHistFeatures): the bins'
+# rows are padded to a multiple of it.
+HIST_FEATURES = 16
 # sklearn's defaults, at which the JAX package fits: a child needs this many
 # rows and this sum of hessians; no L2 penalty on the leaf values.
 MIN_SAMPLES_LEAF = 20
@@ -72,14 +86,21 @@ def _pairwise_sum_256(x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 
+def padded_width(f: int) -> int:
+    """The row width of the bins that :func:`gbm_histograms` takes for
+    ``f`` features: a multiple of ``HIST_FEATURES``."""
+    return -(-f // HIST_FEATURES) * HIST_FEATURES
+
+
 def gbm_histograms_plain(bins: torch.Tensor, g: torch.Tensor, h: torch.Tensor, node_ids: torch.Tensor,
                          tasks: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
     """The arguments and result of :func:`gbm_histograms`: every task's
     (feature, bin) sums by one 1-d ``index_add_`` a component, which adds
     in index order on the CPU (on CUDA it adds by atomics, in no fixed
     order). The entries run task by task and row by row (ascending), so
-    each bin's rows are added in ascending order."""
-    f = bins.shape[0]
+    each bin's rows are added in ascending order. Then each task with a
+    parent slot subtracts its histograms from the parent's."""
+    f = pool.shape[1]
     dev = bins.device
     tasks = tasks.to(dev, torch.int64)
     t = tasks.shape[0]
@@ -88,13 +109,18 @@ def gbm_histograms_plain(bins: torch.Tensor, g: torch.Tensor, h: torch.Tensor, n
     member = node_ids[tasks[:, 0]] == tasks[:, 1:2].to(node_ids.dtype)  # (T, n)
     t_idx, rows = torch.nonzero(member, as_tuple=True)  # task-major, rows ascending
     trees = tasks[t_idx, 0]
-    flat = ((t_idx[:, None] * f + torch.arange(f, device=dev)[None, :]) * N_BINS + bins[:, rows].T.long()).flatten()
+    flat = ((t_idx[:, None] * f + torch.arange(f, device=dev)[None, :]) * N_BINS + bins[rows, :f].long()).flatten()
     out = torch.empty((t * f * N_BINS, 3), dtype=torch.float64, device=dev)
-    for c, src in enumerate((g[rows, trees], h[rows, trees], torch.ones(len(rows), dtype=torch.float32, device=dev))):
+    for c, src in enumerate((g[trees, rows], h[trees, rows], torch.ones(len(rows), dtype=torch.float32, device=dev))):
         col = torch.zeros(t * f * N_BINS, dtype=torch.float64, device=dev)
         col.index_add_(0, flat, src.to(torch.float64)[:, None].expand(-1, f).flatten())
         out[:, c] = col
-    pool[tasks[:, 2]] = out.view(t, f, N_BINS, 3)
+    out = out.view(t, f, N_BINS, 3)
+    pool[tasks[:, 2]] = out
+    sub = tasks[:, 3] >= 0
+    if bool(sub.any()):
+        parents = tasks[sub, 3]
+        pool[parents] = pool[parents] - out[sub]
     return pool
 
 
@@ -119,7 +145,8 @@ def gbm_best_split_plain(pool: torch.Tensor, slots: torch.Tensor, nodes: torch.T
     """The arguments and result of :func:`gbm_best_split`: the scans as
     sequential cumulative sums over the bins (a CPU ``cumsum``), sklearn's
     ``continue`` / ``break`` rules as masks (a break holds for every later
-    bin of the scan)."""
+    bin of the scan), each direction's best apart, the right-to-left one
+    taken where its gain is strictly larger."""
     hist = pool[slots.long()]  # (T, F, 256, 3)
     dev = pool.device
     nodes = nodes.clone()
@@ -145,10 +172,11 @@ def gbm_best_split_plain(pool: torch.Tensor, slots: torch.Tensor, nodes: torch.T
     ok = (bins < nbnm - 1 + miss.long()) & enough_l & enough_r & (hl >= mh) & (hr >= mh)
     ok &= torch.cumsum(brk & (bins < nbnm - 1 + miss.long()), dim=-1) == 0
     gain, bin_ = _scan_best(_gains(gl, hl, gr, hr, loss_node), ok)
-    found = gain > 0
-    best = {"gain": torch.where(found, gain, -1.0), "bin": bin_, "missing_left": torch.zeros_like(found),
-            "gl": gl.gather(-1, bin_[..., None])[..., 0], "hl": hl.gather(-1, bin_[..., None])[..., 0],
-            "nl": nl.gather(-1, bin_[..., None])[..., 0]}
+    found = gain > 0  # else the kernel's empty best: gain -1, bin 0, sums 0
+    best = {"gain": torch.where(found, gain, -1.0), "bin": torch.where(found, bin_, 0),
+            "missing_left": torch.zeros_like(found),
+            **{key: torch.where(found, v.gather(-1, bin_[..., None])[..., 0], 0.0)
+               for key, v in (("gl", gl), ("hl", hl), ("nl", nl))}}
 
     # Right to left over bins nbnm - 2 .. 0, missing values left (features
     # with missing values only): the right side of a split after bin b sums
@@ -214,8 +242,8 @@ def gbm_predict_plain(x: torch.Tensor, feature: torch.Tensor, threshold: torch.T
 # --------------------------------------------------------------------------- #
 
 
-# Features a CTA of the split search scans (csrc/gbm.cu kSplitThreads).
-SPLIT_FEATURES = 64
+# Features a CTA of the split search scans (csrc/gbm.cu kSplitFeatures).
+SPLIT_FEATURES = 8
 _COUNTERS = {}
 
 
@@ -244,26 +272,32 @@ def _check_cuda(name: str, tensors) -> None:
 
 def gbm_histograms(bins: torch.Tensor, g: torch.Tensor, h: torch.Tensor, node_ids: torch.Tensor,
                    tasks: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
-    """Histograms of (tree, node) tasks into slots of ``pool``.
+    """Histograms of (tree, node) tasks into slots of ``pool``, and the
+    larger siblings' by subtraction.
 
     Args:
-        bins: (F, n) uint8, the binned features, feature-major.
-        g, h: (n, K) float32 gradients and hessians, a column a tree.
+        bins: (n, Fp) uint8, the binned features, row-major, Fp =
+            ``padded_width(F)`` (columns past F unread).
+        g, h: (K, n) float32 gradients and hessians, a row a tree.
         node_ids: (K, n) int32, each row's node in each tree.
-        tasks: (T, 3) int32 (tree, node, slot) on the host or the device.
+        tasks: (T, TASK_WIDTH) int32 (tree, node, slot, parent slot or -1)
+            on the host or the device.
         pool: (S, F, 256, 3) float64; slot ``slot`` receives the task's
-            (sum g, sum h, count) of every (feature, bin).
+            (sum g, sum h, count) of every (feature, bin); then, where the
+            task has a parent slot, that slot becomes itself minus them.
 
     Returns ``pool``."""
     if bins.dtype != torch.uint8 or g.dtype != torch.float32 or h.dtype != torch.float32:
         raise TypeError("gbm_histograms takes uint8 bins and float32 g, h")
     if node_ids.dtype != torch.int32 or pool.dtype != torch.float64:
         raise TypeError("gbm_histograms takes int32 node ids and a float64 pool")
-    f, n = bins.shape
-    k = g.shape[1]
-    if g.shape != (n, k) or h.shape != (n, k) or node_ids.shape != (k, n) or pool.shape[1:] != (f, N_BINS, 3):
+    n, fp = bins.shape
+    f = pool.shape[1]
+    k = g.shape[0]
+    if g.shape != (k, n) or h.shape != (k, n) or node_ids.shape != (k, n) or pool.shape[2:] != (N_BINS, 3) \
+            or fp != padded_width(f) or tasks.shape[1:] != (TASK_WIDTH,):
         raise ValueError(f"gbm_histograms: shapes bins {tuple(bins.shape)}, g {tuple(g.shape)}, "
-                         f"node_ids {tuple(node_ids.shape)}, pool {tuple(pool.shape)}")
+                         f"node_ids {tuple(node_ids.shape)}, tasks {tuple(tasks.shape)}, pool {tuple(pool.shape)}")
     if bins.device.type == "cpu":
         return gbm_histograms_plain(bins, g, h, node_ids, tasks.cpu(), pool)
     if bins.device.type != "cuda":
@@ -271,12 +305,12 @@ def gbm_histograms(bins: torch.Tensor, g: torch.Tensor, h: torch.Tensor, node_id
     tasks = tasks.to(bins.device, torch.int32).contiguous()
     _check_cuda("gbm_histograms", (bins, g, h, node_ids, tasks, pool))
     t = tasks.shape[0]
-    if t == 0:
+    if t == 0 or n == 0:
         return pool
     with torch.cuda.device(bins.device):
         err = cuda_build.load("gbm").gbm_histograms_launch(
             bins.data_ptr(), g.data_ptr(), h.data_ptr(), node_ids.data_ptr(), tasks.data_ptr(), pool.data_ptr(),
-            n, f, k, t, _stream(bins))
+            n, f, fp, t, _stream(bins))
     if err != 0:
         raise RuntimeError(f"gbm_histograms launch failed with CUDA error {err} (n={n}, F={f}, K={k}, T={t})")
     gbm_histograms.launches += 1

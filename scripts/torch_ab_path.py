@@ -1,6 +1,7 @@
 """A/B of the port between two trees on one CUDA GPU: the serving path's
 seconds, the RecurrentBlock's time at several latents, the GRU layer's
-backward at the training shapes, and the HMM and Kalman/RTS kernels.
+backward at the training shapes, the HMM and Kalman/RTS kernels, and the
+gradient-boosted tree fit.
 
     python3 scripts/torch_ab_path.py --path ROOT
     python3 scripts/torch_ab_path.py --blocks ROOT [--latents 4 8 16 64]
@@ -8,6 +9,7 @@ backward at the training shapes, and the HMM and Kalman/RTS kernels.
     python3 scripts/torch_ab_path.py --hmm ROOT
     python3 scripts/torch_ab_path.py --softcounts ROOT
     python3 scripts/torch_ab_path.py --kalman ROOT [--chunks 32 64 107 213]
+    python3 scripts/torch_ab_path.py --gbm ROOT
     python3 scripts/torch_ab_path.py --summarize A.jsonl B.jsonl
 
 ``--path`` drives the serving path of chip_smoke.py through ROOT's own
@@ -63,13 +65,30 @@ it times each chunk length L instead of the tree's own plan (``ms``
 only), each call's output held against the tree's own plan's at 1e-5 of
 max(1, |value|).
 
-All six print the card's name and power limit, then one JSON line.
+``--gbm`` times, through ROOT's own ``ops.gbm_kernels``, the tree fit's
+histogram and split kernels at chip_smoke.py's three seeded rounds
+(``GBM_SHAPES``, built by this tree's ``_gbm_round``) of the real fit's
+``GBM_SIZE`` (26,712 rows, 495 features, 10 trees): the histograms with
+their siblings' subtraction (``hist_ms``: in the kernel, or a tree's kernel
+then its torch subtraction; ``hist_kernel_ms``: the kernel alone), and
+the split search over the round's children; CUDA events over 5 calls after a warm one, and a digest
+of each output (equal digests: equal bits across trees). Then one full
+detector fit at ``scripts/torch_detectors_phase.py``'s seeded shapes
+(ROOT's own script and ``posthoc._make_cluster_detector``), once as it
+runs and once under ``torch.profiler``: wall seconds, the device's busy
+share, each tree-fit kernel's device ms and launches, host-to-device
+copies, rounds (split launches) and, a round, launches and uploads.
+
+All seven print the card's name and power limit, then one JSON line.
 
 ``--summarize`` reads files of JSON lines, one file per tree, each line
 either a stage line (chip_smoke.py's or --path's, the one with "total_s")
-or a --blocks, --backward, --hmm, --softcounts or --kalman line, written in turns (A, B, B, A, ...). Prints per file the
+or a --blocks, --backward, --hmm, --softcounts, --kalman or --gbm line,
+written in turns (A, B, B, A, ...). Prints per file the
 median and quartiles of the path's seconds (the first run's too, where the
-lines have it), embed seconds and frames/s, and the median block times;
+lines have it), embed seconds and frames/s, and the median block times
+(with --gbm lines, whether each tree's runs gave the same digests, and
+with two files, which digests the trees share);
 with two files, how many of the paired runs (the k-th line of one file
 against the k-th of the other) each tree won. A call on the card, with the
 other tree unpacked into the git-ignored build/parent:
@@ -101,7 +120,10 @@ HMM_SHAPES = [(n, t, k) for n, t in ((3, 26976), (24, 45000)) for k in (10, 25, 
 # (T, C) of kalman_rts's calls: one and two animals of a public recording,
 # one animal of a 2-hour recording.
 KALMAN_SHAPES = [(45000, 28), (45000, 56), (180000, 28)]
-MODES = ("blocks", "backward", "hmm", "softcounts", "kalman")
+MODES = ("blocks", "backward", "hmm", "softcounts", "kalman", "gbm")
+# (n, F, K) of the tree fit's rounds: the full detector's fit on the real
+# cohort (its 26,712 training rows after SMOTE, 495 statistics, 10 labels).
+GBM_SIZE = (26_712, 495, 10)
 SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's ~1.98 GHz boost clock
 SOFTCOUNT_REPS = 3
 
@@ -278,13 +300,138 @@ def softcounts(root: str, card: str) -> dict:
             "lab_msm_steps": lab["msm"]["minibatch_steps_and_host_reads"]}
 
 
+def _module_at(name: str, path: str):
+    """The module in the file at ``path``, imported as ``name``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def gbm(root: str) -> tuple:
+    """ROOT's tree-fit kernels at the three seeded rounds, then one full
+    detector fit plain and profiled. Returns (numbers, digests)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import hashlib
+    import time
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepof_tpu_torch import posthoc as ph
+    from deepof_tpu_torch.ops import cuda_build
+    from deepof_tpu_torch.ops import gbm_kernels as gk
+
+    here = _module_at("chip_smoke_here", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                                       "chip_smoke.py"))
+    phase = _module_at("detectors_phase_root", os.path.join(os.path.abspath(root), "scripts",
+                                                            "torch_detectors_phase.py"))
+    cuda_build.load("gbm")
+    fused = hasattr(gk, "TASK_WIDTH")  # the parent's kernel takes (tree, node, slot) and bins (F, n)
+    n, f, k = GBM_SIZE
+    dev = torch.device("cuda")
+    out, digests = {}, {}
+
+    def digest(t):
+        return hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    for shape, share in here.GBM_SHAPES.items():
+        r = here._gbm_round(n, f, k, share)
+        g, h = (torch.as_tensor(r[c], device=dev) for c in ("g", "h"))
+        if fused:
+            bins = torch.zeros((n, gk.padded_width(f)), dtype=torch.uint8, device=dev)
+            bins[:, :f] = torch.as_tensor(r["bins"], device=dev).T
+        else:
+            bins = torch.as_tensor(r["bins"], device=dev)
+            g, h = g.T.contiguous(), h.T.contiguous()
+        *setup, (ids_np, tasks_np) = r["rounds"]
+        ids = torch.as_tensor(ids_np, device=dev)
+        tasks = torch.as_tensor(tasks_np if fused else tasks_np[:, :3], device=dev)
+        sub = tasks_np[:, 3] >= 0
+        par = torch.as_tensor(tasks_np[sub, 3], device=dev).long()
+        sib = torch.as_tensor(tasks_np[sub, 2], device=dev).long()
+        pool = torch.zeros((2 * k, f, gk.N_BINS, 3), dtype=torch.float64, device=dev)
+        for ids_s, tasks_s in setup:
+            gk.gbm_histograms(bins, g, h, torch.as_tensor(ids_s, device=dev),
+                              torch.as_tensor(tasks_s if fused else tasks_s[:, :3], device=dev), pool)
+        start = pool.clone()
+
+        def kernel():
+            gk.gbm_histograms(bins, g, h, ids, tasks, pool)
+
+        def with_subtraction():
+            kernel()
+            if not fused and len(par):
+                pool[par] = pool[par] - pool[sib]
+
+        pool.copy_(start)
+        with_subtraction()
+        digests[f"{shape}_hist"] = digest(pool)
+        out[f"{shape}_hist_ms"] = _ms(torch, with_subtraction, reps=5, warmup=1, spin=True)
+        out[f"{shape}_hist_kernel_ms"] = _ms(torch, kernel, reps=5, warmup=1, spin=True)
+        pool.copy_(start)
+        with_subtraction()
+        checked = pool.cpu()
+        slots, nodes = here._gbm_split_jobs(checked, ids_np, tasks_np, n)
+        slots, nodes = slots.to(dev), nodes.to(dev)
+        nbnm = torch.as_tensor(r["nbnm"], device=dev)
+        miss = torch.as_tensor(r["has_missing"].astype(np.uint8), device=dev)
+        digests[f"{shape}_split"] = digest(gk.gbm_best_split(pool, slots, nodes, nbnm, miss))
+        out[f"{shape}_split_ms"] = _ms(torch, lambda: gk.gbm_best_split(pool, slots, nodes, nbnm, miss), reps=5,
+                                       warmup=1, spin=True)
+        del bins, g, h, pool, start
+        torch.cuda.empty_cache()
+
+    chunks, _, _ = phase.seeded_inputs()
+    stats, y, _ = chunks
+    for profiled in (False, True):
+        np.random.seed(0)
+        clf = ph._make_cluster_detector(0)
+        torch.cuda.synchronize()
+        if not profiled:
+            t0 = time.perf_counter()
+            clf.fit(stats.values, y)
+            torch.cuda.synchronize()
+            out["fit_s"] = time.perf_counter() - t0
+            continue
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            clf.fit(stats.values, y)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    est = clf.named_steps["classifier"].estimator_
+    busy_us, launches, copies = 0.0, 0, 0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        if e.device_type.name != "CUDA" or dev_us <= 0:
+            continue
+        busy_us += dev_us
+        if e.key.startswith("Memcpy HtoD"):
+            copies += e.count
+        elif not e.key.startswith(("Memcpy", "Memset")):
+            launches += e.count
+        for name in ("gbm_histograms", "gbm_best_split", "gbm_predict"):
+            if name in e.key:
+                out[f"fit_{name}_ms"] = out.get(f"fit_{name}_ms", 0.0) + dev_us / 1e3
+                out[f"fit_{name}_launches"] = out.get(f"fit_{name}_launches", 0) + e.count
+    rounds = max(out.get("fit_gbm_best_split_launches", 0), 1)
+    out.update({"fit_profiled_s": wall, "fit_device_busy_share": busy_us / 1e6 / wall, "fit_n_iter": est.n_iter_,
+                "fit_train_rows": est.n_train_, "fit_host_reads": est.host_reads_, "fit_rounds": rounds,
+                "fit_launches_per_round": launches / rounds, "fit_h2d_copies": copies,
+                "fit_uploads_per_round": copies / rounds})
+    return out, digests
+
+
 def _quartiles(v):
     q = statistics.quantiles(v, n=4) if len(v) > 1 else [v[0]] * 3
     return {"median": q[1], "q1": q[0], "q3": q[2]}
 
 
 def summarize(paths) -> dict:
-    out, paths_runs = {}, []
+    out, paths_runs, paths_digests = {}, [], []
     for path in paths:
         lines = [json.loads(line) for line in open(path) if line.startswith("{")]
         runs = [r for r in lines if "total_s" in r]
@@ -302,7 +449,14 @@ def summarize(paths) -> dict:
             res["first_frames_per_s"] = _quartiles([r["first_frames_per_s"] for r in firsts])
         for key in blocks_[0] if blocks_ else []:
             res[key] = statistics.median(b[key] for b in blocks_)
+        digests = [r["digests"] for r in lines if "digests" in r]
+        if digests:  # --gbm: every run of a tree gives the same bits
+            res["digests_agree"] = all(d == digests[0] for d in digests)
+            paths_digests.append(digests[0])
         out[path] = res
+    if len(paths_digests) == 2:
+        out["digests_equal_across_trees"] = {key: paths_digests[0][key] == paths_digests[1].get(key)
+                                             for key in paths_digests[0]}
     if len(paths) == 2:
         a, b = paths_runs
         pairs = list(zip(a, b))
@@ -323,6 +477,7 @@ def main() -> int:
     ap.add_argument("--hmm", metavar="ROOT", help="tree whose HMM scan to time")
     ap.add_argument("--softcounts", metavar="ROOT", help="tree whose soft-count phase to time")
     ap.add_argument("--kalman", metavar="ROOT", help="tree whose Kalman/RTS kernel to time")
+    ap.add_argument("--gbm", metavar="ROOT", help="tree whose tree-fit kernels and fit to time")
     ap.add_argument("--chunks", type=int, nargs="+", help="with --kalman: chunk lengths to time")
     ap.add_argument("--latents", type=int, nargs="+", default=[4, 8, 16, 64])
     ap.add_argument("--summarize", metavar="FILE", nargs="+", help="files of JSON lines, one per tree")
@@ -330,8 +485,8 @@ def main() -> int:
     if args.summarize:
         print(json.dumps(summarize(args.summarize), indent=1))
         return 0
-    if not (args.blocks or args.path or args.backward or args.hmm or args.softcounts or args.kalman):
-        ap.error("--blocks, --path, --backward, --hmm, --softcounts, --kalman or --summarize is required")
+    if not (args.blocks or args.path or args.backward or args.hmm or args.softcounts or args.kalman or args.gbm):
+        ap.error("--blocks, --path, --backward, --hmm, --softcounts, --kalman, --gbm or --summarize is required")
     import torch
 
     if not torch.cuda.is_available():
@@ -348,6 +503,9 @@ def main() -> int:
         print(json.dumps({"root": args.hmm, "card": card, "hmm": hmm(args.hmm)}), flush=True)
     elif args.kalman:
         print(json.dumps({"root": args.kalman, "card": card, "kalman": kalman(args.kalman, args.chunks)}), flush=True)
+    elif args.gbm:
+        numbers, digests = gbm(args.gbm)
+        print(json.dumps({"root": args.gbm, "card": card, "gbm": numbers, "digests": digests}), flush=True)
     elif args.softcounts:
         print(json.dumps({"root": args.softcounts, "card": card, "softcounts": softcounts(args.softcounts, card)}),
               flush=True)

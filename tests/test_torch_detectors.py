@@ -11,8 +11,9 @@ the CPU (plain versions of the tree-fit kernels, one torch thread).
   distinct values, many, constant; all-NaN raising) exactly; NaN routing at
   prediction, for a feature with and without missing values in training.
 - The weighted OVO / OVR ROC AUC against ``roc_auc_score`` (ties, binary,
-  a missing class raising as sklearn raises), and ``cross_validate``'s NaN
-  for a fold lacking a class against sklearn's.
+  a missing class raising as sklearn raises), and ``cross_validate``
+  against sklearn's: NaN for a fold lacking a class, and a fold tested on
+  a label it was not trained on, scored with the labels paired by position.
 - Against the JAX package on ``tests/test_posthoc_visuals.py``'s fixture
   (120 x 6, 3 classes, 4 experiments; its folds run in one process):
   ``train_supervised_cluster_detectors`` (equal folds, AUCs within 1e-9,
@@ -197,6 +198,27 @@ def test_cross_validate_nan_for_a_fold_missing_a_class():
         if key.startswith(("test_", "train_")):
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     assert np.isnan(got["test_roc_auc_ovo_weighted"][0]) and np.isfinite(got["test_roc_auc_ovo_weighted"][1])
+
+
+def test_cross_validate_pairs_labels_by_position_like_sklearn():
+    """A fold trained on labels {0, 1, 2} and tested on {0, 1, 3}: as many
+    test labels as classifier columns, so sklearn's scorer pairs them by
+    position and scores the fold; the port's scores equal sklearn's (the
+    other fold's test rows lack a trained label: NaN on both)."""
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(120, 4))
+    y = np.concatenate([rng.choice([0, 1, 3], 40), rng.choice([0, 1, 2], 80)])
+    x[:, 0] += y
+    folds = [(np.arange(40, 120), np.arange(40)), (np.arange(80), np.arange(80, 120))]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = sk_cross_validate(LogisticRegression(), x, y, cv=folds, return_train_score=True,
+                                 scoring=["roc_auc_ovo_weighted", "roc_auc_ovr_weighted"])
+        got = pph.cross_validate(LogisticRegression(), x, y, cv=folds)
+    for key in want:
+        if key.startswith(("test_", "train_")):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert np.isfinite(got["test_roc_auc_ovo_weighted"][0]) and np.isfinite(got["test_roc_auc_ovr_weighted"][0])
 
 
 # --------------------------------------------------------------------------- #
